@@ -1,0 +1,84 @@
+"""Golden-fixture cases for the PyTorch port, in the port's own types.
+
+NOT a test module (no ``test_`` prefix). A copy of the seeded
+``random_trace`` recipe and the ten ``CONFIGS`` of
+``tests/test_packed_state.py``, built from ``repro_torch`` alone so that
+``chip_smoke.py`` can replay ``tests/data/golden_packed_state.json`` on the
+card without the JAX package. ``tests/test_torch_engine.py`` holds this
+copy equal to the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+
+from repro_torch.core.dram import SimConfig, stack_traces
+from repro_torch.core.dram.trace import Trace, WorkloadProfile
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+GOLDEN_PATH = os.path.join(DATA, "golden_packed_state.json")
+FIG4_PATH = os.path.join(DATA, "torch_fig4_n8000.json")
+
+#: Refresh-engaged timing for the ladder's fixture cells.
+REF_TIMING = dataclasses.replace(
+    SimConfig().timing, t_refi=520, t_rfc=80, t_rfc_pb=32, ref_postpone_max=2)
+
+CONFIGS = {
+    "default": dict(),
+    "refresh": dict(refresh=True),
+    "dsarp": dict(refresh=True, dsarp=True),
+    "closed": dict(row_policy="closed"),
+    "closed_refresh": dict(refresh=True, row_policy="closed"),
+    "all_bank": dict(refresh_policy="all_bank"),
+    "dsarp_policy": dict(refresh_policy="dsarp"),
+    "per_bank": dict(refresh_policy="per_bank", timing=REF_TIMING),
+    "darp": dict(refresh_policy="darp", timing=REF_TIMING),
+    "sarp": dict(refresh_policy="sarp", timing=REF_TIMING),
+}
+
+
+def random_trace(seed: int, n: int = 120, nb: int = 8, ns: int = 8,
+                 mlp: int | None = None) -> Trace:
+    """Seeded random trace — the recipe the golden fixture was made with."""
+    rng = np.random.default_rng(seed)
+    banks = rng.integers(0, nb, n)
+    rows = rng.integers(0, 64, n)
+    loc = rng.random()
+    for i in range(1, n):
+        if rng.random() < loc:
+            banks[i], rows[i] = banks[i - 1], rows[i - 1]
+    sas = (rows * 2654435761 >> 11) % ns
+    wr = rng.random(n) < rng.random() * 0.8
+    gaps = rng.integers(0, 30, n)
+    deps = (rng.random(n) < 0.4) & ~wr
+    deps[0] = False
+    return Trace(bank=banks.astype(np.int32), subarray=sas.astype(np.int32),
+                 row=rows.astype(np.int32), is_write=wr,
+                 gap=gaps.astype(np.int32), dep=deps,
+                 mlp_window=mlp if mlp is not None else int(rng.integers(1, 16)),
+                 profile=WorkloadProfile("g", 10, .3, 4, 2, 4, .2, .3))
+
+
+def golden_groups() -> dict[tuple[str, str], list[dict]]:
+    """The fixture's 300 single-core cells grouped by (config, policy), each
+    group's seeds in fixture order (one batched call per group)."""
+    with open(GOLDEN_PATH) as f:
+        cells = json.load(f)["single"]
+    groups: dict[tuple[str, str], list[dict]] = {}
+    for c in cells:
+        groups.setdefault((c["config"], c["policy"]), []).append(c)
+    return groups
+
+
+def golden_stacked(cells: list[dict]) -> dict:
+    return stack_traces([random_trace(c["seed"]) for c in cells])
+
+
+def fig4_fixture() -> dict[tuple[str, str], dict]:
+    """``{(workload, policy): counters}`` of the committed n=8000 grid."""
+    with open(FIG4_PATH) as f:
+        doc = json.load(f)
+    return {(c["workload"], c["policy"]): c["counters"] for c in doc["cells"]}
