@@ -7,27 +7,43 @@ Drives the port (``src/repro_torch``) only; it imports nothing of the JAX
 package. Phases, each of which fails the run (non-zero exit, no result line)
 on any mismatch:
 
-1. card     — the device's name and count, and nvidia-smi's name and power
-              limit; the kernels need compute capability 9.0 and nvcc.
-2. build    — compile every kernel of the path from the sources in the
-              checkout (``-Xptxas -v``: registers, spills).
-3. golden   — the 300 single-core cells of
-              ``tests/data/golden_packed_state.json`` through the lane
-              kernel, bit-exact.
-4. plain    — kernel vs its plain PyTorch version on the card, random traces
-              for every (config, policy) pair, all counters.
-5. fig4     — the main path: the paper's Fig. 4 grid (32 workloads x 5
-              policies x 8000 requests, seed 7) through
-              ``repro_torch.paper_repro.run_fig4`` on the card. Exactly one
-              lane-kernel launch per policy; the counters equal
-              ``tests/data/torch_fig4_n8000.json`` (made by the JAX package)
-              and the plain version on the card.
-6. timing   — CUDA-event times of the kernel and its plain version at the
-              Fig. 4 shapes and at a throughput shape (1024 lanes x 8000
-              requests under MASA), beside the byte bound.
+1. card       — the device's name and count, and nvidia-smi's name and
+                power limit; the kernels need compute capability 9.0 and
+                nvcc.
+2. build      — compile every kernel from the sources in the checkout, one
+                nvcc per source, all at once (``-Xptxas -v``: registers,
+                spills).
+3. golden     — the 300 single-core cells of
+                ``tests/data/golden_packed_state.json`` through the lane
+                kernel, bit-exact.
+4. plain      — lane kernel vs its plain PyTorch version on the card, random
+                traces for every (config, policy) pair, all counters.
+5. mc_golden  — the 88 multicore cells of the same fixture through the mix
+                kernel, counters and per-core cycles bit-exact.
+6. mc_plain   — mix kernel vs its plain version on the card, random mixes:
+                every scheduler x policy under the default config and DARP,
+                every config under FR-FCFS x {BASELINE, MASA}, geometries
+                8x8 and 4x16, C = 1, 2 and 4 (a 1-core mix also equals the
+                lane kernel).
+7. fig4       — main path one: the paper's Fig. 4 grid (32 workloads x 5
+                policies x 8000 requests, seed 7) through
+                ``repro_torch.paper_repro.run_fig4`` on the card. Exactly
+                one lane-kernel launch per policy; the counters equal
+                ``tests/data/torch_fig4_n8000.json`` (made by the JAX
+                package) and the plain version on the card.
+8. multicore  — main path two: ``paper_repro.run_multicore`` (four 4-core
+                mixes x 1500 requests) and ``run_sched`` (x 1000, refresh
+                on) on the card. Exactly 17 mix-kernel and 2 lane-kernel
+                launches; every cell equals
+                ``tests/data/torch_multicore_fixture.json`` (made by the JAX
+                package); MASA under FR-FCFS also equals the plain version.
+9. timing     — CUDA-event times of both kernels and their plain versions at
+                the main paths' shapes and at throughput shapes, beside the
+                byte bound.
 
-The last lines are nvidia-smi's name and power limit, the per-kernel JSON
-record, and ``{"ok": true, "device": {...}}``.
+Each phase prints its seconds. The last lines are nvidia-smi's name and
+power limit, the per-kernel JSON record, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -37,6 +53,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -45,12 +62,20 @@ ROOT = Path(__file__).resolve().parent
 #: non-tensor-core rate, the nearest table entry for the kernel's int32 ops.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_32BIT_OPS_PER_S = 67e12
-#: int32 operations of one open-row, refresh-off step of lane_step.cu
-#: (visibility, the ACT / column max-chains, state and counter updates).
+#: int32 operations of one open-row, refresh-off step of dram_step.cuh's
+#: timing step with its visibility (the ACT / column max-chains, state and
+#: counter updates), and of keying one more head in mix_step.cu (visibility,
+#: open-row read, tiers, compare).
 OPS_PER_STEP = 80
+OPS_PER_HEAD = 40
 
 FIG4_N, FIG4_SEED = 8000, 7
 THROUGHPUT_SEEDS = 32
+#: The mix kernel's throughput shape: the four mixes x 64 seeds, 8000
+#: requests a core, MASA under FR-FCFS.
+MIX_THROUGHPUT_SEEDS, MIX_THROUGHPUT_N = 64, 8000
+#: Mix-kernel and lane-kernel launches of run_multicore + run_sched.
+MULTICORE_LAUNCHES = {"lane_step": 2, "mix_step": 7 + 10}
 
 
 def fail(msg: str) -> None:
@@ -82,12 +107,15 @@ def phase_build():
     from repro_torch.core.dram import cuda_step
 
     t0 = time.perf_counter()
-    path, build_log = cuda_step.build()
-    cuda_step._library()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.2f}s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    built = cuda_step.build()
+    for name in built:
+        cuda_step._library(name)
+    log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
+        f"{time.perf_counter() - t0:.2f}s")
+    for name, (_, build_log) in built.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {name}: {line.strip()}")
 
 
 def phase_golden():
@@ -107,6 +135,111 @@ def phase_golden():
     if bad:
         fail(f"golden: {len(bad)} of {n} cells differ, e.g. {bad[:2]}")
     log(f"[golden] {n} cells bit-exact through the lane kernel")
+
+
+def phase_mc_golden():
+    import torch_cases as tc
+    from repro_torch.core.dram import Policy, simulate_multicore_batch
+    from repro_torch.paper_repro import COUNTERS
+
+    bad, n = [], 0
+    for (cfg, sched, pol), cells in tc.golden_multicore_groups().items():
+        res = simulate_multicore_batch(
+            [tc.golden_mix(c["seed"]) for c in cells], Policy[pol],
+            tc.golden_multicore_config(cfg, sched), device="cuda")
+        for r, c in zip(res, cells):
+            n += 1
+            got = {f: int(getattr(r.shared, f)) for f in COUNTERS}
+            core = [int(x) for x in r.core_cycles]
+            if got != c["counters"] or core != c["core_cycles"]:
+                bad.append((cfg, sched, pol, c["seed"], got, core))
+    if bad:
+        fail(f"mc_golden: {len(bad)} of {n} cells differ, e.g. {bad[:2]}")
+    log(f"[mc_golden] {n} multicore cells bit-exact through the mix kernel")
+
+
+def random_mix_args(config, pol, M: int, C: int, N: int, seed: int):
+    """mix_inputs of M random mixes of C cores on the card."""
+    import torch_cases as tc
+    from repro_torch.core.dram import stack_traces
+    from repro_torch.core.dram.engine import mix_inputs
+
+    st = [stack_traces([tc.random_trace(seed + 17 * m + c, n=N,
+                                        nb=config.n_banks,
+                                        ns=config.n_subarrays)
+                        for c in range(C)]) for m in range(M)]
+    stacked = {k: np.stack([x[k] for x in st]) for k in st[0]}
+    rng = np.random.default_rng(seed)
+    ranks = np.stack([rng.permutation(C) for _ in range(M)]).astype(np.int32)
+    return mix_inputs(stacked, ranks, pol, config, torch.device("cuda"))
+
+
+def mix_kernel_result(args, config):
+    from repro_torch.core.dram import cuda_step
+
+    eff, sched, nb, ns, reqs, mlp, rank = args
+    return cuda_step.simulate_cores(eff, sched, nb, ns, config.timing,
+                                    config.refresh_mode, reqs, mlp, rank,
+                                    closed_row=config.row_policy == "closed")
+
+
+def mix_plain_result(args, config):
+    from repro_torch.core.dram import cuda_step, engine
+
+    eff, sched, nb, ns, reqs, mlp, rank = args
+    sc, vis, maxc = cuda_step.simulate_cores_plain(
+        eff, sched, nb, ns, config.timing, config.refresh_mode, reqs, mlp,
+        rank, closed_row=config.row_policy == "closed")
+    C, N = reqs.shape[1], reqs.shape[2]
+    return engine.result_from_state(C * N, sc, vis.amax(dim=1)), maxc
+
+
+def mix_err(got, ref) -> int:
+    return max(max_abs_diff(got[0], ref[0]),
+               int((got[1].long() - ref[1].long()).abs().max()))
+
+
+def phase_mc_plain() -> int:
+    import torch_cases as tc
+    from repro_torch.core.dram import Policy, Scheduler, SimConfig
+
+    geometries = ((8, 8), (4, 16))
+    cases = []
+    for cfg in ("default", "darp"):
+        for sched in Scheduler:
+            for pol in Policy:
+                cases.append((cfg, sched, pol, 4, 24))
+    for cfg in tc.CONFIGS:
+        for pol in (Policy.BASELINE, Policy.MASA):
+            cases.append((cfg, Scheduler.FRFCFS, pol, 2, 48))
+    for cfg in ("default", "darp", "closed_refresh", "sarp"):
+        cases.append((cfg, Scheduler.FRFCFS, Policy.SALP2, 1, 96))
+    err, n_lane = 0, 0
+    for k, (cfg, sched, pol, C, N) in enumerate(cases):
+        nb, ns = geometries[k % len(geometries)]
+        config = SimConfig(n_banks=nb, n_subarrays=ns, scheduler=sched,
+                           **tc.CONFIGS[cfg])
+        args = random_mix_args(config, pol, 8, C, N, 3000 + 11 * k)
+        got = mix_kernel_result(args, config)
+        e = mix_err(got, mix_plain_result(args, config))
+        if e:
+            fail(f"mc_plain: mix kernel != plain for config {cfg} ({nb}x{ns})"
+                 f", scheduler {sched.name}, policy {pol.name}, C={C}")
+        if C == 1:
+            eff, _, nb_, ns_, reqs, mlp, _ = args
+            lane, lane_max = kernel_result(eff, nb_, ns_, config,
+                                           reqs[:, 0].contiguous(),
+                                           mlp[:, 0].contiguous())
+            if max_abs_diff(lane, got[0]) or not torch.equal(
+                    lane_max, got[1][:, 0]):
+                fail(f"mc_plain: a 1-core mix differs from the lane kernel "
+                     f"for config {cfg}")
+            n_lane += 1
+        err = max(err, e)
+    log(f"[mc_plain] mix kernel == plain on the card for {len(cases)} "
+        f"(config, scheduler, policy, C) cases x 8 mixes; {n_lane} 1-core "
+        f"cases also == the lane kernel")
+    return err
 
 
 def plain_result(eff, nb, ns, config, xs, mlp):
@@ -272,6 +405,130 @@ def phase_throughput(smi: str):
     return dict(B=B, N=N, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms)
 
 
+def mix_bound(M: int, C: int, N: int):
+    """(bound_ms, bound_by) of one mix launch: inputs read once (requests,
+    windows, ranks, timing), outputs written once (counters, vis_prev,
+    max_comp); operations C * N steps a mix, each keying C heads."""
+    from repro_torch.core.dram import state_layout as L
+
+    nbytes = 4 * (M * C * N * L.RQ_F + 2 * M * C + 19
+                  + M * (L.SC_F + 2 * C))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (M * C * N * (OPS_PER_STEP + C * OPS_PER_HEAD)
+             / PEAK_32BIT_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_multicore(smi: str):
+    import torch_cases as tc
+    from repro_torch import interop
+    from repro_torch.core.dram import Policy, Scheduler, SimConfig, cuda_step
+    from repro_torch.core.dram.engine import mix_inputs
+    from repro_torch.core.dram.multicore import _prep_mix
+    from repro_torch import paper_repro as pr
+
+    # ---- the main path, counted
+    cuda_step.reset_launches()
+    t0 = time.perf_counter()
+    mc = pr.run_multicore(pr.MULTICORE_N, FIG4_SEED, device="cuda")
+    sc = pr.run_sched(pr.SCHED_N, FIG4_SEED, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_step.LAUNCHES)
+    log(f"[multicore] run_multicore(n={pr.MULTICORE_N}) + run_sched("
+        f"n={pr.SCHED_N}) on the card: {wall:.3f}s wall incl. trace "
+        f"generation; launches {launches}")
+    if launches != MULTICORE_LAUNCHES:
+        fail(f"multicore: expected launches {MULTICORE_LAUNCHES}, counted "
+             f"{launches}")
+    for per_mix in list(mc.values()) + list(sc.values()):
+        for r in per_mix:
+            if (not r.shared.total_cycles.is_cuda
+                    or r.shared.total_cycles.dtype != torch.int32
+                    or r.core_cycles.shape != (len(pr.MIXES[0]),)):
+                fail("multicore: a result is not an int32 card tensor with "
+                     "one cycle count per core")
+    fixture = tc.multicore_fixture()
+    cells = {("multicore",) + k: v for k, v in pr.mix_cells(mc).items()}
+    cells.update({("sched",) + k: v for k, v in pr.mix_cells(sc).items()})
+    if set(cells) != set(fixture):
+        fail("multicore: cell set differs from the committed fixture")
+    bad = [k for k, v in fixture.items()
+           if cells[k] != {f: v[f] for f in ("counters", "core_cycles",
+                                             "alone_cycles")}]
+    if bad:
+        fail(f"multicore: {len(bad)} of {len(fixture)} cells differ from "
+             f"{Path(tc.MULTICORE_PATH).name}, e.g. {bad[:3]}")
+    log(f"[multicore] all {len(fixture)} cells equal "
+        f"{Path(tc.MULTICORE_PATH).name}")
+    log(pr.multicore_report(pr.multicore_summary(mc), pr.sched_summary(sc)))
+
+    # ---- kernel vs plain at full size (MASA, FR-FCFS); plain timed once
+    def bench_args(pol, sched, n, seeds):
+        prepped = [_prep_mix(pr.mix_traces(m, n, seed))
+                   for seed in seeds for m in pr.MIXES]
+        stacked = {k: np.stack([p[0][k] for p in prepped])
+                   for k in interop.STACKED_FIELDS}
+        ranks = np.stack([p[1] for p in prepped])
+        config = SimConfig(scheduler=sched)
+        return mix_inputs(stacked, ranks, pol, config,
+                          torch.device("cuda")), config
+
+    args, config = bench_args(Policy.MASA, Scheduler.FRFCFS, pr.MULTICORE_N,
+                              [FIG4_SEED])
+    got = mix_kernel_result(args, config)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = mix_plain_result(args, config)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = mix_err(got, ref)
+    if err:
+        fail(f"multicore: kernel and plain differ on the card by up to {err}")
+    log(f"[multicore] MASA FR-FCFS n={pr.MULTICORE_N}: kernel == plain on "
+        f"the card (max abs err {err})")
+
+    # ---- timing at the bench shape (each of run_multicore's points)
+    M, C, N = len(pr.MIXES), len(pr.MIXES[0]), pr.MULTICORE_N
+    points = ([(pol, Scheduler.FRFCFS) for pol in pr.POLICIES]
+              + [(Policy.BASELINE, Scheduler.TCM), (Policy.MASA, Scheduler.TCM)])
+    kernel_ms = []
+    for pol, sched in points:
+        a, cfg = bench_args(pol, sched, N, [FIG4_SEED])
+        kernel_ms.append(time_ms(lambda a=a, c=cfg: mix_kernel_result(a, c),
+                                 reps=10))
+        log(f"[timing] multicore {pol.name:8s} {sched.name:6s} M={M} C={C} "
+            f"N={N}: kernel {kernel_ms[-1]:.4f} ms")
+    ms = sum(kernel_ms) / len(kernel_ms)
+    b_ms, b_by = mix_bound(M, C, N)
+    log(f"[timing] multicore per launch (mean of {len(points)} points): "
+        f"kernel {ms:.4f} ms, plain (MASA FR-FCFS) {plain_ms:.1f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}); {M * C * N / ms * 1e3:.4e} req/s; card {smi}")
+
+    # ---- throughput shape
+    seeds = range(FIG4_SEED, FIG4_SEED + MIX_THROUGHPUT_SEEDS)
+    a, cfg = bench_args(Policy.MASA, Scheduler.FRFCFS, MIX_THROUGHPUT_N, seeds)
+    tM, tN = a[4].shape[0], a[4].shape[2]
+    t_ms = time_ms(lambda: mix_kernel_result(a, cfg), reps=3, warmup=1)
+    tb_ms, _ = mix_bound(tM, C, tN)
+    log(f"[timing] mix throughput MASA FR-FCFS M={tM} C={C} N={tN}: kernel "
+        f"{t_ms:.4f} ms ({tM * C * tN / t_ms * 1e3:.4e} req/s), byte bound "
+        f"{tb_ms:.5f} ms; card {smi}")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, M=M, C=C, N=N,
+                throughput=dict(M=tM, C=C, N=tN, ms=t_ms, bound_ms=tb_ms))
+
+
+def run_phase(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[{name}] phase took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's smoke run needs "
@@ -281,12 +538,15 @@ def main() -> None:
              f"a checkout of the repository")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     t_start = time.perf_counter()
-    name, count, smi = phase_card()
-    phase_build()
-    phase_golden()
-    phase_plain()
-    fig4 = phase_fig4()
-    thr = phase_throughput(smi)
+    name, count, smi = run_phase("card", phase_card)
+    run_phase("build", phase_build)
+    run_phase("golden", phase_golden)
+    run_phase("plain", phase_plain)
+    run_phase("mc_golden", phase_mc_golden)
+    mc_plain_err = run_phase("mc_plain", phase_mc_plain)
+    fig4 = run_phase("fig4", phase_fig4)
+    mc = run_phase("multicore", phase_multicore, smi)
+    thr = run_phase("timing", phase_throughput, smi)
     b_ms, b_by = bound(fig4["B"], fig4["N"])
     log(f"[timing] fig4 per launch (mean of 5 policies): kernel "
         f"{fig4['ms']:.4f} ms, plain {fig4['plain_ms']:.1f} ms, bound "
@@ -296,15 +556,30 @@ def main() -> None:
                                    for m in sys.modules):
         fail("the JAX package was imported")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    lane_launches = {"fig4": fig4["launches"],
+                     "multicore": mc["launches"]["lane_step"]}
     record = {"kernels": [{
         "name": "lane_step", "route": "cuda",
         "source": "src/repro_torch/core/dram/csrc/lane_step.cu",
         "replaces": "src/repro/core/dram/pallas_step.py:92",
-        "launches": fig4["launches"], "max_abs_err": fig4["max_abs_err"],
+        "launches": sum(lane_launches.values()),
+        "launches_by_path": lane_launches,
+        "max_abs_err": fig4["max_abs_err"],
         "ms": fig4["ms"], "plain_ms": fig4["plain_ms"], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
         "shape": f"B={fig4['B']} N={fig4['N']} (Fig. 4, mean of 5 policies)",
-        "throughput": thr}]}
+        "throughput": thr}, {
+        "name": "mix_step", "route": "cuda",
+        "source": "src/repro_torch/core/dram/csrc/mix_step.cu",
+        "replaces": "src/repro/core/dram/pallas_step.py:160",
+        "launches": mc["launches"]["mix_step"],
+        "max_abs_err": max(mc["max_abs_err"], mc_plain_err),
+        "ms": mc["ms"], "plain_ms": mc["plain_ms"],
+        "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
+        "library_ms": None,
+        "shape": f"M={mc['M']} C={mc['C']} N={mc['N']} (run_multicore, "
+                 f"mean of 7 points; plain_ms MASA FR-FCFS)",
+        "throughput": mc["throughput"]}]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

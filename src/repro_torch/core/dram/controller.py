@@ -1,27 +1,32 @@
-"""Memory-controller layer (layer 2 of 3), single-core path, in PyTorch.
+"""Memory-controller layer (layer 2 of 3), in PyTorch.
 
-The port of the C == 1 path of ``repro.core.dram.controller``. One step
-serves one request of every lane (trace) at once:
+The port of ``repro.core.dram.controller``. One step serves one request of
+every lane at once; a lane is one trace (single-core path) or one mix of C
+cores sharing a channel (multicore path):
 
-* **visibility** — when the lane's next request becomes visible to the
+* **visibility** — when a core's next request becomes visible to the
   controller: compute-gap pacing, dependent-load serialization, and the
   ROB/MSHR-bounded request window (request ``i`` waits for request
   ``i - mlp_window``'s completion, read back from a ``_RING``-deep
-  completion ring; ``validate_mlp_window`` guards ``mlp_window < _RING``);
+  completion ring per core; ``validate_mlp_window`` guards
+  ``mlp_window < _RING``);
+* **request scheduling** (multicore) — every step the scheduler
+  (:func:`repro_torch.core.dram.schedulers.request_key`) keys each core's
+  live head request and the controller serves the ``argmin``;
 * **refresh bookkeeping** — per-bank staggered tREFI deadlines under the
   refresh-policy ladder (:mod:`repro_torch.core.dram.refresh`): a due bank
   delays the requests its burst blocks, DARP schedules the bursts
   themselves, and every mode directs the timing layer to close the
   refreshed row(s).
 
-With one core every scheduler serves program order, so there is no
-``request_key`` here; it comes with the multicore path.
-
 :func:`_build_step1` looped over the trace in Python (:func:`run_lanes`) is
-the plain version of the CUDA lane kernel
+the plain version of the CUDA lane kernel, and :func:`_build_stepC` looped
+C * N times (:func:`run_cores`) the plain version of the CUDA mix kernel
 (:mod:`repro_torch.core.dram.cuda_step`). The reference's lane-vectorized
 scan (``_simulate_stacked_lanes``) is an XLA-specific reformulation of the
-same step with bit-identical results; the lane-batched step here covers it.
+single-core step with bit-identical results; the lane-batched step here
+covers it. The reference runs a 1-core mix through its single-core step;
+here every mix takes the C-core step, which is bit-identical with C == 1.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 from repro_torch.core.dram import engine as _engine
 from repro_torch.core.dram import state_layout as L
 from repro_torch.core.dram.policies import Policy
+from repro_torch.core.dram.schedulers import request_key
 from repro_torch.core.dram.timing import DramTiming
 
 _RING = _engine._RING
@@ -74,12 +80,27 @@ def _refresh_table0(B: int, n_banks: int, t: DramTiming, refresh_mode: int,
     return ref
 
 
+def _lanes(table, hb) -> torch.Tensor:
+    """Lane indices that pair with ``hb`` ([B] or [B, C]) to index
+    ``table[lane, bank]``."""
+    lanes = torch.arange(table.shape[0], dtype=torch.long, device=table.device)
+    return lanes if hb.dim() == 1 else lanes[:, None]
+
+
+def _bank_rows(table, hb) -> torch.Tensor:
+    """``table[lane, hb]``: each head's bank row of a ``[B, nb, F]`` table."""
+    return table[_lanes(table, hb), hb.long()]
+
+
 def _refresh_fns(policy: int, t: DramTiming, n_subarrays: int,
                  refresh_mode: int):
     """Build ``(head_visibility, update_ref)`` for one static refresh mode.
 
-    Both act on ``[B]`` lanes: ``ref`` is the ``[B, nb, REF_F]`` table,
-    ``hb/hs/vis/comp`` are ``[B]`` int32 and ``hwr`` ``[B]`` bool. The
+    ``ref`` is the ``[B, nb, REF_F]`` table of ``B`` lanes.
+    ``head_visibility`` takes ``[B]`` heads (one per lane) or ``[B, C]``
+    heads (one per core of each mix) and is a pure read of the table;
+    ``update_ref`` commits one served head per lane (``[B]``). ``hb/hs/vis/
+    comp`` are int32 and ``hwr`` bool. The
     reference's floor divisions only ever see non-negative operands on the
     branch that is kept (deadlines are non-negative and ``avail`` is clamped
     at 0), which the CUDA kernel relies on.
@@ -91,16 +112,15 @@ def _refresh_fns(policy: int, t: DramTiming, n_subarrays: int,
         ``vis`` and the refresh directive (``None`` when refresh is off)."""
         if not refresh_mode:
             return vis, None
-        lanes = torch.arange(ref.shape[0], dtype=torch.long, device=ref.device)
-        refb = ref[lanes, hb.long()]                      # [B, REF_F]
-        busy_end = refb[:, L.REF_BUSY_UNTIL]
+        refb = _bank_rows(ref, hb)                        # [B, (C,) REF_F]
+        busy_end = refb[..., L.REF_BUSY_UNTIL]
         if refresh_mode in (1, 2):
             # a burst already started by an earlier step still blocks the bank
             busy_blocks = vis < busy_end
             if refresh_mode == 2 and is_masa:
-                busy_blocks = busy_blocks & (hs == refb[:, L.REF_BUSY_TARGET])
+                busy_blocks = busy_blocks & (hs == refb[..., L.REF_BUSY_TARGET])
             vis = torch.where(busy_blocks, busy_end, vis)
-            due = refb[:, L.REF_NEXT_DUE]
+            due = refb[..., L.REF_NEXT_DUE]
             ref_pending = vis >= due
             ref_end = due + t.t_rfc
             ref_target = (due // t.t_refi) % n_subarrays
@@ -117,9 +137,9 @@ def _refresh_fns(policy: int, t: DramTiming, n_subarrays: int,
             sarp = refresh_mode == 5
             busy_blocks = vis < busy_end
             if sarp:
-                busy_blocks = busy_blocks & (hs == refb[:, L.REF_BUSY_TARGET])
+                busy_blocks = busy_blocks & (hs == refb[..., L.REF_BUSY_TARGET])
             vis = torch.where(busy_blocks, busy_end, vis)
-            due = refb[:, L.REF_NEXT_DUE]
+            due = refb[..., L.REF_NEXT_DUE]
             ref_pending = vis >= due
             ref_end = due + t.t_rfc_pb
             ref_target = (due // t.t_refi) % n_subarrays
@@ -132,11 +152,11 @@ def _refresh_fns(policy: int, t: DramTiming, n_subarrays: int,
         # and write shadows; only debt overflowing the window forces bursts
         pmax = t.ref_postpone_max
         vis = torch.where(vis < busy_end, busy_end, vis)  # in-flight burst
-        due, debt = refb[:, L.REF_NEXT_DUE], refb[:, L.REF_DEBT]
+        due, debt = refb[..., L.REF_NEXT_DUE], refb[..., L.REF_DEBT]
         crossings = torch.where(vis >= due, (vis - due) // t.t_refi + 1, 0)
         owed = debt + crossings
         new_due = due + crossings * t.t_refi
-        gap_start = torch.maximum(refb[:, L.REF_LAST_END], busy_end)
+        gap_start = torch.maximum(refb[..., L.REF_LAST_END], busy_end)
         launch = gap_start + t.t_rfc_pb                   # patience window
         avail = torch.clamp_min(vis - launch, 0)          # idle observed past it
         n_idle = torch.minimum(owed, (avail + t.t_rfc_pb - 1) // t.t_rfc_pb)
@@ -156,9 +176,7 @@ def _refresh_fns(policy: int, t: DramTiming, n_subarrays: int,
     def update_ref(ref, directive, hb, vis, comp):
         """Commit each lane's served bank row of the refresh table, in
         place."""
-        lanes = torch.arange(ref.shape[0], dtype=torch.long, device=ref.device)
-        hb = hb.long()
-        old = ref[lanes, hb]                              # [B, REF_F]
+        old = _bank_rows(ref, hb)                         # [B, REF_F]
         if refresh_mode == 4:
             # DARP rows advance unconditionally
             shadow_end = torch.where(directive["shadow"], comp + t.t_rfc_pb, 0)
@@ -176,7 +194,7 @@ def _refresh_fns(policy: int, t: DramTiming, n_subarrays: int,
                 directive["end"], directive["target"],
                 old[:, L.REF_DEBT], old[:, L.REF_LAST_END]], dim=1)
             row_new = torch.where(directive["pending"][:, None], served, old)
-        ref[lanes, hb] = row_new
+        ref[_lanes(ref, hb), hb.long()] = row_new
 
     return head_visibility, update_ref
 
@@ -253,3 +271,116 @@ def run_lanes(policy: int, n_banks: int, n_subarrays: int, t: DramTiming,
         step1(state, i, rows[i])
     return state["scalars"], state["vis_prev"], state["max_comp"]
 
+
+def _stateC_init(M: int, n_banks: int, n_subarrays: int, t: DramTiming,
+                 refresh_mode: int, C: int, device=None) -> dict:
+    """Initial state of ``M`` mixes of ``C`` cores: the bank state, the
+    ``[M, C, CORE_F]`` core rows (next request, last visibility, max
+    completion), the ``[M, C, _RING]`` completion rings and, when
+    refreshing, the ``[M, nb, REF_F]`` refresh tables."""
+    state0 = dict(_engine._bank_state0(M, n_banks, n_subarrays, device))
+    state0["core"] = torch.zeros((M, C, L.CORE_F), dtype=I32, device=device)
+    state0["comp_ring"] = torch.zeros((M, C, _RING), dtype=I32, device=device)
+    if refresh_mode:
+        state0["ref"] = _refresh_table0(M, n_banks, t, refresh_mode, device)
+    return state0
+
+
+def _build_stepC(policy: int, scheduler: int, t: DramTiming,
+                 refresh_mode: int, closed_row: bool, reqs, mlp, rank,
+                 refresh_fns):
+    """Build the mix-batched C-core step ``step(state)``.
+
+    ``reqs`` is the ``[M, C, N, RQ_F]`` request tensor, ``mlp`` and ``rank``
+    the ``[M, C]`` windows and TCM ranks. Each step keys every core's head
+    against the PRE-step state, serves the argmin core of every mix through
+    the timing step, and commits that core's refresh row, core row and ring
+    slot: the reference's ``_build_stepC`` with the mix dimension written
+    out. Updates ``state`` in place.
+    """
+    head_visibility, update_ref = refresh_fns
+    M, C, N = reqs.shape[0], reqs.shape[1], reqs.shape[2]
+    mix = torch.arange(M, dtype=torch.long, device=reqs.device)
+    mix_c = mix[:, None]
+    cores = torch.arange(C, dtype=torch.long, device=reqs.device)[None, :]
+    mlp_l = mlp.long()
+
+    def step(state):
+        core, ring = state["core"], state["comp_ring"]
+        ptr = core[..., L.CORE_PTR]
+        live = ptr < N
+        p = torch.clamp_max(ptr, N - 1)       # a dead core's head stays in bounds
+        p_l = p.long()
+        h = reqs[mix_c, cores, p_l]                       # [M, C, RQ_F]
+        hb, hs, hw = h[..., L.RQ_BANK], h[..., L.RQ_SA], h[..., L.RQ_ROW]
+        hwr = h[..., L.RQ_WR] != 0
+
+        # ---- per-core visibility of the head request; ring slots by floor
+        # modulo ((p - 1) and (p - mlp) are negative early)
+        comp_prev = ring.gather(2, ((p_l - 1) % _RING)[..., None])[..., 0]
+        rob_raw = ring.gather(2, ((p_l - mlp_l) % _RING)[..., None])[..., 0]
+        rob_lim = torch.where(p >= mlp, rob_raw, 0)
+        vis = torch.maximum(core[..., L.CORE_VIS_PREV] + h[..., L.RQ_GAP],
+                            torch.maximum(
+                                torch.where(h[..., L.RQ_DEP] != 0, comp_prev, 0),
+                                rob_lim))
+        vis, directive = head_visibility(state.get("ref"), vis, hb, hs, hwr)
+
+        # ---- scheduler: key the live heads, serve the argmin (torch.argmin
+        # returns the first minimum, like jnp.argmin). Under DARP a bank one
+        # postpone from a forced refresh drains its queued requests first.
+        ref_debt = (_bank_rows(state["ref"], hb)[..., L.REF_DEBT]
+                    if refresh_mode == 4 else None)
+        key = request_key(scheduler, state, hb, hs, hw, vis, rank, C, live,
+                          ref_debt=ref_debt,
+                          ref_urgent=t.ref_postpone_max - 1, hwr=hwr)
+        c = torch.argmin(key, dim=1)                      # [M]
+
+        hc = h[mix, c]                                    # [M, RQ_F]
+        vis_c, pc = vis[mix, c], p[mix, c]
+        req = dict(bank=hc[:, L.RQ_BANK], subarray=hc[:, L.RQ_SA],
+                   row=hc[:, L.RQ_ROW], is_write=hc[:, L.RQ_WR] != 0,
+                   vis=vis_c)
+        if refresh_mode:
+            directive_c = {k: v[mix, c] for k, v in directive.items()}
+            req["ref_pending"] = directive_c["pending"]
+            req["ref_target"] = directive_c.get("target",
+                                                torch.zeros_like(vis_c))
+        comp = _engine._timing_step(policy, t, refresh_mode, state, req,
+                                    closed_row=closed_row)
+        if refresh_mode:
+            update_ref(state["ref"], directive_c, req["bank"], vis_c, comp)
+        # the loop runs exactly C * N steps, so the chosen core is live and
+        # its pointer was never clamped
+        core[mix, c] = torch.stack(
+            [pc + 1, vis_c,
+             torch.maximum(core[mix, c, L.CORE_MAX_COMP], comp)], dim=1)
+        ring[mix, c, (pc % _RING).long()] = comp
+
+    return step
+
+
+def run_cores(policy: int, scheduler: int, n_banks: int, n_subarrays: int,
+              t: DramTiming, refresh_mode: int, reqs, mlp, rank,
+              closed_row: bool = False):
+    """The plain mix loop: ``C * N`` mix-batched steps over ``reqs``.
+
+    ``reqs`` is the ``[M, C, N, RQ_F]`` int32 request tensor, ``mlp`` and
+    ``rank`` the ``[M, C]`` int32 windows and TCM ranks, on any device.
+    Returns ``(scalars [M, SC_F], vis_prev [M, C], max_comp [M, C])``, the
+    mix kernel's outputs.
+    """
+    if reqs.dtype != I32 or mlp.dtype != I32 or rank.dtype != I32:
+        raise TypeError(f"reqs, mlp and rank must be int32, got {reqs.dtype}, "
+                        f"{mlp.dtype}, {rank.dtype}")
+    M, C, N = reqs.shape[0], reqs.shape[1], reqs.shape[2]
+    fns = _refresh_fns(policy, t, n_subarrays, refresh_mode)
+    step = _build_stepC(policy, scheduler, t, refresh_mode, closed_row, reqs,
+                        mlp, rank, fns)
+    state = _stateC_init(M, n_banks, n_subarrays, t, refresh_mode, C,
+                         reqs.device)
+    for _ in range(C * N):
+        step(state)
+    core = state["core"]
+    return (state["scalars"], core[..., L.CORE_VIS_PREV].contiguous(),
+            core[..., L.CORE_MAX_COMP].contiguous())

@@ -1,27 +1,37 @@
-"""The CUDA lane kernel: batched single-core simulation on the card.
+"""The CUDA lane and mix kernels: single-core and multicore simulation on
+the card.
 
-The counterpart of ``repro.core.dram.pallas_step`` (its lane kernel,
-``_simulate_lanes_pallas``). ``csrc/lane_step.cu`` runs B independent
-single-core traces, one CUDA thread per lane, each looping over its N
-requests through the controller step and the bank/subarray timing step;
-only the ``[B, SC_F]`` counter pack, ``vis_prev`` and ``max_comp`` leave
-the kernel.
+The counterpart of ``repro.core.dram.pallas_step``:
 
-* :func:`simulate_lanes` is the wrapper every entry point calls. On a CUDA
-  tensor it launches the kernel (or raises); on a CPU tensor it runs the
-  plain version. It never falls back from the kernel to the plain version.
-* :func:`simulate_lanes_plain` is the plain PyTorch version of the same
-  function (:func:`repro_torch.core.dram.controller.run_lanes`), on any
-  device: the CPU tests use it, and ``chip_smoke.py`` holds the kernel
-  against it on the card.
+* ``csrc/lane_step.cu`` (its lane kernel, ``_simulate_lanes_pallas``) runs B
+  independent single-core traces, one CUDA thread per lane, each looping
+  over its N requests;
+* ``csrc/mix_step.cu`` (its mix kernel, ``_simulate_cores_pallas``) runs M
+  independent mixes of C cores sharing a channel, one CUDA thread per mix,
+  each looping over C * N scheduler-chosen requests.
+
+Both step through ``csrc/dram_step.cuh`` (refresh gating, the bank/subarray
+timing step, the refresh commit); only the counter pack and the per-core
+``vis_prev`` / ``max_comp`` leave the kernels.
+
+* :func:`simulate_lanes` and :func:`simulate_cores` are the wrappers the
+  entry points call. On a CUDA tensor they launch their kernel (or raise);
+  on a CPU tensor they run the plain version. They never fall back from the
+  kernel to the plain version.
+* :func:`simulate_lanes_plain` and :func:`simulate_cores_plain` are the
+  plain PyTorch versions (:func:`repro_torch.core.dram.controller.run_lanes`
+  and ``run_cores``), on any device: the CPU tests use them, and
+  ``chip_smoke.py`` holds the kernels against them on the card.
 * ``LAUNCHES`` counts kernel launches, so a run can show that its path went
-  through the kernel.
+  through the kernels.
 
-Build: at first use the source is compiled with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface under ``build/repro_torch_kernels/``
-at the repository root (``.gitignore`` lists ``build/``), named by a hash of
-the source and flags, and loaded with ``ctypes``. Nothing is built or
-imported from CUDA when this module is imported.
+Build: at first use every ``.cu`` source is compiled with ``nvcc`` for
+``sm_90a`` into its own shared library with a plain C interface under
+``build/repro_torch_kernels/`` at the repository root (``.gitignore`` lists
+``build/``), one ``nvcc`` per source, all started together. The libraries
+are named by a hash of every source and header in ``csrc/`` and the flags,
+so an edit to any of them rebuilds, and are loaded with ``ctypes``. Nothing
+is built or imported from CUDA when this module is imported.
 """
 from __future__ import annotations
 
@@ -42,25 +52,27 @@ from repro_torch.core.dram import engine as _engine
 from repro_torch.core.dram import state_layout as L
 from repro_torch.core.dram.timing import DramTiming
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "lane_step.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: Kernel name -> source; each builds into its own library.
+SOURCES = {"lane_step": CSRC / "lane_step.cu", "mix_step": CSRC / "mix_step.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: The timing array's layout: DramTiming's fields in declaration order, as
-#: the T_* constants of lane_step.cu index it.
+#: the T_* constants of dram_step.cuh index it.
 TIMING_FIELDS = ("t_cl", "t_cwl", "t_rcd", "t_rp", "t_ras", "t_wr", "t_rtp",
                  "t_bl", "t_ccd", "t_wtr", "t_rtw", "t_rrd", "t_rrd_sa",
                  "t_faw", "t_sa", "t_refi", "t_rfc", "t_rfc_pb",
                  "ref_postpone_max")
 
 #: Kernel launches by kernel name (set to 0 with :func:`reset_launches`).
-LAUNCHES: dict[str, int] = {"lane_step": 0}
+LAUNCHES: dict[str, int] = {"lane_step": 0, "mix_step": 0}
 
 #: Human-readable refusal reason for command export.
 EMIT_COMMANDS_ERROR = (
-    "The CUDA lane kernel refuses emit_commands: the kernel keeps the "
-    "per-step state on the card and returns only the final counters, so "
+    "The CUDA lane and mix kernels refuse emit_commands: they keep the "
+    "per-step state on the card and return only the final counters, so "
     "there is no per-step command log to decode; command export is not "
     "ported yet — use the JAX package's repro.core.dram.commands.")
 
@@ -76,47 +88,71 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _source_tag() -> str:
+    """Hash of every source and header in ``csrc/`` and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
-def build() -> tuple[Path, str]:
-    """Compile ``lane_step.cu`` (once per process and source); return the
-    library's path and the compiler's log (``-Xptxas -v``: registers,
-    spills). Raises with the compiler's output if the build fails."""
+def build() -> dict[str, tuple[Path, str]]:
+    """Compile every kernel (once per process and sources), one ``nvcc`` per
+    source, all started together. Returns ``{name: (library path, compiler
+    log)}``; the log is ``-Xptxas -v``'s (registers, spills). Raises with
+    the compiler's output if a build fails."""
     nvcc = compat.nvcc_path()
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA lane kernel is built "
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
                            "from source at first use (" + compat.summary() + ")")
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = _source_tag()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"lane_step_{tag}.so"
-    log_path = lib.with_suffix(".log")
-    if lib.exists() and log_path.exists():
-        return lib, log_path.read_text()
-    # build under a temporary name, then rename: a concurrent build never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
-                           f"(rc={proc.returncode}):\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib)
-    return lib, log
+    out, running = {}, {}
+    for name, src in SOURCES.items():
+        lib = BUILD_DIR / f"{name}_{tag}.so"
+        log_path = lib.with_suffix(".log")
+        if lib.exists() and log_path.exists():
+            out[name] = (lib, log_path.read_text())
+            continue
+        # build under a temporary name, then rename: a concurrent build
+        # never sees a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, lib, log_path)
+    failed = []
+    for name, (proc, tmp, lib, log_path) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed to build {SOURCES[name].name} "
+                          f"(rc={proc.returncode}):\n{log}")
+            continue
+        log_path.write_text(log)
+        os.replace(tmp, lib)
+        out[name] = (lib, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+def _library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[name][0]))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lane_step_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]
-    lib.lane_step_launch.restype = ci
-    lib.lane_scratch_ints.argtypes = [ci, ci, ci]
-    lib.lane_scratch_ints.restype = ci
+    if name == "lane_step":
+        lib.lane_step_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        lib.lane_step_launch.restype = ci
+        lib.lane_scratch_ints.argtypes = [ci, ci, ci]
+        lib.lane_scratch_ints.restype = ci
+    else:
+        lib.mix_step_launch.argtypes = [vp] * 8 + [ci] * 9 + [vp]
+        lib.mix_step_launch.restype = ci
+        lib.mix_scratch_ints.argtypes = [ci, ci, ci, ci]
+        lib.mix_scratch_ints.restype = ci
     return lib
 
 
@@ -128,6 +164,16 @@ def timing_array(t: DramTiming, device) -> torch.Tensor:
                            f"kernel's timing layout {TIMING_FIELDS}")
     return torch.tensor([int(getattr(t, n)) for n in names],
                         dtype=torch.int32, device=device)
+
+
+def _check_geometry(nb: int, ns: int, t: DramTiming,
+                    refresh_mode: int) -> None:
+    if nb < 1 or ns < 1:
+        raise ValueError(f"geometry must be at least 1 x 1, got {nb} x {ns}")
+    if refresh_mode and (t.t_refi <= 0 or (refresh_mode == 4
+                                           and t.t_rfc_pb <= 0)):
+        raise ValueError(f"refresh mode {refresh_mode} divides by t_refi "
+                         f"and t_rfc_pb, which must be positive")
 
 
 def _check_inputs(xs, mlp, nb: int, ns: int, t: DramTiming,
@@ -142,12 +188,7 @@ def _check_inputs(xs, mlp, nb: int, ns: int, t: DramTiming,
         raise ValueError("lane kernel takes contiguous tensors")
     if xs.device != mlp.device:
         raise ValueError(f"xs on {xs.device} but mlp on {mlp.device}")
-    if nb < 1 or ns < 1:
-        raise ValueError(f"geometry must be at least 1 x 1, got {nb} x {ns}")
-    if refresh_mode and (t.t_refi <= 0 or (refresh_mode == 4
-                                           and t.t_rfc_pb <= 0)):
-        raise ValueError(f"refresh mode {refresh_mode} divides by t_refi "
-                         f"and t_rfc_pb, which must be positive")
+    _check_geometry(nb, ns, t, refresh_mode)
 
 
 def simulate_lanes(policy: int, n_banks: int, n_subarrays: int,
@@ -177,7 +218,7 @@ def simulate_lanes(policy: int, n_banks: int, n_subarrays: int,
 def _launch(policy, n_banks, n_subarrays, t, refresh_mode, xs, mlp,
             closed_row):
     """One launch of the lane kernel on PyTorch's current stream."""
-    lib = _library()
+    lib = _library("lane_step")
     B, N = xs.shape[0], xs.shape[1]
     dev = xs.device
     with torch.cuda.device(dev):
@@ -207,3 +248,89 @@ def _launch(policy, n_banks, n_subarrays, t, refresh_mode, xs, mlp,
 #: controller's lane-batched step looped over the trace. Returns the kernel's
 #: raw outputs ``(scalars [B, SC_F], vis_prev [B], max_comp [B])``.
 simulate_lanes_plain = _controller.run_lanes
+
+
+def _check_mix_inputs(reqs, mlp, rank, nb: int, ns: int, t: DramTiming,
+                      refresh_mode: int) -> None:
+    if any(x.dtype != torch.int32 for x in (reqs, mlp, rank)):
+        raise TypeError(f"mix kernel takes int32 tensors, got reqs "
+                        f"{reqs.dtype}, mlp {mlp.dtype}, rank {rank.dtype}")
+    if (reqs.dim() != 4 or reqs.shape[3] != L.RQ_F
+            or mlp.shape != reqs.shape[:2] or rank.shape != reqs.shape[:2]):
+        raise ValueError(f"mix kernel takes reqs [M, C, N, {L.RQ_F}], mlp and "
+                         f"rank [M, C]; got {tuple(reqs.shape)}, "
+                         f"{tuple(mlp.shape)} and {tuple(rank.shape)}")
+    if reqs.shape[1] < 1 or reqs.shape[2] < 1:
+        raise ValueError(f"a mix needs C >= 1 cores and N >= 1 requests a "
+                         f"core; got C={reqs.shape[1]}, N={reqs.shape[2]}")
+    if not all(x.is_contiguous() for x in (reqs, mlp, rank)):
+        raise ValueError("mix kernel takes contiguous tensors")
+    if not reqs.device == mlp.device == rank.device:
+        raise ValueError(f"reqs on {reqs.device}, mlp on {mlp.device}, rank "
+                         f"on {rank.device}")
+    _check_geometry(nb, ns, t, refresh_mode)
+
+
+def simulate_cores(policy: int, scheduler: int, n_banks: int,
+                   n_subarrays: int, t: DramTiming, refresh_mode: int, reqs,
+                   mlp, rank, closed_row: bool = False):
+    """M mixes of C cores sharing a channel: the mix kernel on a CUDA
+    tensor, its plain version on a CPU tensor.
+
+    ``reqs`` is the ``[M, C, N, RQ_F]`` int32 request tensor, ``mlp`` and
+    ``rank`` the ``[M, C]`` int32 windows and TCM ranks. ``policy`` is
+    BASELINE / SALP1 / SALP2 / MASA (IDEAL runs as BASELINE on its
+    rewritten geometry), ``scheduler`` a ``Scheduler`` value. Returns
+    ``(SimResult with [M] fields, max_comp [M, C])``.
+    """
+    _check_mix_inputs(reqs, mlp, rank, n_banks, n_subarrays, t, refresh_mode)
+    if reqs.device.type == "cpu":
+        sc, vis, maxc = simulate_cores_plain(
+            policy, scheduler, n_banks, n_subarrays, t, refresh_mode, reqs,
+            mlp, rank, closed_row)
+    elif reqs.device.type == "cuda":
+        sc, vis, maxc = _launch_cores(policy, scheduler, n_banks, n_subarrays,
+                                      t, refresh_mode, reqs, mlp, rank,
+                                      closed_row)
+    else:
+        raise ValueError(f"mix kernel runs on cuda (or cpu for its plain "
+                         f"version), not {reqs.device}")
+    # the reference's result_from_state takes the max of the [C] vis_prev
+    # inside; the port's takes [M] vectors, so the core max is taken here
+    C, N = reqs.shape[1], reqs.shape[2]
+    return _engine.result_from_state(C * N, sc, vis.amax(dim=1)), maxc
+
+
+def _launch_cores(policy, scheduler, n_banks, n_subarrays, t, refresh_mode,
+                  reqs, mlp, rank, closed_row):
+    """One launch of the mix kernel on PyTorch's current stream."""
+    lib = _library("mix_step")
+    M, C, N = reqs.shape[0], reqs.shape[1], reqs.shape[2]
+    dev = reqs.device
+    with torch.cuda.device(dev):
+        timing = timing_array(t, dev)
+        per_mix = lib.mix_scratch_ints(n_banks, n_subarrays, C, refresh_mode)
+        scratch = torch.empty((M, per_mix), dtype=torch.int32, device=dev)
+        sc = torch.empty((M, L.SC_F), dtype=torch.int32, device=dev)
+        vis = torch.empty((M, C), dtype=torch.int32, device=dev)
+        maxc = torch.empty((M, C), dtype=torch.int32, device=dev)
+        if M == 0:
+            return sc, vis, maxc
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mix_step_launch(
+            reqs.data_ptr(), mlp.data_ptr(), rank.data_ptr(),
+            timing.data_ptr(), scratch.data_ptr(), sc.data_ptr(),
+            vis.data_ptr(), maxc.data_ptr(), M, C, N, n_banks, n_subarrays,
+            int(policy), int(scheduler), int(refresh_mode),
+            int(bool(closed_row)), stream)
+        if err != 0:
+            raise RuntimeError(f"mix_step launch failed: CUDA error {err}")
+        LAUNCHES["mix_step"] += 1
+    return sc, vis, maxc
+
+
+#: The plain PyTorch version of the mix kernel, on ``reqs``' device: the
+#: controller's mix-batched C-core step looped C * N times. Returns the
+#: kernel's raw outputs ``(scalars [M, SC_F], vis_prev [M, C],
+#: max_comp [M, C])``.
+simulate_cores_plain = _controller.run_cores

@@ -447,23 +447,61 @@ def lane_inputs(stacked: dict, policy: Policy, config: SimConfig, device):
 
     controller.validate_mlp_window(stacked["mlp_window"])
     eff, _, nb, ns = _controller_args(policy, config)
+    xs = _pack(stacked, policy, config, nb, ns, device)
+    return eff, nb, ns, xs, _dev_i32(stacked["mlp_window"], device).reshape(-1)
 
-    def dev_i32(x):
-        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                               device=device).to(I32)
 
-    bank, subarray = dev_i32(stacked["bank"]), dev_i32(stacked["subarray"])
+def _dev_i32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                           device=device).to(I32)
+
+
+def mix_inputs(stacked_mixes: dict, ranks, policy: Policy, config: SimConfig,
+               device):
+    """Everything the mix executor takes, on ``device``: the multicore
+    counterpart of :func:`lane_inputs`.
+
+    ``stacked_mixes`` holds ``bank/subarray/row/is_write/gap/dep`` of shape
+    ``[M, C, N]`` and ``mlp_window`` of shape ``[M, C]`` (numpy arrays or
+    tensors), ``ranks`` the ``[M, C]`` TCM ranks. Returns ``(eff_policy,
+    scheduler, nb, ns, reqs, mlp, rank)``: ``reqs`` is the packed
+    ``[M, C, N, RQ_F]`` int32 request tensor with IDEAL's
+    every-subarray-is-a-bank rewrite applied, ``mlp`` and ``rank`` the
+    ``[M, C]`` int32 windows and ranks. Validates the windows (host side)
+    and the bank / subarray ranges, which the kernel indexes unchecked.
+    """
+    from repro_torch.core.dram import controller
+
+    controller.validate_mlp_window(stacked_mixes["mlp_window"])
+    eff, sched, nb, ns = _controller_args(policy, config)
+    reqs = _pack(stacked_mixes, policy, config, nb, ns, device)
+    mlp = _dev_i32(stacked_mixes["mlp_window"], device)
+    rank = _dev_i32(ranks, device)
+    if reqs.dim() != 4 or mlp.shape != reqs.shape[:2] or rank.shape != mlp.shape:
+        raise ValueError(f"mix inputs are [M, C, N] requests with [M, C] "
+                         f"windows and ranks; got {tuple(reqs.shape[:-1])}, "
+                         f"{tuple(mlp.shape)}, {tuple(rank.shape)}")
+    return eff, sched, nb, ns, reqs, mlp.contiguous(), rank.contiguous()
+
+
+def _pack(stacked: dict, policy: Policy, config: SimConfig, nb: int, ns: int,
+          device) -> torch.Tensor:
+    """The ``[..., N, RQ_F]`` int32 request tensor of ``[..., N]`` fields,
+    with IDEAL's rewrite applied and the bank / subarray ranges checked."""
+    bank = _dev_i32(stacked["bank"], device)
+    subarray = _dev_i32(stacked["subarray"], device)
     if policy == Policy.IDEAL:
         bank = bank * config.n_subarrays + subarray
         subarray = torch.zeros_like(subarray)
-    xs = torch.stack([bank, subarray, dev_i32(stacked["row"]),
-                      dev_i32(stacked["is_write"]), dev_i32(stacked["gap"]),
-                      dev_i32(stacked["dep"])], dim=-1).contiguous()
+    reqs = torch.stack([bank, subarray, _dev_i32(stacked["row"], device),
+                        _dev_i32(stacked["is_write"], device),
+                        _dev_i32(stacked["gap"], device),
+                        _dev_i32(stacked["dep"], device)], dim=-1).contiguous()
     bad = ((bank < 0) | (bank >= nb) | (subarray < 0) | (subarray >= ns)).any()
     if bool(bad):
         raise ValueError(f"bank/subarray indices outside the {nb} x {ns} "
                          f"geometry of policy {Policy(policy).name}")
-    return eff, nb, ns, xs, dev_i32(stacked["mlp_window"]).reshape(-1)
+    return reqs
 
 
 def simulate_stacked(stacked: dict, policy: Policy,

@@ -36,15 +36,18 @@ Ties break toward the lowest core index, matching ``jnp.argmin``.
                 memtech "pcm_palp" (docs/memtech.md).
 
 Port note: the ``Scheduler`` enum, ``ALL_SCHEDULERS`` and the key
-constants, copied from ``repro.core.dram.schedulers`` (``SimConfig`` needs
-them). ``request_key`` serves only the multicore controller and is not
-ported yet; with one core every discipline degenerates to program order.
+constants are copied from ``repro.core.dram.schedulers``; ``request_key``
+is the reference's with the mix dimension written out (``[M, C]`` heads).
+With one core every discipline degenerates to program order.
 """
 from __future__ import annotations
 
 import enum
 
 import numpy as np
+import torch
+
+from repro_torch.core.dram import state_layout as L
 
 
 #: Tier spacing. Must exceed any realistic visibility cycle so tiers are
@@ -83,3 +86,64 @@ class Scheduler(enum.IntEnum):
 #: is swept by the memtech suite (benchmarks/memtech_bench.py) instead.
 ALL_SCHEDULERS = (Scheduler.FCFS, Scheduler.FRFCFS, Scheduler.FRFCFS_SALP,
                   Scheduler.TCM)
+
+
+def _tier(cond, then: int, other) -> torch.Tensor:
+    """``where(cond, then, other)`` as int32 (a Python-int pair would give
+    int64 and stop the key arithmetic from wrapping like the reference's)."""
+    return torch.where(cond, then, other).to(torch.int32)
+
+
+def request_key(scheduler: int, bank_state: dict, hb, hs, hw, vis, rank,
+                n_cores: int, live, ref_debt=None, ref_urgent: int = 0,
+                hwr=None) -> torch.Tensor:
+    """int32 selection key per core of every mix; the controller serves the
+    ``argmin`` over cores.
+
+    The reference's key function over ``[M, C]`` heads: ``hb/hs/hw`` are the
+    heads' bank / subarray / row, ``vis`` their visibility cycles, ``rank``
+    the TCM ranks (0 = most latency-sensitive), ``live`` marks cores whose
+    stream is not exhausted, ``hwr`` the heads' is-write bits and
+    ``ref_debt`` (DARP only) the heads' banks' postponed-refresh counters.
+    ``bank_state`` is the PRE-step packed state (``sa`` ``[M, nb, ns + 1,
+    SA_F]``, ``scalars`` ``[M, SC_F]``): the open row and the partition's
+    write recovery are read at each head's ``(bank, subarray)``, and a head
+    is *pending* when it is visible by the time the shared data bus frees.
+    See the reference for the tiers' rationale.
+    """
+    scheduler = Scheduler(scheduler)
+    if scheduler == Scheduler.PALP_RP and hwr is None:
+        raise ValueError("Scheduler.PALP_RP needs the heads' is-write bits "
+                         "(hwr); the controller passes reqs[:, RQ_WR]")
+    sa = bank_state["sa"]
+    mix = torch.arange(sa.shape[0], dtype=torch.long, device=sa.device)[:, None]
+    head = sa[mix, hb.long(), hs.long()]                  # [M, C, SA_F]
+    orow = head[..., L.SA_OPEN_ROW]
+    hit = orow == hw
+    sa_open = orow != int(L.NEG)
+    bus_free = bank_state["scalars"][:, L.SC_DATA_BUS_FREE][:, None]
+    pending = vis <= bus_free
+    big = int(_BIG)
+    if scheduler == Scheduler.FCFS:
+        key = vis
+    elif scheduler == Scheduler.FRFCFS:
+        key = vis + _tier(pending & hit, 0, big)
+    elif scheduler == Scheduler.FRFCFS_SALP:
+        key = vis + _tier(pending & hit, 0,
+                          _tier(pending & sa_open, big, 2 * big))
+    elif scheduler == Scheduler.TCM:
+        key = vis + _tier(pending & hit, 0, big)
+        latency_sensitive = pending & (rank < (n_cores // 2))
+        key = key - _tier(latency_sensitive, 2 * big, 0)
+    elif scheduler == Scheduler.PALP_RP:
+        # partition write-ready: the head's subarray has drained its write
+        # recovery by the time the shared bus frees
+        wr_ready = head[..., L.SA_WRR_DONE] <= bus_free
+        key = vis + _tier(pending & hit, 0,
+                          _tier(pending & ~hwr & wr_ready, big, 2 * big))
+    else:  # pragma: no cover - enum is exhaustive
+        raise ValueError(f"unknown scheduler {scheduler!r}")
+    if ref_debt is not None:
+        urgent = pending & (ref_debt >= ref_urgent)
+        key = key - _tier(urgent, int(_REF_URGENT), 0)
+    return torch.where(live, key, int(_DEAD))

@@ -15,7 +15,8 @@ from repro_torch.core.dram.engine import SimConfig
 from repro_torch.core.dram.schedulers import Scheduler
 from repro_torch.core.dram.timing import DramTiming
 
-#: Fields of stack_traces output that become [B, N] / [B] int32 tensors.
+#: Fields of stack_traces output that become [B, N] / [B] int32 tensors
+#: (``[M, C, N]`` / ``[M, C]`` for mixes).
 STACKED_FIELDS = ("bank", "subarray", "row", "is_write", "gap", "dep",
                   "mlp_window")
 
@@ -37,3 +38,15 @@ def stacked_from_numpy(d: dict, device) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(d[k]).astype(np.int32),
                                device=device)
             for k in STACKED_FIELDS}
+
+
+def mixes_from_numpy(stacked_list: list[dict], ranks, device
+                     ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """M mixes' ``stack_traces`` outputs (numpy, ``[C, N]`` fields and
+    ``[C]`` windows) and their ``[M, C]`` TCM ranks as ``[M, C, N]`` /
+    ``[M, C]`` int32 tensors on ``device``, the form
+    :func:`repro_torch.core.dram.engine.mix_inputs` takes."""
+    stacked = {k: torch.as_tensor(
+        np.stack([np.asarray(d[k]) for d in stacked_list]).astype(np.int32),
+        device=device) for k in STACKED_FIELDS}
+    return stacked, torch.as_tensor(np.asarray(ranks, np.int32), device=device)

@@ -1,4 +1,4 @@
-"""The CUDA lane kernel against its plain version, on the card.
+"""The CUDA lane and mix kernels against their plain versions, on the card.
 
 Marked ``cuda``: these run where an NVIDIA GPU with compute capability 9.0
 and ``nvcc`` are present (``pytest -m cuda``) and skip elsewhere, with the
@@ -7,6 +7,7 @@ fixture, never at import.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,7 +15,8 @@ import repro_torch.core.dram as P
 import torch_cases as tc
 from repro_torch import compat
 from repro_torch.core.dram import cuda_step
-from repro_torch.core.dram.engine import lane_inputs, result_from_state
+from repro_torch.core.dram.engine import (lane_inputs, mix_inputs,
+                                          result_from_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -73,3 +75,69 @@ def test_one_launch_per_call_and_refusals(card):
     with pytest.raises(ValueError):
         cuda_step.simulate_lanes(eff, nb, ns, t, 0, xs, mlp.cpu())
     assert cuda_step.LAUNCHES["lane_step"] == 1
+
+
+def random_mix_inputs(config, policy, M, C, N, seed, device):
+    """M random mixes of C cores ([M, C, N] requests, per-core windows,
+    shuffled ranks) through mix_inputs."""
+    st = [P.stack_traces([tc.random_trace(seed + 17 * m + c, n=N,
+                                          nb=config.n_banks,
+                                          ns=config.n_subarrays)
+                          for c in range(C)]) for m in range(M)]
+    stacked = {k: np.stack([s[k] for s in st]) for k in st[0]}
+    rng = np.random.default_rng(seed)
+    ranks = np.stack([rng.permutation(C) for _ in range(M)]).astype(np.int32)
+    return mix_inputs(stacked, ranks, policy, config, device)
+
+
+@pytest.mark.parametrize("config", list(tc.CONFIGS))
+def test_mix_kernel_equals_plain(card, config):
+    for k, sched in enumerate(P.Scheduler):
+        for pol in (P.Policy.BASELINE, P.Policy.MASA, P.Policy.IDEAL):
+            cfg = P.SimConfig(n_banks=4, n_subarrays=16, scheduler=sched,
+                              **tc.CONFIGS[config])
+            C = (1, 2, 3, 4, 4)[k]
+            eff, sc_, nb, ns, reqs, mlp, rank = random_mix_inputs(
+                cfg, pol, 6, C, 48, 60 + k, card)
+            closed = cfg.row_policy == "closed"
+            got, got_max = cuda_step.simulate_cores(
+                eff, sc_, nb, ns, cfg.timing, cfg.refresh_mode, reqs, mlp,
+                rank, closed)
+            sc, vis, ref_max = cuda_step.simulate_cores_plain(
+                eff, sc_, nb, ns, cfg.timing, cfg.refresh_mode, reqs, mlp,
+                rank, closed)
+            ref = result_from_state(C * 48, sc, vis.amax(dim=1))
+            torch.cuda.synchronize()
+            for f in COUNTERS:
+                assert torch.equal(getattr(got, f), getattr(ref, f)), \
+                    (sched, pol, f)
+            assert torch.equal(got_max, ref_max)
+
+
+def test_golden_multicore_cells_through_the_kernel(card):
+    for (config, sched, policy), cells in tc.golden_multicore_groups().items():
+        res = P.simulate_multicore_batch(
+            [tc.golden_mix(c["seed"]) for c in cells], P.Policy[policy],
+            tc.golden_multicore_config(config, sched), device="cuda")
+        got = [({f: int(getattr(r.shared, f)) for f in COUNTERS},
+                [int(x) for x in r.core_cycles]) for r in res]
+        assert got == [(c["counters"], c["core_cycles"]) for c in cells], \
+            (config, sched, policy)
+
+
+def test_one_mix_launch_per_call_and_refusals(card):
+    mixes = [tc.golden_mix(s) for s in range(3)]
+    cuda_step.reset_launches()
+    res = P.simulate_multicore_batch(mixes, P.Policy.MASA, device=None)
+    assert cuda_step.LAUNCHES == {"lane_step": 1, "mix_step": 1}
+    assert res[0].shared.n_act.is_cuda
+    eff, sc_, nb, ns, reqs, mlp, rank = random_mix_inputs(
+        P.SimConfig(), P.Policy.MASA, 2, 2, 16, 0, card)
+    t = P.SimConfig().timing
+    with pytest.raises(TypeError):
+        cuda_step.simulate_cores(eff, sc_, nb, ns, t, 0, reqs.long(), mlp,
+                                 rank)
+    with pytest.raises(ValueError):
+        cuda_step.simulate_cores(eff, sc_, nb, ns, t, 0, reqs, mlp,
+                                 rank.cpu())
+    assert cuda_step.LAUNCHES["mix_step"] == 1

@@ -177,10 +177,10 @@ def test_emit_commands_refused():
     assert str(p.value) == str(r.value)
     for fn, arg in ((P.simulate_batch, [tr]),
                     (P.simulate_stacked, P.stack_traces([tr]))):
-        with pytest.raises(ValueError, match="refuses emit_commands"):
+        with pytest.raises(ValueError, match="refuse emit_commands"):
             fn(arg, P.Policy.MASA, cfg, device="cpu")
     assert cuda_step.EMIT_COMMANDS_ERROR.startswith(
-        "The CUDA lane kernel refuses emit_commands")
+        "The CUDA lane and mix kernels refuse emit_commands")
 
 
 def test_default_device_without_a_card_raises(monkeypatch):

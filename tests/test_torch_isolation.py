@@ -62,5 +62,23 @@ print(json.dumps(dict(modules=names, leaked=leaked)))
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
     assert {"repro_torch.core.dram.cuda_step", "repro_torch.core.dram.engine",
+            "repro_torch.core.dram.multicore",
+            "repro_torch.core.dram.schedulers",
             "repro_torch.paper_repro", "repro_torch.interop",
             "repro_torch.compat"} <= set(out["modules"])
+
+
+def test_importing_multicore_alone_leaves_jax_out():
+    code = f"""
+import json, sys
+sys.path[:0] = [{str(ROOT / 'src')!r}]
+import repro_torch.core.dram.multicore
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps(leaked))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

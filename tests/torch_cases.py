@@ -1,11 +1,12 @@
 """Golden-fixture cases for the PyTorch port, in the port's own types.
 
 NOT a test module (no ``test_`` prefix). A copy of the seeded
-``random_trace`` recipe and the ten ``CONFIGS`` of
-``tests/test_packed_state.py``, built from ``repro_torch`` alone so that
-``chip_smoke.py`` can replay ``tests/data/golden_packed_state.json`` on the
-card without the JAX package. ``tests/test_torch_engine.py`` holds this
-copy equal to the reference's.
+``random_trace`` recipe, the ten ``CONFIGS`` and the multicore mix recipe
+of ``tests/test_packed_state.py``, built from ``repro_torch`` alone so that
+``chip_smoke.py`` can replay ``tests/data/golden_packed_state.json`` and
+``tests/data/torch_multicore_fixture.json`` on the card without the JAX
+package. ``tests/test_torch_engine.py`` and ``tests/test_torch_multicore.py``
+hold this copy equal to the reference's.
 """
 from __future__ import annotations
 
@@ -15,12 +16,17 @@ import os
 
 import numpy as np
 
-from repro_torch.core.dram import SimConfig, stack_traces
+from repro_torch.core.dram import (ROW_SPACE_STRIDE, Scheduler, SimConfig,
+                                   generate_trace, stack_traces, workload)
 from repro_torch.core.dram.trace import Trace, WorkloadProfile
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN_PATH = os.path.join(DATA, "golden_packed_state.json")
 FIG4_PATH = os.path.join(DATA, "torch_fig4_n8000.json")
+MULTICORE_PATH = os.path.join(DATA, "torch_multicore_fixture.json")
+
+#: The golden multicore cells' mix and trace length.
+GOLDEN_MIX, GOLDEN_MIX_N = ("mcf", "lbm"), 150
 
 #: Refresh-engaged timing for the ladder's fixture cells.
 REF_TIMING = dataclasses.replace(
@@ -82,3 +88,38 @@ def fig4_fixture() -> dict[tuple[str, str], dict]:
     with open(FIG4_PATH) as f:
         doc = json.load(f)
     return {(c["workload"], c["policy"]): c["counters"] for c in doc["cells"]}
+
+
+def golden_mix(seed: int, names=GOLDEN_MIX, n: int = GOLDEN_MIX_N) -> list:
+    """A multicore golden cell's traces: each core in its own row space."""
+    return [generate_trace(workload(m), n, seed=seed,
+                           row_space_offset=ROW_SPACE_STRIDE * i)
+            for i, m in enumerate(names)]
+
+
+def golden_multicore_config(config: str, scheduler: str) -> SimConfig:
+    return SimConfig(scheduler=Scheduler[scheduler], **CONFIGS[config])
+
+
+def golden_multicore_groups() -> dict[tuple[str, str, str], list[dict]]:
+    """The fixture's 88 multicore cells grouped by (config, scheduler,
+    policy), each group's seeds in fixture order (the seeds' mixes are the
+    mixes of one batched call)."""
+    with open(GOLDEN_PATH) as f:
+        cells = json.load(f)["multicore"]
+    groups: dict[tuple[str, str, str], list[dict]] = {}
+    for c in cells:
+        groups.setdefault((c["config"], c["scheduler"], c["policy"]),
+                          []).append(c)
+    return groups
+
+
+def multicore_fixture() -> dict[tuple[str, str, str, str], dict]:
+    """``{(part, mix, policy, scheduler): cell}`` of the committed
+    multicore / scheduler-study products (``part`` is "multicore" or
+    "sched"); each cell holds ``counters``, ``core_cycles`` and
+    ``alone_cycles``."""
+    with open(MULTICORE_PATH) as f:
+        doc = json.load(f)
+    return {(c["part"], c["mix"], c["policy"], c["scheduler"]): c
+            for c in doc["cells"]}
