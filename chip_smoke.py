@@ -40,6 +40,28 @@ on any mismatch:
 9. timing     — CUDA-event times of both kernels and their plain versions at
                 the main paths' shapes and at throughput shapes, beside the
                 byte bound.
+10. ssd       — the SSD-scan kernel vs its plain version on the card, in
+                float32 (rtol = atol = 2e-4) and bfloat16 (2e-2), at
+                tests/test_kernels.py's sweep, mamba2-780m's serve shape,
+                jamba's SSM shape and chunk 256 with ds 128; the decay-bound
+                property and no NaN at a huge dt.
+11. serve     — main path three: ``repro_torch.launch.serve``'s path with
+                the fixture's arguments (mamba2-780m at full width, fp32,
+                4 requests x 256 prompt tokens x 16 new, MASA). Weights equal
+                the fixture's numpy stream (sha256 of every leaf);
+                ``EngineStats`` equal ``tests/data/torch_serve_mamba2_780m.json``
+                (made by the JAX package); every request's tokens equal the
+                fixture's up to its first near-tie step (top-1/top-2 gap
+                under 1e-2); exactly 4 x 48 = 192 SSD-scan launches.
+12. logits    — teacher-forced: the fixture's tokens through ``prefill`` and
+                ``decode_step``; every step's logits at the fixture's top-8
+                ids within rtol = atol = 1e-3.
+13. profile   — ``torch.profiler`` trace of one request's prefill and its
+                16 decode steps: the card's busy and idle share, and the
+                SSD-scan and matmul kernels' device time (reported, not
+                checked: the trace may hold no device activity there).
+14. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
+                version at the serve shape and at L = 2048, beside the bound.
 
 Each phase prints its seconds. The last lines are nvidia-smi's name and
 power limit, the per-kernel JSON record, and ``{"ok": true, "device":
@@ -76,6 +98,13 @@ THROUGHPUT_SEEDS = 32
 MIX_THROUGHPUT_SEEDS, MIX_THROUGHPUT_N = 64, 8000
 #: Mix-kernel and lane-kernel launches of run_multicore + run_sched.
 MULTICORE_LAUNCHES = {"lane_step": 2, "mix_step": 7 + 10}
+#: H100 SXM fp32 (non-tensor-core) peak, for the SSD scan's FMA loops.
+PEAK_FP32_FLOPS = 67e12
+#: The SSD scan's timing shapes (B, L, H, hd, ds, chunk): mamba2-780m's
+#: serve shape (torch_cases.SSD_SERVE) and the same at L = 2048.
+SSD_LONG = (1, 2048, 48, 64, 128, 64)
+#: SSD-scan launches of the serve path: one per layer per admitted request.
+SERVE_SSD_LAUNCHES = 4 * 48
 
 
 def fail(msg: str) -> None:
@@ -104,12 +133,15 @@ def phase_card():
 
 
 def phase_build():
+    from repro_torch import cuda_build
     from repro_torch.core.dram import cuda_step
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     t0 = time.perf_counter()
-    built = cuda_step.build()
-    for name in built:
+    built = cuda_build.build({**cuda_step.SOURCES, **ssd_kernel.SOURCES})
+    for name in cuda_step.SOURCES:
         cuda_step._library(name)
+    ssd_kernel._library()
     log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f}s")
     for name, (_, build_log) in built.items():
@@ -522,6 +554,161 @@ def phase_multicore(smi: str):
                 throughput=dict(M=tM, C=C, N=tN, ms=t_ms, bound_ms=tb_ms))
 
 
+def phase_ssd():
+    import torch_cases as tc
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ssd_scan import kernel as K
+
+    shapes = tc.SSD_CARD_SHAPES
+    err = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tol = tc.SSD_TOLS[dname]
+        for shape in shapes:
+            H, chunk = shape[2], shape[5]
+            args = tc.ssd_kernel_inputs(shape, dtype, "cuda")
+            y_k, h_k = K.ssd_scan_kernel(*args, chunk=chunk, n_heads=H)
+            y_p, h_p = K.ssd_scan_plain(*args, chunk=chunk, n_heads=H)
+            torch.cuda.synchronize()
+            if y_k.dtype != dtype or h_k.dtype != torch.float32:
+                fail(f"ssd: kernel returned {y_k.dtype} / {h_k.dtype}")
+            e = max(float((y_k.float() - y_p.float()).abs().max()),
+                    float((h_k - h_p).abs().max()))
+            ok = (torch.allclose(y_k.float(), y_p.float(), rtol=tol, atol=tol)
+                  and torch.allclose(h_k, h_p, rtol=tol, atol=tol))
+            log(f"[ssd] {dname:8s} B,L,H,hd,ds,chunk={shape}: max abs err "
+                f"{e:.3e} (tol {tol})")
+            if not ok:
+                fail(f"ssd: kernel != plain for {shape} in {dname}")
+            err[(dname, shape)] = e
+    # tests/test_kernels.py's decay-bound property, through ops.ssd_scan
+    L, hd, ds = 32, 16, 8
+    for B, H, dts in ((1, 1, 0.1), (2, 3, 0.7), (3, 4, 2.0)):
+        y, _ = ssd_scan(torch.ones((B, L, H, hd), device="cuda"),
+                        torch.full((B, L, H), dts, device="cuda"),
+                        torch.zeros(H, device="cuda"),
+                        torch.ones((B, L, ds), device="cuda") / ds,
+                        torch.ones((B, L, ds), device="cuda"),
+                        torch.zeros(H, device="cuda"), chunk=16)
+        if float(y.abs().max()) > (dts / (1 - np.exp(-dts)) + 1e-3) * 1.05:
+            fail(f"ssd: decay bound broken at B={B} H={H} dt={dts}")
+    inp = {k: torch.from_numpy(v).cuda() for k, v in
+           tc.ssd_inputs(2, 64, 3, 16, 8, seed=3, dt_scale=400.0).items()}
+    y, h = ssd_scan(*(inp[k] for k in ("x", "dt", "a_log", "b", "c",
+                                       "d_skip")), chunk=32)
+    if not (torch.isfinite(y).all() and torch.isfinite(h).all()):
+        fail("ssd: NaN or inf at a huge dt")
+    log(f"[ssd] kernel == plain on the card for {len(shapes)} shapes x 2 "
+        f"dtypes; decay bound holds; no NaN at dt x 400")
+    return err[("float32", tc.SSD_SERVE)]
+
+
+def phase_serve(smi: str):
+    import check_torch_serve as cs
+    import torch_cases as tc
+    from repro_torch.core.dram import cuda_step
+    from repro_torch.kernels.ssd_scan import kernel as K
+
+    fixture = tc.serve_fixture()
+    # ---- the main path, counted
+    cuda_step.reset_launches()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = cs.serve(fixture, "cuda")
+    except cs.CheckFailed as e:
+        fail(f"serve: {e}")
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    dram = dict(cuda_step.LAUNCHES)
+    model = res.pop("model")
+    log(f"[serve] launch.serve --arch mamba2-780m (full width, fp32) with "
+        f"the fixture's arguments on the card: {wall:.2f}s incl. weights "
+        f"({res['build_s']:.2f}s) and checks; engine {res['wall_s']:.3f}s; "
+        f"launches {launches}, DRAM kernels {dram}")
+    if launches["ssd_scan"] != SERVE_SSD_LAUNCHES:
+        fail(f"serve: expected {SERVE_SSD_LAUNCHES} ssd_scan launches, "
+             f"counted {launches['ssd_scan']}")
+    log(f"[serve] EngineStats {res['stats']} == fixture; tokens equal the "
+        f"fixture's at {res['tokens_compared']} steps; near-tie steps (gap "
+        f"< {cs.NEAR_TIE}): {res['near_ties']}")
+    log(f"[serve] prefill {res['prefill_calls']} calls, {res['prefill_s']:.4f}s"
+        f" ({res['prefill_tok_s']:.1f} tok/s); decode {res['decode_calls']} "
+        f"calls, {res['decode_s']:.4f}s ({res['decode_tok_s']:.2f} tok/s); "
+        f"card {smi}")
+    res.update(launches=launches["ssd_scan"], wall_with_checks_s=wall)
+    return res, model, fixture
+
+
+def phase_logits(model, fixture):
+    import check_torch_serve as cs
+
+    try:
+        tf = cs.teacher_forced(model, fixture)
+    except cs.CheckFailed as e:
+        fail(f"logits: {e}")
+    log(f"[logits] teacher-forced: {tf['steps']} steps' top-8 logits within "
+        f"rtol = atol = {cs.LOGIT_TOL}; max abs err {tf['max_abs_err']:.3e}, "
+        f"max err / limit {tf['max_err_over_limit']:.3f}; top-1 equal at "
+        f"{tf['top1_same']} of {tf['steps']} steps")
+    return tf
+
+
+def phase_profile(model, fixture):
+    import check_torch_serve as cs
+
+    prof = cs.profile(model, fixture)
+    if prof is None:
+        log("[profile] the trace holds no device activity: busy share not "
+            "measured")
+        return None
+    for name, p in prof.items():
+        log(f"[profile] {name}: wall {p['wall_ms']:.2f} ms under the "
+            f"profiler, card busy {p['device_ms']:.2f} ms in "
+            f"{p['device_ops']} kernels and copies (idle share "
+            f"{p['idle_share']:.3f}); ssd_scan {p['ssd_scan_ms']:.2f} ms, "
+            f"matmul (GEMM, GEMV) {p['matmul_ms']:.2f} ms")
+        for n, t, c in p["top"]:
+            log(f"[profile]   {t:9.3f} ms  x{c:<5d} {n}")
+    return prof
+
+
+def ssd_bound(shape):
+    """(bound_ms, bound_by) of one SSD-scan launch in float32: bytes of xr,
+    l, b, c read once and y, hT written once; operations of the lower
+    triangle of C B^T and of its product with xr, C @ S and the state
+    update, per (head, chunk)."""
+    B, L, H, hd, ds, Q = shape
+    nbytes = 4 * (2 * B * H * L * hd + B * H * L + 2 * B * L * ds
+                  + B * H * ds * hd)
+    tri = Q * (Q + 1) // 2
+    flops = B * H * (L // Q) * (2 * tri * ds + 2 * tri * hd + 4 * Q * ds * hd)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_ssd_time(smi: str):
+    import torch_cases as tc
+    from repro_torch.kernels.ssd_scan import kernel as K
+
+    out = {}
+    for name, shape in (("serve", tc.SSD_SERVE), ("long", SSD_LONG)):
+        H, chunk = shape[2], shape[5]
+        args = tc.ssd_kernel_inputs(shape, torch.float32, "cuda", seed=1)
+        k_ms = time_ms(lambda: K.ssd_scan_kernel(*args, chunk=chunk,
+                                                 n_heads=H), reps=50)
+        p_ms = time_ms(lambda: K.ssd_scan_plain(*args, chunk=chunk,
+                                                n_heads=H), reps=10)
+        b_ms, b_by = ssd_bound(shape)
+        log(f"[timing] ssd_scan {name} B,L,H,hd,ds,chunk={shape}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}), kernel / bound {k_ms / b_ms:.1f}x; card {smi}")
+        out[name] = dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by)
+    return out
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -537,6 +724,9 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"a checkout of the repository")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+    # the model runs in full fp32 (matmuls and any convolution)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     name, count, smi = run_phase("card", phase_card)
     run_phase("build", phase_build)
@@ -547,6 +737,12 @@ def main() -> None:
     fig4 = run_phase("fig4", phase_fig4)
     mc = run_phase("multicore", phase_multicore, smi)
     thr = run_phase("timing", phase_throughput, smi)
+    ssd_err = run_phase("ssd", phase_ssd)
+    serve, model, fixture = run_phase("serve", phase_serve, smi)
+    tf = run_phase("logits", phase_logits, model, fixture)
+    prof = run_phase("profile", phase_profile, model, fixture)
+    del model
+    ssd_t = run_phase("ssd_time", phase_ssd_time, smi)
     b_ms, b_by = bound(fig4["B"], fig4["N"])
     log(f"[timing] fig4 per launch (mean of 5 policies): kernel "
         f"{fig4['ms']:.4f} ms, plain {fig4['plain_ms']:.1f} ms, bound "
@@ -579,7 +775,22 @@ def main() -> None:
         "library_ms": None,
         "shape": f"M={mc['M']} C={mc['C']} N={mc['N']} (run_multicore, "
                  f"mean of 7 points; plain_ms MASA FR-FCFS)",
-        "throughput": mc["throughput"]}]}
+        "throughput": mc["throughput"]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:67",
+        "launches": serve["launches"],
+        "max_abs_err": ssd_err,
+        "ms": ssd_t["serve"]["ms"], "plain_ms": ssd_t["serve"]["plain_ms"],
+        "bound_ms": ssd_t["serve"]["bound_ms"],
+        "bound_by": ssd_t["serve"]["bound_by"], "library_ms": None,
+        "shape": "B=1 L=256 H=48 hd=64 ds=128 chunk=64 float32 (one "
+                 "mamba2-780m layer's prefill of a 256-token prompt)",
+        "long": ssd_t["long"],
+        "serve": {k: serve[k] for k in (
+            "stats", "wall_s", "prefill_s", "decode_s", "prefill_tok_s",
+            "decode_tok_s", "near_ties", "tokens_compared")},
+        "logits": tf, "profile": prof}]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

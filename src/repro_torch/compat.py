@@ -4,7 +4,8 @@ Reports what the machine offers the hand-written kernels: a CUDA device,
 its compute capability (the kernels are built for ``sm_90a``, so they need
 9.0), the ``nvcc`` that builds them, and whether Triton is installed. Kernel
 tests and ``chip_smoke.py`` use it to say why they skip or fail. Probing
-imports nothing from CUDA and builds nothing.
+imports nothing from CUDA and builds nothing. :func:`resolve_device` turns
+an entry point's ``device`` argument into the device the port runs on.
 """
 from __future__ import annotations
 
@@ -17,6 +18,18 @@ import torch
 
 #: The compute capability the kernels are built for (``sm_90a``).
 REQUIRED_CAPABILITY = (9, 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Without one, only an explicit CPU runs."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch version")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    return dev
 
 
 def nvcc_path() -> str | None:

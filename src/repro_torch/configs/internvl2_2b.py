@@ -1,0 +1,26 @@
+"""internvl2-2b [vlm]: 24L d_model=2048 16H (GQA kv=8) d_ff=8192 vocab=92553 —
+InternViT + InternLM2 [arXiv:2404.16821; hf].
+
+The InternViT frontend is a STUB (input_specs provides precomputed patch
+embeddings); the LM backbone consumes [patch_embeds ++ embedded text tokens].
+modality_tokens = 1024 patch positions in the canonical shapes.
+
+Port note: a framework-free copy of ``repro.configs.internvl2_2b``, with import paths
+rewritten to ``repro_torch`` (the port never imports the JAX
+package); tests/test_torch_configs.py holds it equal to the reference.
+"""
+from repro_torch.configs.base import AttnConfig, LayerSpec, ModelConfig
+
+CONFIG = ModelConfig(
+    name="internvl2-2b",
+    family="vlm",
+    d_model=2048,
+    d_ff=8192,
+    vocab_size=92553,                     # padded to 92672 for TP
+    pattern=(LayerSpec(mixer="attn", ffn="dense"),),
+    n_repeats=24,
+    attn=AttnConfig(n_heads=16, n_kv_heads=8, head_dim=128),
+    modality="vision",
+    modality_tokens=1024,
+    source="arXiv:2404.16821; hf",
+)

@@ -25,28 +25,22 @@ timing step, the refresh commit); only the counter pack and the per-core
 * ``LAUNCHES`` counts kernel launches, so a run can show that its path went
   through the kernels.
 
-Build: at first use every ``.cu`` source is compiled with ``nvcc`` for
-``sm_90a`` into its own shared library with a plain C interface under
-``build/repro_torch_kernels/`` at the repository root (``.gitignore`` lists
-``build/``), one ``nvcc`` per source, all started together. The libraries
-are named by a hash of every source and header in ``csrc/`` and the flags,
-so an edit to any of them rebuilds, and are loaded with ``ctypes``. Nothing
-is built or imported from CUDA when this module is imported.
+Build: at first use :mod:`repro_torch.cuda_build` compiles each ``.cu``
+source for ``sm_90a`` into its own plain-C shared library (one ``nvcc`` per
+source, all started together), named by a hash of every source and header
+in ``csrc/`` and the flags, and it is loaded with ``ctypes``. Nothing is
+built or imported from CUDA when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-from repro_torch import compat
+from repro_torch import cuda_build
 from repro_torch.core.dram import controller as _controller
 from repro_torch.core.dram import engine as _engine
 from repro_torch.core.dram import state_layout as L
@@ -55,9 +49,8 @@ from repro_torch.core.dram.timing import DramTiming
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Kernel name -> source; each builds into its own library.
 SOURCES = {"lane_step": CSRC / "lane_step.cu", "mix_step": CSRC / "mix_step.cu"}
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_DIR = cuda_build.BUILD_DIR
+NVCC_FLAGS = cuda_build.NVCC_FLAGS
 
 #: The timing array's layout: DramTiming's fields in declaration order, as
 #: the T_* constants of dram_step.cuh index it.
@@ -88,60 +81,18 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _source_tag() -> str:
-    """Hash of every source and header in ``csrc/`` and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
-        h.update(path.name.encode() + b"\0" + path.read_bytes())
-    return h.hexdigest()[:16]
-
-
 @functools.lru_cache(maxsize=None)
 def build() -> dict[str, tuple[Path, str]]:
-    """Compile every kernel (once per process and sources), one ``nvcc`` per
-    source, all started together. Returns ``{name: (library path, compiler
-    log)}``; the log is ``-Xptxas -v``'s (registers, spills). Raises with
-    the compiler's output if a build fails."""
-    nvcc = compat.nvcc_path()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built "
-                           "from source at first use (" + compat.summary() + ")")
-    tag = _source_tag()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out, running = {}, {}
-    for name, src in SOURCES.items():
-        lib = BUILD_DIR / f"{name}_{tag}.so"
-        log_path = lib.with_suffix(".log")
-        if lib.exists() and log_path.exists():
-            out[name] = (lib, log_path.read_text())
-            continue
-        # build under a temporary name, then rename: a concurrent build
-        # never sees a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, lib, log_path)
-    failed = []
-    for name, (proc, tmp, lib, log_path) in running.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"nvcc failed to build {SOURCES[name].name} "
-                          f"(rc={proc.returncode}):\n{log}")
-            continue
-        log_path.write_text(log)
-        os.replace(tmp, lib)
-        out[name] = (lib, log)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
+    """Compile both kernels (once per process and sources), one ``nvcc``
+    per source, all started together. Returns ``{name: (library path,
+    compiler log)}``; the log is ``-Xptxas -v``'s (registers, spills).
+    Raises with the compiler's output if a build fails."""
+    return cuda_build.build(SOURCES)
 
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[name][0]))
+    lib = cuda_build.load(name, SOURCES[name])
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "lane_step":
         lib.lane_step_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]

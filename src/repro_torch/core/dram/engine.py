@@ -44,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.compat import resolve_device
 from repro_torch.core.dram import registry
 from repro_torch.core.dram import state_layout as L
 from repro_torch.core.dram.policies import Policy
@@ -414,18 +415,6 @@ def result_from_state(n_requests: int, scalars, vis_prev) -> SimResult:
         sum_latency=scalars[:, L.SC_SUM_LAT], n_reads=scalars[:, L.SC_C_READS],
         sa_open_cycles=scalars[:, L.SC_SA_OPEN_CYC],
     )
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Without one, only an explicit CPU runs."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run the plain PyTorch version")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
-    return dev
 
 
 _EMIT_ERROR = (

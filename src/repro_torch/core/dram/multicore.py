@@ -24,9 +24,10 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.compat import resolve_device
 from repro_torch.core.dram import cuda_step
 from repro_torch.core.dram.engine import (SimConfig, SimResult, mix_inputs,
-                                          resolve_device, simulate_batch)
+                                          simulate_batch)
 from repro_torch.core.dram.policies import Policy
 from repro_torch.core.dram.schedulers import Scheduler
 from repro_torch.core.dram.trace import Trace, WorkloadProfile, stack_traces

@@ -1,4 +1,5 @@
-"""The CUDA lane and mix kernels against their plain versions, on the card.
+"""The CUDA lane, mix and SSD-scan kernels against their plain versions,
+on the card.
 
 Marked ``cuda``: these run where an NVIDIA GPU with compute capability 9.0
 and ``nvcc`` are present (``pytest -m cuda``) and skip elsewhere, with the
@@ -141,3 +142,75 @@ def test_one_mix_launch_per_call_and_refusals(card):
         cuda_step.simulate_cores(eff, sc_, nb, ns, t, 0, reqs, mlp,
                                  rank.cpu())
     assert cuda_step.LAUNCHES["mix_step"] == 1
+
+
+# ---------------------------------------------------------------- SSD scan
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", tc.SSD_CARD_SHAPES)
+def test_ssd_kernel_equals_plain(card, shape, dtype):
+    from repro_torch.kernels.ssd_scan import kernel as K
+
+    H, chunk = shape[2], shape[5]
+    args = tc.ssd_kernel_inputs(shape, getattr(torch, dtype), card)
+    y_k, h_k = K.ssd_scan_kernel(*args, chunk=chunk, n_heads=H)
+    y_p, h_p = K.ssd_scan_plain(*args, chunk=chunk, n_heads=H)
+    torch.cuda.synchronize()
+    tol = tc.SSD_TOLS[dtype]
+    assert y_k.dtype == args[0].dtype and h_k.dtype == torch.float32
+    torch.testing.assert_close(y_k.float(), y_p.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h_k, h_p, rtol=tol, atol=tol)
+
+
+def test_ssd_launches_and_refusals(card):
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import kernel as K
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-780m").reduced(128)
+    model = build_model(cfg, interop.params_from_reference(
+        cfg, interop.numpy_reference_params(cfg, 0)), dtype=torch.float32,
+        device=None)
+    K.reset_launches()
+    model.prefill({"tokens": torch.zeros((1, 32), dtype=torch.long,
+                                         device=card)})
+    assert K.LAUNCHES["ssd_scan"] == cfg.n_layers
+    xr, l, b, c = tc.ssd_kernel_inputs((1, 32, 2, 16, 8, 16), torch.float32,
+                                       card)
+    with pytest.raises(TypeError):
+        K.ssd_scan_kernel(xr.double(), l, b, c, chunk=16, n_heads=2)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        K.ssd_scan_kernel(xr.bfloat16(), l, b, c, chunk=16, n_heads=2)
+    with pytest.raises(ValueError, match="does not take chunk=8"):
+        K.ssd_scan_kernel(xr, l, b, c, chunk=8, n_heads=2)
+    with pytest.raises(ValueError, match="inputs on"):
+        K.ssd_scan_kernel(xr, l.cpu(), b, c, chunk=16, n_heads=2)
+    assert K.LAUNCHES["ssd_scan"] == cfg.n_layers
+
+
+@pytest.mark.parametrize("chunk,hd,ds,fits", [
+    (64, 64, 128, True), (256, 64, 128, True), (32, 64, 16, True),
+    (16, 16, 8, True), (256, 128, 256, True), (8, 16, 8, False),
+    (64, 48, 16, False), (64, 256, 16, False), (64, 64, 6, False),
+    (256, 128, 512, False)])
+def test_kernel_shape_limits(card, chunk, hd, ds, fits):
+    """Every (chunk, ds, hd) the configs and tests use fits the kernel's
+    shared memory and agrees with the plain version; shapes it cannot take
+    are refused before a launch."""
+    from repro_torch.kernels.ssd_scan import kernel as K
+
+    args = tc.ssd_kernel_inputs((1, chunk, 2, hd, ds, chunk), torch.float32,
+                                card)
+    K.reset_launches()
+    if not fits:
+        with pytest.raises(ValueError, match="does not take"):
+            K.ssd_scan_kernel(*args, chunk=chunk, n_heads=2)
+        assert K.LAUNCHES["ssd_scan"] == 0
+        return
+    y_k, h_k = K.ssd_scan_kernel(*args, chunk=chunk, n_heads=2)
+    y_p, h_p = K.ssd_scan_plain(*args, chunk=chunk, n_heads=2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ssd_scan"] == 1
+    tol = tc.SSD_TOLS["float32"]
+    torch.testing.assert_close(y_k, y_p, rtol=tol, atol=tol)
+    torch.testing.assert_close(h_k, h_p, rtol=tol, atol=tol)

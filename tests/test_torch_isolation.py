@@ -17,8 +17,9 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "torch_cases.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_cases.py",
+        ROOT / "tests" / "check_torch_serve.py"]
 
 
 def forbidden(name: str) -> bool:
@@ -50,7 +51,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
     importlib.import_module(n)
-import torch_cases, chip_smoke
+import torch_cases, check_torch_serve, chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps(dict(modules=names, leaked=leaked)))
@@ -65,7 +66,13 @@ print(json.dumps(dict(modules=names, leaked=leaked)))
             "repro_torch.core.dram.multicore",
             "repro_torch.core.dram.schedulers",
             "repro_torch.paper_repro", "repro_torch.interop",
-            "repro_torch.compat"} <= set(out["modules"])
+            "repro_torch.compat", "repro_torch.cuda_build",
+            "repro_torch.configs.registry", "repro_torch.core.salp.cost_model",
+            "repro_torch.kernels.ssd_scan.kernel",
+            "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.builder",
+            "repro_torch.models.ssm", "repro_torch.serve.engine",
+            "repro_torch.serve.steps", "repro_torch.launch.serve"
+            } <= set(out["modules"])
 
 
 def test_importing_multicore_alone_leaves_jax_out():

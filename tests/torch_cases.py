@@ -7,6 +7,11 @@ of ``tests/test_packed_state.py``, built from ``repro_torch`` alone so that
 ``tests/data/torch_multicore_fixture.json`` on the card without the JAX
 package. ``tests/test_torch_engine.py`` and ``tests/test_torch_multicore.py``
 hold this copy equal to the reference's.
+
+It also holds the SSD-scan cases (``tests/test_kernels.py``'s shapes and
+tolerances, inputs drawn with numpy) and the serving fixture's reader, which
+``tests/test_torch_ssd_scan.py``, ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` share.
 """
 from __future__ import annotations
 
@@ -24,6 +29,19 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN_PATH = os.path.join(DATA, "golden_packed_state.json")
 FIG4_PATH = os.path.join(DATA, "torch_fig4_n8000.json")
 MULTICORE_PATH = os.path.join(DATA, "torch_multicore_fixture.json")
+SERVE_PATH = os.path.join(DATA, "torch_serve_mamba2_780m.json")
+
+#: tests/test_kernels.py's SSD sweep: (B, L, H, hd, ds, chunk).
+SSD_SHAPES = ((1, 32, 2, 16, 8, 16), (2, 64, 3, 16, 8, 16),
+              (2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64))
+#: tests/test_kernels.py's tolerances (rtol = atol) by dtype name.
+SSD_TOLS = {"float32": 2e-4, "bfloat16": 2e-2}
+#: SSD shapes held on the card besides the sweep: mamba2-780m's serve
+#: shape (one prefill of a 256-token prompt), jamba's SSM shape, and chunk
+#: 256 with ds 128 (SSMConfig's default chunk).
+SSD_SERVE = (1, 256, 48, 64, 128, 64)
+SSD_CARD_SHAPES = SSD_SHAPES + (SSD_SERVE, (2, 512, 128, 64, 16, 32),
+                                (1, 512, 8, 64, 128, 256))
 
 #: The golden multicore cells' mix and trace length.
 GOLDEN_MIX, GOLDEN_MIX_N = ("mcf", "lbm"), 150
@@ -123,3 +141,43 @@ def multicore_fixture() -> dict[tuple[str, str, str, str], dict]:
         doc = json.load(f)
     return {(c["part"], c["mix"], c["policy"], c["scheduler"]): c
             for c in doc["cells"]}
+
+
+def ssd_inputs(B: int, L: int, H: int, hd: int, ds: int, seed: int = 0,
+               dt_scale: float = 1.0) -> dict[str, np.ndarray]:
+    """float32 inputs of ``ssd_scan`` at tests/test_kernels.py's scales:
+    x [B,L,H,hd], dt [B,L,H] (softplus of a normal, times ``dt_scale``),
+    a_log [H], b and c [B,L,ds], d_skip [H]."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    z = rng.standard_normal((B, L, H)).astype(f32)
+    return dict(
+        x=(rng.standard_normal((B, L, H, hd)) * 0.5).astype(f32),
+        dt=(np.logaddexp(z, 0) * dt_scale).astype(f32),
+        a_log=np.log(np.linspace(1.0, 4.0, H)).astype(f32),
+        b=(rng.standard_normal((B, L, ds)) * 0.3).astype(f32),
+        c=(rng.standard_normal((B, L, ds)) * 0.3).astype(f32),
+        d_skip=np.ones((H,), f32))
+
+
+def ssd_kernel_inputs(shape, dtype, device, seed: int = 0):
+    """``ssd_inputs`` of ``shape`` (B, L, H, hd, ds, chunk) in the
+    kernel's layout on ``device``, as ops.ssd_scan makes them: xr and
+    b, c in ``dtype``, l in float32, all contiguous."""
+    import torch
+
+    B, L, H, hd, ds, _ = shape
+    inp = {k: torch.from_numpy(v).to(device)
+           for k, v in ssd_inputs(B, L, H, hd, ds, seed).items()}
+    l = (inp["dt"] * -torch.exp(inp["a_log"])).transpose(1, 2)
+    xr = (inp["x"] * inp["dt"][..., None]).transpose(1, 2)
+    return (xr.reshape(B * H, L, hd).to(dtype).contiguous(),
+            l.reshape(B * H, L).contiguous(), inp["b"].to(dtype),
+            inp["c"].to(dtype))
+
+
+def serve_fixture() -> dict:
+    """tests/data/torch_serve_mamba2_780m.json (see
+    tests/make_torch_serve_fixture.py)."""
+    with open(SERVE_PATH) as f:
+        return json.load(f)
