@@ -10,8 +10,8 @@ on any mismatch:
 1. card       — the device's name and count, and nvidia-smi's name and
                 power limit; the kernels need compute capability 9.0 and
                 nvcc.
-2. build      — compile every kernel from the sources in the checkout, one
-                nvcc per source, all at once (``-Xptxas -v``: registers,
+2. build      — compile all seven kernels from the sources in the checkout,
+                one nvcc per source, all at once (``-Xptxas -v``: registers,
                 spills).
 3. golden     — the 300 single-core cells of
                 ``tests/data/golden_packed_state.json`` through the lane
@@ -62,10 +62,34 @@ on any mismatch:
                 checked: the trace may hold no device activity there).
 14. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound.
+15. kernels   — the masa_gemm (both orders, through ops and its fallback),
+                moe_gemm, paged_attention and flash_attention kernels vs
+                their plain versions on the card, in float32 (rtol = atol =
+                2e-4) and bfloat16 (2e-2), at tests/test_kernels.py's and
+                tests/test_flash_attention.py's sweep shapes (flash at both
+                causal values and hd 96 too); paged at seq_lens 0, 1, a
+                partial page and full with out-of-range table entries
+                through ops; GQA through ops.flash_attention. Each wrapper
+                raises on a non-contiguous input, a wrong dtype or a refused
+                shape, before any launch.
+16. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
+                card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
+                exactly one launch per call as the reference times them
+                (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
+                paged_attention 2, flash_attention 1); no DRAM-kernel launch.
+17. kernel_time — the four kernels at jamba-v0.1-52b's full width
+                (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
+                kernel vs plain within the tolerances above, then CUDA-event
+                times of the kernel, its plain version and the one PyTorch
+                call that computes the same function (scaled_dot_product_
+                attention, torch.bmm, torch.matmul; none for paged), beside
+                the bound max(FLOPs / peak, bytes / 3.35 TB/s). masa_gemm's
+                weight-stationary order falls back there and is also timed
+                at K = 256.
 
 Each phase prints its seconds. The last lines are nvidia-smi's name and
-power limit, the per-kernel JSON record, and ``{"ok": true, "device":
-{...}}``.
+power limit, the per-kernel JSON record (all seven kernels), and ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -105,6 +129,15 @@ PEAK_FP32_FLOPS = 67e12
 SSD_LONG = (1, 2048, 48, 64, 128, 64)
 #: SSD-scan launches of the serve path: one per layer per admitted request.
 SERVE_SSD_LAUNCHES = 4 * 48
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989.4e12
+#: kernel_bench.run()'s oracles and launches: one call of each kernel as the
+#: reference times them, plus the default-order masa_gemm of its error check.
+BENCH_ERRS = {"moe_gemm", "masa_gemm", "ssd_scan", "flash_attention",
+              "paged_attention/shared_prefix", "paged_attention/private"}
+BENCH_LAUNCHES = {"masa_gemm_os": 2, "masa_gemm_ws": 1, "ssd_scan": 1,
+                  "moe_gemm": 1, "paged_attention": 2, "flash_attention": 1}
+KERNEL_TIME_SEED = 14
 
 
 def fail(msg: str) -> None:
@@ -133,15 +166,14 @@ def phase_card():
 
 
 def phase_build():
-    from repro_torch import cuda_build
+    from repro_torch import cuda_build, kernels
     from repro_torch.core.dram import cuda_step
-    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     t0 = time.perf_counter()
-    built = cuda_build.build({**cuda_step.SOURCES, **ssd_kernel.SOURCES})
+    built = cuda_build.build({**cuda_step.SOURCES, **kernels.SOURCES})
     for name in cuda_step.SOURCES:
         cuda_step._library(name)
-    ssd_kernel._library()
+    kernels.build()
     log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f}s")
     for name, (_, build_log) in built.items():
@@ -563,7 +595,7 @@ def phase_ssd():
     err = {}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        tol = tc.SSD_TOLS[dname]
+        tol = tc.TOLS[dname]
         for shape in shapes:
             H, chunk = shape[2], shape[5]
             args = tc.ssd_kernel_inputs(shape, dtype, "cuda")
@@ -709,6 +741,413 @@ def phase_ssd_time(smi: str):
     return out
 
 
+# ---------------------------------------------------------------- kernels
+def card_inputs(arrays, dtype):
+    return [torch.from_numpy(a).to(device="cuda", dtype=dtype)
+            for a in arrays]
+
+
+def kernel_err(name: str, got, want, dname: str) -> float:
+    """|kernel - plain|, failing the run outside the dtype's tolerance."""
+    import torch_cases as tc
+
+    tol = tc.TOLS[dname]
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name}: kernel gave {got.dtype} {tuple(got.shape)}, plain "
+             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"{name}: kernel != plain in {dname} (rtol = atol = {tol})")
+    return float((got.float() - want.float()).abs().max())
+
+
+def refuses(name: str, exc, fn) -> None:
+    """Fail unless ``fn`` raises ``exc`` before any launch."""
+    from repro_torch import kernels
+
+    before = kernels.launches()
+    try:
+        fn()
+    except exc:
+        if kernels.launches() != before:
+            fail(f"kernels: {name} raised after launching")
+        return
+    fail(f"kernels: {name} did not raise {exc.__name__}")
+
+
+def phase_kernels():
+    import torch_cases as tc
+    from repro_torch import cuda_build, kernels
+    from repro_torch.kernels import (flash_attention, grouped_matmul,
+                                     masa_gemm, paged_attention)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.masa_gemm import kernel as MK, ops as masa_ops
+    from repro_torch.kernels.moe_gemm import capacity_block_eids
+    from repro_torch.kernels.moe_gemm import kernel as EK
+    from repro_torch.kernels.paged_attention import kernel as PK
+
+    err = {k: {} for k in ("masa_gemm", "moe_gemm", "paged_attention",
+                           "flash_attention")}
+    n = 0
+
+    def record(kernel, dname, e):
+        nonlocal n
+        n += 1
+        err[kernel][dname] = max(err[kernel].get(dname, 0.0), e)
+
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for m, k, nn in tc.MASA_SHAPES:
+            a, b = card_inputs(tc.masa_inputs(m, k, nn), dtype)
+            for order in MK.ORDERS:
+                kernels.reset_launches()
+                got = masa_gemm(a, b, order=order)
+                ws = (order == "weight_stationary" and masa_ops.ws_panel_bytes(
+                    k, dtype) <= cuda_build.MAX_SMEM_BYTES)
+                if MK.LAUNCHES != {"masa_gemm_os": int(not ws),
+                                   "masa_gemm_ws": int(ws)}:
+                    fail(f"kernels: masa_gemm {order} at K={k} launched "
+                         f"{MK.LAUNCHES}")
+                record("masa_gemm", dname, kernel_err(
+                    f"masa_gemm {order} {m}x{k}x{nn}", got,
+                    MK.masa_gemm_plain(a, b), dname))
+        for E, C, D, F, bt, bf in tc.MOE_SHAPES:
+            x, w = card_inputs(tc.moe_inputs(E, C, D, F, seed=1), dtype)
+            eids = capacity_block_eids(E, C, bt, device="cuda")
+            for ids in (eids, eids.flip(0).contiguous()):
+                record("moe_gemm", dname, kernel_err(
+                    f"moe_gemm {(E, C, D, F, bt)}",
+                    grouped_matmul(x, w, ids, bt=bt, bf=bf),
+                    EK.grouped_matmul_plain(x, w, ids, bt=bt), dname))
+        for shape in tc.PAGED_SHAPES:
+            q, kp, vp, table, lens = tc.paged_inputs(*shape, seed=3)
+            args = card_inputs((q, kp, vp), dtype) + [
+                torch.from_numpy(t).cuda() for t in (table, lens)]
+            record("paged_attention", dname, kernel_err(
+                f"paged_attention {shape}", paged_attention(*args),
+                PK.paged_attention_plain(*args), dname))
+        # seq_lens 0, 1, a partial page and full; out-of-range table
+        # entries, clamped by ops as in the reference
+        q, kp, vp, table, _ = tc.paged_inputs(4, 2, 4, 64, 16, 16, 4, seed=5)
+        table = table.copy()
+        table[0, 3], table[1, 0], table[2, 2] = -7, 16, 1000
+        args = card_inputs((q, kp, vp), dtype) + [
+            torch.from_numpy(table).cuda(),
+            torch.tensor([0, 1, 21, 64], dtype=torch.int32, device="cuda")]
+        clamped = args[3].clamp(0, 15).to(torch.int32)
+        record("paged_attention", dname, kernel_err(
+            "paged_attention lengths 0/1/21/64, clamped table",
+            paged_attention(*args),
+            PK.paged_attention_plain(*args[:3], clamped, args[4]), dname))
+        for bh, s, hd, bq, bk in tc.FLASH_SHAPES + ((2, 128, 96, 128, 128),):
+            t = card_inputs(tc.flash_inputs(bh, s, hd), dtype)
+            for causal in (True, False):
+                record("flash_attention", dname, kernel_err(
+                    f"flash_attention {(bh, s, hd)} causal={causal}",
+                    FK.flash_attention_kernel(*t, causal=causal, bq=bq,
+                                              bk=bk),
+                    FK.flash_attention_plain(*t, causal=causal, bk=bk),
+                    dname))
+        # GQA through ops (8 query heads on 2 kv heads of 128)
+        rng = np.random.default_rng(11)
+        q, k, v = card_inputs([rng.standard_normal(sh).astype(np.float32)
+                               for sh in ((2, 256, 8, 128), (2, 256, 2, 128),
+                                          (2, 256, 2, 128))], dtype)
+        flat = [t.repeat_interleave(8 // t.shape[2], dim=2).transpose(1, 2)
+                .reshape(16, 256, 128) for t in (q, k, v)]
+        want = FK.flash_attention_plain(*flat, causal=True)
+        record("flash_attention", dname, kernel_err(
+            "flash_attention GQA through ops", flash_attention(q, k, v),
+            want.reshape(2, 8, 256, 128).transpose(1, 2), dname))
+    torch.cuda.synchronize()
+
+    # ---- refusals: no fallback to the plain version
+    a = torch.randn((128, 256), device="cuda")
+    x = torch.randn((256, 64), device="cuda")
+    w = torch.randn((2, 64, 128), device="cuda")
+    ids = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    q = torch.randn((2, 2, 4, 64), device="cuda")
+    kp = torch.randn((8, 16, 2, 64), device="cuda")
+    tab = torch.zeros((2, 4), dtype=torch.int32, device="cuda")
+    lens = torch.ones(2, dtype=torch.int32, device="cuda")
+    big = torch.randn((1, 1, 256, 256), device="cuda")
+    pages = torch.randn((2, 16, 1, 256), device="cuda")
+    one = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    f48 = torch.randn((2, 128, 48), device="cuda")
+    f64 = torch.randn((2, 128, 64), device="cuda")
+    refusals = [
+        ("masa_gemm non-contiguous", ValueError,
+         lambda: MK.masa_gemm_kernel(a, a.t())),
+        ("masa_gemm float64", TypeError,
+         lambda: MK.masa_gemm_kernel(a.double(), a.t().contiguous().double())),
+        ("masa_gemm weight-stationary K=512 float32", ValueError,
+         lambda: MK.masa_gemm_kernel(torch.randn((128, 512), device="cuda"),
+                                     torch.randn((512, 128), device="cuda"),
+                                     order="weight_stationary")),
+        ("moe_gemm int64 ids", TypeError,
+         lambda: EK.grouped_matmul_kernel(x, w, ids.long())),
+        ("moe_gemm mixed dtypes", TypeError,
+         lambda: EK.grouped_matmul_kernel(x.bfloat16(), w, ids)),
+        ("moe_gemm non-contiguous", ValueError,
+         lambda: EK.grouped_matmul_kernel(
+             x, w.transpose(1, 2).contiguous().transpose(1, 2), ids)),
+        ("moe_gemm id out of range", ValueError,
+         lambda: grouped_matmul(x, w, ids + 1)),
+        ("paged_attention int64 table", TypeError,
+         lambda: PK.paged_attention_kernel(q, kp, kp, tab.long(), lens)),
+        ("paged_attention non-contiguous", ValueError,
+         lambda: PK.paged_attention_kernel(
+             q.transpose(2, 3).contiguous().transpose(2, 3), kp, kp, tab,
+             lens)),
+        ("paged_attention G=256 hd=256 (shared memory)", ValueError,
+         lambda: PK.paged_attention_kernel(big, pages, pages, one, one[0])),
+        ("flash_attention hd=48", ValueError,
+         lambda: FK.flash_attention_kernel(f48, f48, f48)),
+        ("flash_attention float16", TypeError,
+         lambda: FK.flash_attention_kernel(f64.half(), f64.half(),
+                                           f64.half())),
+        ("flash_attention non-contiguous", ValueError,
+         lambda: FK.flash_attention_kernel(
+             f64.transpose(1, 2).contiguous().transpose(1, 2), f64, f64)),
+    ]
+    for name, exc, fn in refusals:
+        refuses(name, exc, fn)
+    for kernel, e in err.items():
+        log(f"[kernels] {kernel}: kernel == plain on the card, max abs err "
+            f"float32 {e['float32']:.3e}, bfloat16 {e['bfloat16']:.3e}")
+    log(f"[kernels] {n} cases in float32 (rtol = atol = "
+        f"{tc.TOLS['float32']}) and bfloat16 ({tc.TOLS['bfloat16']}); "
+        f"{len(refusals)} refusals raised before any launch")
+    return err
+
+
+# ----------------------------------------------------------- kernel_bench
+def phase_kernel_bench():
+    from repro_torch import kernel_bench, kernels
+    from repro_torch.core.dram import cuda_step
+
+    # ---- main path four, counted
+    kernels.reset_launches()
+    cuda_step.reset_launches()
+    t0 = time.perf_counter()
+    res = kernel_bench.run()
+    wall = time.perf_counter() - t0
+    launches, dram = kernels.launches(), dict(cuda_step.LAUNCHES)
+    log(f"[kernel_bench] kernel_bench.run() on the card: {wall:.3f}s; "
+        f"launches {launches}, DRAM kernels {dram}")
+    if res["device"] != "cuda" or res["kernels_ok"] is not True:
+        fail(f"kernel_bench: kernels_ok {res['kernels_ok']} on "
+             f"{res['device']}")
+    bad = {k: e for k, e in res["errs"].items()
+           if not 0 <= e < kernel_bench.ERR_TOL}
+    if set(res["errs"]) != BENCH_ERRS or bad:
+        fail(f"kernel_bench: errs {res['errs']}")
+    if res["moe_hit"] != 8 / 15:
+        fail(f"kernel_bench: moe_hit {res['moe_hit']}, expected 8/15")
+    if launches != BENCH_LAUNCHES or any(dram.values()):
+        fail(f"kernel_bench: expected launches {BENCH_LAUNCHES} and no DRAM "
+             f"kernel, counted {launches}, {dram}")
+    ladder = res["ladder"]
+    if not ladder["masa"] >= ladder["salp1"] > 1.0 == ladder["baseline"]:
+        fail(f"kernel_bench: ladder {ladder}")
+    log(f"[kernel_bench] errs {res['errs']} (< {kernel_bench.ERR_TOL}); "
+        f"moe_hit {res['moe_hit']:.4f}; ladder {ladder}")
+    res["wall_s"] = wall
+    return res
+
+
+# ------------------------------------------------------------ kernel_time
+def bound_of(flops: float, nbytes: float, dname: str):
+    """(bound_ms, bound_by): the larger of operations over the dtype's peak
+    and bytes over the HBM rate."""
+    peak = PEAK_BF16_FLOPS if dname == "bfloat16" else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def timing_row(name, kernel, plain, library, flops, nbytes, dname, reps):
+    """Kernel vs plain at one shape (the run fails outside tolerance), then
+    CUDA-event times of the kernel, its plain version and the library
+    call, beside the bound."""
+    e = kernel_err(name, kernel(), plain(), dname)
+    row = dict(max_abs_err=e,
+               ms=time_ms(kernel, reps, warmup=1),
+               plain_ms=time_ms(plain, 2, warmup=1),
+               library_ms=(time_ms(library, reps, warmup=1)
+                           if library else None))
+    row["bound_ms"], row["bound_by"] = bound_of(flops, nbytes, dname)
+    lib = f"{row['library_ms']:.4f} ms" if library else "none"
+    log(f"[timing] {name} {dname}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library {lib}, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}), kernel / bound "
+        f"{row['ms'] / row['bound_ms']:.1f}x; max abs err {e:.3e}")
+    return row
+
+
+def phase_kernel_time(smi: str):
+    import torch_cases as tc
+    import torch.nn.functional as Fn
+    from repro_torch import cuda_build
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.masa_gemm import kernel as MK, ops as masa_ops
+    from repro_torch.kernels.moe_gemm import capacity_block_eids
+    from repro_torch.kernels.moe_gemm import kernel as EK
+    from repro_torch.kernels.paged_attention import kernel as PK
+
+    gen = torch.Generator(device="cuda").manual_seed(KERNEL_TIME_SEED)
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    out = {k: {} for k in ("flash_attention", "paged_attention", "moe_gemm",
+                           "masa_gemm")}
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        es = dtype.itemsize
+        # ---- flash: jamba's attention layer, causal prefill of 2048
+        s = tc.FLASH_JAMBA
+        B, S, H, Hkv, hd = s["B"], s["S"], s["H"], s["Hkv"], s["hd"]
+        q = randn((B, H, S, hd), dtype)
+        k, v = randn((B, Hkv, S, hd), dtype), randn((B, Hkv, S, hd), dtype)
+        ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+        qf, kf, vf = (t.reshape(B * H, S, hd) for t in (q, ke, ve))
+        pairs = B * H * S * (S + 1) // 2
+        row = timing_row(
+            "flash_attention", lambda: FK.flash_attention_kernel(qf, kf, vf),
+            lambda: FK.flash_attention_plain(qf, kf, vf),
+            lambda: Fn.scaled_dot_product_attention(q, ke, ve,
+                                                    is_causal=True),
+            4 * hd * pairs, es * 4 * B * H * S * hd, dname, reps=10)
+        row["library_gqa_ms"] = time_ms(
+            lambda: Fn.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                    enable_gqa=True), 10, 1)
+        out["flash_attention"][dname] = row
+        del q, k, v, ke, ve, qf, kf, vf
+        # ---- paged: one decode step at batch 32, 2048 tokens, private pages
+        s = tc.PAGED_JAMBA
+        B, KVH, G, hd, page, P = (s["B"], s["KVH"], s["G"], s["hd"],
+                                  s["page"], s["P"])
+        npg = s["seq"] // page
+        q = randn((B, KVH, G, hd), dtype)
+        kp, vp = randn((P, page, KVH, hd), dtype), randn((P, page, KVH, hd),
+                                                        dtype)
+        table = torch.randperm(P, generator=gen, device="cuda").to(
+            torch.int32).reshape(B, npg)
+        lens = torch.full((B,), s["seq"], dtype=torch.int32, device="cuda")
+        kv_bytes = 2 * es * B * npg * page * KVH * hd
+        row = timing_row(
+            "paged_attention",
+            lambda: PK.paged_attention_kernel(q, kp, vp, table, lens),
+            lambda: PK.paged_attention_plain(q, kp, vp, table, lens), None,
+            4 * B * KVH * G * s["seq"] * hd,
+            kv_bytes + es * 2 * q.numel() + 4 * (table.numel() + B), dname,
+            reps=20)
+        row["kv_bytes"] = kv_bytes
+        out["paged_attention"][dname] = row
+        del q, kp, vp
+        # ---- moe: jamba's expert FFN up-projection, capacity layout
+        s = tc.MOE_JAMBA
+        E, C, D, F, bt = s["E"], s["C"], s["D"], s["F"], s["bt"]
+        x, w = randn((E * C, D), dtype), randn((E, D, F), dtype, D ** -0.5)
+        eids = capacity_block_eids(E, C, bt, device="cuda")
+        T = E * C
+        row = timing_row(
+            "moe_gemm", lambda: EK.grouped_matmul_kernel(x, w, eids, bt=bt),
+            lambda: EK.grouped_matmul_plain(x, w, eids, bt=bt),
+            lambda: torch.bmm(x.view(E, C, D), w), 2 * T * D * F,
+            es * (T * D + E * D * F + T * F) + 4 * eids.numel(), dname,
+            reps=3)
+        out["moe_gemm"][dname] = row
+        del x, w
+        torch.cuda.empty_cache()
+        # ---- masa: a dense FFN up-projection of 2048 tokens, both orders
+        s = tc.MASA_JAMBA
+        M, K, N = s["M"], s["K"], s["N"]
+        a, b = randn((M, K), dtype), randn((K, N), dtype, K ** -0.5)
+        MK.reset_launches()
+        masa_ops.masa_gemm(a, b, order="weight_stationary")
+        if MK.LAUNCHES != {"masa_gemm_os": 1, "masa_gemm_ws": 0}:
+            fail(f"kernel_time: weight-stationary at K={K} launched "
+                 f"{MK.LAUNCHES}, not the output-stationary fallback")
+        log(f"[timing] masa_gemm weight_stationary at K={K} {dname}: the "
+            f"panel needs {masa_ops.ws_panel_bytes(K, dtype)} bytes of "
+            f"shared memory (> {cuda_build.MAX_SMEM_BYTES}), so ops.masa_gemm ran "
+            f"output_stationary")
+        row = timing_row(
+            "masa_gemm output_stationary",
+            lambda: MK.masa_gemm_kernel(a, b), lambda: MK.masa_gemm_plain(a, b),
+            lambda: torch.matmul(a, b), 2 * M * K * N,
+            es * (M * K + K * N + M * N), dname, reps=3)
+        s = tc.MASA_WS_JAMBA
+        M, K, N = s["M"], s["K"], s["N"]
+        a, b = randn((M, K), dtype), randn((K, N), dtype, K ** -0.5)
+        ws = timing_row(
+            "masa_gemm weight_stationary",
+            lambda: MK.masa_gemm_kernel(a, b, order="weight_stationary"),
+            lambda: MK.masa_gemm_plain(a, b), lambda: torch.matmul(a, b),
+            2 * M * K * N, es * (M * K + K * N + M * N), dname, reps=5)
+        ws["output_stationary_ms"] = time_ms(lambda: MK.masa_gemm_kernel(a, b),
+                                             5, 1)
+        log(f"[timing] masa_gemm at M={M} K={K} N={N} {dname}: "
+            f"weight_stationary {ws['ms']:.4f} ms, output_stationary "
+            f"{ws['output_stationary_ms']:.4f} ms")
+        row["weight_stationary"] = ws
+        out["masa_gemm"][dname] = row
+        del a, b
+        torch.cuda.empty_cache()
+    log(f"[timing] kernel_time card {smi}")
+    return out
+
+
+#: The accelerator layer's kernels: (name, source, the TPU kernel it
+#: replaces, the jamba shape timed).
+LAYER_KERNELS = (
+    ("flash_attention",
+     "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:60",
+     "B=1 S=2048 H=32 Hkv=8 hd=128 causal, kernel on the GQA-expanded "
+     "[32, 2048, 128] (jamba-v0.1-52b attention prefill)"),
+    ("paged_attention",
+     "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention/kernel.py:67",
+     "B=32 KVH=8 G=4 hd=128 page=16 seq=2048 private pages P=4096 "
+     "(jamba-v0.1-52b decode step)"),
+    ("moe_gemm", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
+     "src/repro/kernels/moe_gemm/kernel.py:28",
+     "E=16 C=384 D=4096 F=14336 bt=128 (jamba-v0.1-52b MoE up-projection "
+     "of 2048 tokens)"),
+    ("masa_gemm", "src/repro_torch/kernels/masa_gemm/csrc/masa_gemm.cu",
+     "src/repro/kernels/masa_gemm/kernel.py:53",
+     "M=2048 K=4096 N=14336 output_stationary (weight_stationary falls back "
+     "there; timed at K=256) (jamba-v0.1-52b dense FFN up-projection)"),
+)
+
+
+def layer_records(sweep_err, bench, ktime) -> list[dict]:
+    """The record line's entries of the four accelerator-layer kernels:
+    launches from main path four (kernel_bench.run), times at the jamba
+    shapes in bfloat16 (float32 beside them)."""
+    out = []
+    for name, source, replaces, shape in LAYER_KERNELS:
+        launches = {k: v for k, v in bench["launches"].items()
+                    if k.startswith(name)}
+        bf, f32 = ktime[name]["bfloat16"], ktime[name]["float32"]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": sum(launches.values()),
+                 "max_abs_err": bf["max_abs_err"],
+                 **{k: bf[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                 "shape": shape + "; ms, plain_ms, library_ms and bound_ms "
+                          "in bfloat16",
+                 "bfloat16": bf, "float32": f32,
+                 "sweep_max_abs_err": sweep_err[name]}
+        if name == "masa_gemm":
+            entry["launches_by_order"] = launches
+        out.append(entry)
+    return out
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -743,6 +1182,9 @@ def main() -> None:
     prof = run_phase("profile", phase_profile, model, fixture)
     del model
     ssd_t = run_phase("ssd_time", phase_ssd_time, smi)
+    sweep_err = run_phase("kernels", phase_kernels)
+    bench = run_phase("kernel_bench", phase_kernel_bench)
+    ktime = run_phase("kernel_time", phase_kernel_time, smi)
     b_ms, b_by = bound(fig4["B"], fig4["N"])
     log(f"[timing] fig4 per launch (mean of 5 policies): kernel "
         f"{fig4['ms']:.4f} ms, plain {fig4['plain_ms']:.1f} ms, bound "
@@ -791,6 +1233,7 @@ def main() -> None:
             "stats", "wall_s", "prefill_s", "decode_s", "prefill_tok_s",
             "decode_tok_s", "near_ties", "tokens_compared")},
         "logits": tf, "profile": prof}]}
+    record["kernels"] += layer_records(sweep_err, bench, ktime)
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 Every kernel family keeps its sources in a ``csrc/`` directory beside its
 wrapper (``core/dram/csrc/`` for the lane and mix kernels,
-``kernels/ssd_scan/csrc/`` for the SSD scan). :func:`build` compiles each
+``kernels/<name>/csrc/`` for the accelerator layer's five). :func:`build` compiles each
 ``.cu`` source with ``nvcc`` for ``sm_90a`` into its own shared library
 with a plain C interface, one ``nvcc`` per source, all started together,
 under ``build/repro_torch_kernels/`` at the repository root (``.gitignore``
@@ -10,7 +10,9 @@ lists ``build/``). A library is named by a hash of every file in its own
 ``csrc/`` directory and the flags, so an edit to a source or a header it
 includes rebuilds it, and an up-to-date library is reused. :func:`load`
 opens one with ``ctypes``; the family's wrapper declares its argument
-types. Nothing is built or loaded when this module is imported.
+types; :func:`runs_plain`, :func:`stream` and :func:`check` are the steps
+every wrapper shares. Nothing is built or loaded when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -23,11 +25,16 @@ import tempfile
 from pathlib import Path
 from typing import Mapping
 
+import torch
+
 from repro_torch import compat
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: Shared memory one block may use on the H100 (bytes; above 48 KB only as
+#: dynamic shared memory, after cudaFuncSetAttribute).
+MAX_SMEM_BYTES = 232448
 
 
 def source_tag(csrc: Path) -> str:
@@ -89,3 +96,31 @@ def load(name: str, src: Path) -> ctypes.CDLL:
     """The library built from ``src`` (built first if need be), opened
     once per process."""
     return ctypes.CDLL(str(build({name: src})[name][0]))
+
+
+def runs_plain(name: str, *tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on the CPU (the wrapper runs its plain
+    version), False when they lie on one CUDA device (it launches the
+    kernel); raises for any other device or a mix."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda (or cpu for its plain "
+                         f"version), not {dev}")
+    return dev.type == "cpu"
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the C entries take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry did not launch: -1 for arguments the kernel
+    refused, else the CUDA error of the launch."""
+    if err == -1:
+        raise ValueError(f"{name}: the kernel refused its arguments")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -38,8 +38,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"ssd_scan": CSRC / "ssd_scan.cu"}
 #: Kernel launches (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"ssd_scan": 0}
-#: Dynamic shared memory a block may use on the H100 (bytes).
-MAX_SMEM_BYTES = 232448
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -84,11 +82,8 @@ def ssd_scan_kernel(xr: torch.Tensor, l: torch.Tensor, b: torch.Tensor,
     """The SSD scan in the kernel's layout: the CUDA kernel on a CUDA
     tensor, :func:`ssd_scan_plain` on a CPU tensor."""
     _check(xr, l, b, c, chunk, n_heads)
-    if xr.device.type == "cpu":
+    if cuda_build.runs_plain("ssd_scan", xr, l, b, c):
         return ssd_scan_plain(xr, l, b, c, chunk=chunk, n_heads=n_heads)
-    if xr.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda (or cpu for its plain "
-                         f"version), not {xr.device}")
     return _launch(xr, l, b, c, chunk, n_heads)
 
 
@@ -106,11 +101,12 @@ def _launch(xr, l, b, c, chunk: int, n_heads: int):
         raise ValueError("ssd_scan kernel takes contiguous tensors")
     lib = _library()
     need = lib.ssd_scan_smem_bytes(chunk, hd, ds)
-    if need < 0 or need > MAX_SMEM_BYTES:
+    limit = cuda_build.MAX_SMEM_BYTES
+    if need < 0 or need > limit:
         raise ValueError(
             f"ssd_scan kernel does not take chunk={chunk}, hd={hd}, ds={ds}: "
             f"it needs chunk a multiple of 16, hd a power of two from 4 to "
-            f"128, ds a multiple of 4, and at most {MAX_SMEM_BYTES} bytes of "
+            f"128, ds a multiple of 4, and at most {limit} bytes of "
             f"shared memory (this shape: {need})")
     dev = xr.device
     with torch.cuda.device(dev):
@@ -118,13 +114,11 @@ def _launch(xr, l, b, c, chunk: int, n_heads: int):
         hT = torch.empty((bh, ds, hd), dtype=torch.float32, device=dev)
         if bh == 0 or L == 0:
             return y, hT.zero_()
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssd_scan_launch(
             xr.data_ptr(), l.data_ptr(), b.data_ptr(), c.data_ptr(),
             y.data_ptr(), hT.data_ptr(), bh, L, hd, ds, chunk, n_heads,
-            int(xr.dtype == torch.bfloat16), stream)
-        if err != 0:
-            raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+            int(xr.dtype == torch.bfloat16), cuda_build.stream(dev))
+        cuda_build.check("ssd_scan", err)
         LAUNCHES["ssd_scan"] += 1
     return y, hT
 

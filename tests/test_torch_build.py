@@ -4,12 +4,15 @@ Nothing is compiled here (there is no nvcc): these tests hold the naming
 that decides when a library is rebuilt. Each library is named by a hash of
 every file in its own ``csrc/`` directory and the flags, so an edit to
 ``dram_step.cuh`` rebuilds the lane and mix kernels and not the SSD scan.
+The wrappers' shared steps (``runs_plain``, ``check``) are held here too.
 """
 import shutil
 
 import pytest
 
-from repro_torch import compat, cuda_build
+import torch
+
+from repro_torch import compat, cuda_build, kernels
 from repro_torch.core.dram import cuda_step
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
@@ -18,9 +21,15 @@ def test_libraries_are_named_by_their_own_csrc(tmp_path):
     dram = cuda_step.CSRC
     ssd = ssd_kernel.CSRC
     assert cuda_build.source_tag(dram) != cuda_build.source_tag(ssd)
-    names = {cuda_build.library_path(n, s).name
-             for n, s in {**cuda_step.SOURCES, **ssd_kernel.SOURCES}.items()}
-    assert len(names) == 3
+    sources = {**cuda_step.SOURCES, **kernels.SOURCES}
+    names = {cuda_build.library_path(n, s).name for n, s in sources.items()}
+    assert len(names) == 7
+    for n, s in sources.items():
+        assert s.parent.name == "csrc" and s.is_file()
+        assert cuda_build.library_path(n, s).name == (
+            f"{n}_{cuda_build.source_tag(s.parent)}.so")
+    # the accelerator layer's five libraries, each from its own csrc/
+    assert len({s.parent for s in kernels.SOURCES.values()}) == 5
     assert all(p.parent == cuda_build.BUILD_DIR for p in
                (cuda_build.library_path("lane_step", dram / "lane_step.cu"),))
     assert cuda_step.BUILD_DIR == cuda_build.BUILD_DIR
@@ -46,3 +55,20 @@ def test_build_without_nvcc_raises():
         pytest.skip("nvcc is present: the build runs instead")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build(ssd_kernel.SOURCES)
+
+
+def test_runs_plain_picks_the_device():
+    cpu = torch.zeros(2)
+    assert cuda_build.runs_plain("k", cpu, cpu) is True
+    with pytest.raises(ValueError, match="runs on cuda"):
+        cuda_build.runs_plain("k", torch.zeros(2, device="meta"))
+    with pytest.raises(ValueError, match="inputs on"):
+        cuda_build.runs_plain("k", cpu, torch.zeros(2, device="meta"))
+
+
+def test_check_raises_on_a_refused_or_failed_launch():
+    cuda_build.check("k", 0)
+    with pytest.raises(ValueError, match="refused"):
+        cuda_build.check("k", -1)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        cuda_build.check("k", 700)

@@ -1,5 +1,6 @@
-"""The CUDA lane, mix and SSD-scan kernels against their plain versions,
-on the card.
+"""The CUDA lane, mix and SSD-scan kernels and the accelerator layer's
+masa_gemm, moe_gemm, paged_attention and flash_attention kernels against
+their plain versions, on the card.
 
 Marked ``cuda``: these run where an NVIDIA GPU with compute capability 9.0
 and ``nvcc`` are present (``pytest -m cuda``) and skip elsewhere, with the
@@ -155,7 +156,7 @@ def test_ssd_kernel_equals_plain(card, shape, dtype):
     y_k, h_k = K.ssd_scan_kernel(*args, chunk=chunk, n_heads=H)
     y_p, h_p = K.ssd_scan_plain(*args, chunk=chunk, n_heads=H)
     torch.cuda.synchronize()
-    tol = tc.SSD_TOLS[dtype]
+    tol = tc.TOLS[dtype]
     assert y_k.dtype == args[0].dtype and h_k.dtype == torch.float32
     torch.testing.assert_close(y_k.float(), y_p.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(h_k, h_p, rtol=tol, atol=tol)
@@ -211,6 +212,198 @@ def test_kernel_shape_limits(card, chunk, hd, ds, fits):
     y_p, h_p = K.ssd_scan_plain(*args, chunk=chunk, n_heads=2)
     torch.cuda.synchronize()
     assert K.LAUNCHES["ssd_scan"] == 1
-    tol = tc.SSD_TOLS["float32"]
+    tol = tc.TOLS["float32"]
     torch.testing.assert_close(y_k, y_p, rtol=tol, atol=tol)
     torch.testing.assert_close(h_k, h_p, rtol=tol, atol=tol)
+
+
+# ------------------------------------------- masa, moe, paged, flash kernels
+def card_tensors(arrays, dtype, device):
+    return [torch.from_numpy(a).to(device=device, dtype=dtype) for a in arrays]
+
+
+def assert_kernel_close(got, want, dtype: str):
+    tol = tc.TOLS[dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("order", ["output_stationary", "weight_stationary"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", tc.MASA_SHAPES)
+def test_masa_kernel_equals_plain(card, m, k, n, dtype, order):
+    from repro_torch.kernels import masa_gemm
+    from repro_torch.kernels.masa_gemm import kernel as K, ops
+
+    a, b = card_tensors(tc.masa_inputs(m, k, n), getattr(torch, dtype), card)
+    K.reset_launches()
+    got = masa_gemm(a, b, order=order)
+    torch.cuda.synchronize()
+    ws = (order == "weight_stationary"
+          and ops.ws_panel_bytes(k, a.dtype) <= K.cuda_build.MAX_SMEM_BYTES)
+    assert K.LAUNCHES == {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}
+    assert_kernel_close(got, K.masa_gemm_plain(a, b), dtype)
+
+
+@pytest.mark.parametrize("k", [1, 128, 256, 302, 303, 605, 606, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masa_panel_formula_is_the_librarys(card, k, dtype):
+    from repro_torch.kernels.masa_gemm import kernel as K, ops
+
+    assert ops.ws_panel_bytes(k, dtype) == K.ws_smem_bytes(k, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F,bt,bf", tc.MOE_SHAPES
+                         + ((4, 24, 40, 128, 24, 128), (3, 12, 16, 128, 3, 128)))
+def test_moe_kernel_equals_plain(card, E, C, D, F, bt, bf, dtype):
+    from repro_torch.kernels import grouped_matmul
+    from repro_torch.kernels.moe_gemm import capacity_block_eids
+    from repro_torch.kernels.moe_gemm import kernel as K
+
+    x, w = card_tensors(tc.moe_inputs(E, C, D, F, seed=1),
+                        getattr(torch, dtype), card)
+    eids = capacity_block_eids(E, C, bt, device=card)
+    eids = eids.flip(0).contiguous()       # any order: designation, not layout
+    K.reset_launches()
+    got = grouped_matmul(x, w, eids, bt=bt, bf=bf)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["moe_gemm"] == 1
+    assert_kernel_close(got, K.grouped_matmul_plain(x, w, eids, bt=bt), dtype)
+
+
+def paged_case(shape, dtype, device, seed=3, lens=None, table=None):
+    q, kp, vp, t, l = tc.paged_inputs(*shape, seed=seed)
+    t = t if table is None else table
+    l = l if lens is None else np.asarray(lens, np.int32)
+    return (card_tensors((q, kp, vp), getattr(torch, dtype), device)
+            + [torch.from_numpy(t).to(device), torch.from_numpy(l).to(device)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", tc.PAGED_SHAPES)
+def test_paged_kernel_equals_plain(card, shape, dtype):
+    from repro_torch.kernels import paged_attention
+    from repro_torch.kernels.paged_attention import kernel as K
+
+    args = paged_case(shape, dtype, card)
+    K.reset_launches()
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_attention"] == 1
+    assert_kernel_close(got, K.paged_attention_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_lengths_and_clamped_tables(card, dtype):
+    """seq_lens 0 (uniform over every named slot), 1, a partial page and
+    full; out-of-range table entries clamped by ops as in the reference."""
+    from repro_torch.kernels import paged_attention
+    from repro_torch.kernels.paged_attention import kernel as K
+
+    shape = (4, 2, 4, 64, 16, 16, 4)
+    table = tc.paged_inputs(*shape, seed=5)[3].copy()
+    table[0, 3], table[1, 0], table[2, 2] = -7, 16, 1000
+    args = paged_case(shape, dtype, card, seed=5, lens=[0, 1, 21, 64],
+                      table=table)
+    got = paged_attention(*args)
+    clamped = args[3].clamp(0, 15).to(torch.int32)
+    assert_kernel_close(got, K.paged_attention_plain(*args[:3], clamped,
+                                                     args[4]), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,hd,bq,bk", tc.FLASH_SHAPES
+                         + ((2, 128, 96, 128, 128), (1, 100, 64, 100, 50)))
+def test_flash_kernel_equals_plain(card, bh, s, hd, bq, bk, causal, dtype):
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    q, k, v = card_tensors(tc.flash_inputs(bh, s, hd), getattr(torch, dtype),
+                           card)
+    K.reset_launches()
+    got = K.flash_attention_kernel(q, k, v, causal=causal, bq=bq, bk=bk)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == 1
+    assert_kernel_close(got, K.flash_attention_plain(q, k, v, causal=causal,
+                                                     bk=bk), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gqa_through_ops_equals_plain(card, dtype):
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, 256, 8, 128)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 256, 2, 128)).astype(np.float32)
+            for _ in range(2))
+    q, k, v = card_tensors((q, k, v), getattr(torch, dtype), card)
+    got = flash_attention(q, k, v, causal=True)
+    ke, ve = (t.repeat_interleave(4, dim=2) for t in (k, v))
+    flat = [t.transpose(1, 2).reshape(16, 256, 128) for t in (q, ke, ve)]
+    want = K.flash_attention_plain(*flat, causal=True)
+    assert_kernel_close(got, want.reshape(2, 8, 256, 128).transpose(1, 2),
+                        dtype)
+
+
+def test_accelerator_kernels_refuse_without_falling_back(card):
+    """Each wrapper raises on a non-contiguous input, a wrong dtype or a
+    shape its kernel refuses, and launches nothing."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.masa_gemm import kernel as MK
+    from repro_torch.kernels.moe_gemm import kernel as EK
+    from repro_torch.kernels.paged_attention import kernel as PK
+
+    kernels.reset_launches()
+    a = torch.randn((128, 256), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        MK.masa_gemm_kernel(a, a.t())
+    with pytest.raises(TypeError):
+        MK.masa_gemm_kernel(a.double(), a.t().contiguous().double())
+    with pytest.raises(TypeError):
+        MK.masa_gemm_kernel(a, a.t().contiguous().bfloat16())
+    with pytest.raises(ValueError, match="falls back"):
+        MK.masa_gemm_kernel(torch.randn((128, 512), device=card),
+                            torch.randn((512, 128), device=card),
+                            order="weight_stationary")
+    x, w = torch.randn((256, 64), device=card), torch.randn((2, 64, 128),
+                                                             device=card)
+    eids = torch.tensor([0, 1], dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="int32"):
+        EK.grouped_matmul_kernel(x, w, eids.long())
+    with pytest.raises(TypeError):
+        EK.grouped_matmul_kernel(x.bfloat16(), w, eids)
+    with pytest.raises(ValueError, match="contiguous"):
+        EK.grouped_matmul_kernel(x, w.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), eids)
+    q, kp, vp, table, lens = paged_case((2, 2, 4, 64, 8, 16, 4), "float32",
+                                        card)
+    with pytest.raises(TypeError, match="int32"):
+        PK.paged_attention_kernel(q, kp, vp, table.long(), lens)
+    with pytest.raises(TypeError):
+        PK.paged_attention_kernel(q.bfloat16(), kp, vp, table, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.paged_attention_kernel(q.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), kp, vp, table, lens)
+    with pytest.raises(ValueError, match="does not take G"):
+        big = torch.randn((1, 1, 256, 256), device=card)
+        pages = torch.randn((2, 16, 1, 256), device=card)
+        PK.paged_attention_kernel(big, pages, pages,
+                                  torch.zeros((1, 1), dtype=torch.int32,
+                                              device=card),
+                                  torch.ones(1, dtype=torch.int32,
+                                             device=card))
+    f = torch.randn((2, 128, 48), device=card)
+    with pytest.raises(ValueError, match="head dims 64, 96 and 128, not 48"):
+        FK.flash_attention_kernel(f, f, f)
+    f = torch.randn((2, 128, 64), device=card)
+    with pytest.raises(TypeError):
+        FK.flash_attention_kernel(f.half(), f.half(), f.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.flash_attention_kernel(f.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), f, f)
+    with pytest.raises(ValueError, match="inputs on"):
+        FK.flash_attention_kernel(f, f.cpu(), f)
+    assert not any(kernels.launches().values())

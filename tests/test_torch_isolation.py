@@ -71,7 +71,20 @@ print(json.dumps(dict(modules=names, leaked=leaked)))
             "repro_torch.kernels.ssd_scan.kernel",
             "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.builder",
             "repro_torch.models.ssm", "repro_torch.serve.engine",
-            "repro_torch.serve.steps", "repro_torch.launch.serve"
+            "repro_torch.serve.steps", "repro_torch.launch.serve",
+            "repro_torch.kernel_bench",
+            "repro_torch.kernels.masa_gemm.kernel",
+            "repro_torch.kernels.masa_gemm.ops",
+            "repro_torch.kernels.masa_gemm.ref",
+            "repro_torch.kernels.moe_gemm.kernel",
+            "repro_torch.kernels.moe_gemm.ops",
+            "repro_torch.kernels.moe_gemm.ref",
+            "repro_torch.kernels.paged_attention.kernel",
+            "repro_torch.kernels.paged_attention.ops",
+            "repro_torch.kernels.paged_attention.ref",
+            "repro_torch.kernels.flash_attention.kernel",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref",
             } <= set(out["modules"])
 
 

@@ -60,7 +60,7 @@ def kernel_layout(inp: dict):
 def test_ops_and_chunked_match_jax(B, L, H, hd, ds, chunk, dtype):
     inp = tc.ssd_inputs(B, L, H, hd, ds)
     j, t = both(inp, dtype)
-    tol = tc.SSD_TOLS[dtype]
+    tol = tc.TOLS[dtype]
     y_rk, h_rk = r_ssd_scan(*j, chunk=chunk)
     y_rm, h_rm = r_ssd_chunked(*j, chunk)
     y_k, h_k = ssd_scan(*t, chunk=chunk)

@@ -8,10 +8,11 @@ of ``tests/test_packed_state.py``, built from ``repro_torch`` alone so that
 package. ``tests/test_torch_engine.py`` and ``tests/test_torch_multicore.py``
 hold this copy equal to the reference's.
 
-It also holds the SSD-scan cases (``tests/test_kernels.py``'s shapes and
-tolerances, inputs drawn with numpy) and the serving fixture's reader, which
-``tests/test_torch_ssd_scan.py``, ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` share.
+It also holds the accelerator layer's kernel cases (the sweep shapes and
+tolerances of ``tests/test_kernels.py`` and ``tests/test_flash_attention.py``,
+inputs drawn with numpy, and the jamba-v0.1-52b shapes the card times) and
+the serving fixture's reader, which the port's kernel tests,
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` share.
 """
 from __future__ import annotations
 
@@ -35,13 +36,83 @@ SERVE_PATH = os.path.join(DATA, "torch_serve_mamba2_780m.json")
 SSD_SHAPES = ((1, 32, 2, 16, 8, 16), (2, 64, 3, 16, 8, 16),
               (2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64))
 #: tests/test_kernels.py's tolerances (rtol = atol) by dtype name.
-SSD_TOLS = {"float32": 2e-4, "bfloat16": 2e-2}
+TOLS = {"float32": 2e-4, "bfloat16": 2e-2}
 #: SSD shapes held on the card besides the sweep: mamba2-780m's serve
 #: shape (one prefill of a 256-token prompt), jamba's SSM shape, and chunk
 #: 256 with ds 128 (SSMConfig's default chunk).
 SSD_SERVE = (1, 256, 48, 64, 128, 64)
 SSD_CARD_SHAPES = SSD_SHAPES + (SSD_SERVE, (2, 512, 128, 64, 16, 32),
                                 (1, 512, 8, 64, 128, 256))
+
+#: tests/test_kernels.py's masa_gemm sweep: (M, K, N).
+MASA_SHAPES = ((128, 128, 128), (256, 384, 512), (512, 128, 256),
+               (128, 1024, 128))
+#: tests/test_kernels.py's moe_gemm sweep: (E, C, D, F, bt, bf).
+MOE_SHAPES = ((4, 256, 64, 256, 128, 128), (8, 128, 128, 384, 128, 128),
+              (2, 512, 96, 128, 128, 128), (16, 128, 64, 128, 64, 128))
+#: tests/test_kernels.py's paged_attention sweep: (B, KVH, G, hd, P, page,
+#: n_pages).
+PAGED_SHAPES = ((2, 1, 4, 64, 8, 16, 4), (3, 2, 4, 64, 16, 32, 4),
+                (1, 4, 1, 128, 8, 64, 2), (4, 2, 8, 64, 32, 16, 8))
+#: tests/test_flash_attention.py's sweep: (BH, S, hd, bq, bk).
+FLASH_SHAPES = ((2, 256, 64, 128, 128), (4, 512, 64, 128, 128),
+                (1, 256, 128, 128, 64), (3, 384, 64, 128, 128))
+
+#: The kernels' timing shapes at the full width of jamba-v0.1-52b
+#: (src/repro_torch/configs/jamba_52b.py). Attention: one attention
+#: layer's causal prefill of 2048 tokens (32 query heads, 8 kv heads of
+#: 128). Paged: one decode step at batch 32 over 2048 cached tokens each,
+#: in private pages of 16 (G = 32 / 8 query heads a kv head). MoE: the
+#: capacity layout of 2048 tokens (16 experts, top-2, capacity factor 1.25:
+#: expert_capacity 320, rounded up to the token block of 128), d_model 4096
+#: by d_ff_expert 14336. MASA: a dense FFN up-projection of 2048 tokens,
+#: and the weight-stationary order at the deepest K whose panel fits a
+#: block's shared memory in float32.
+JAMBA_TOKENS = 2048
+FLASH_JAMBA = dict(B=1, S=2048, H=32, Hkv=8, hd=128)
+PAGED_JAMBA = dict(B=32, KVH=8, G=4, hd=128, page=16, seq=2048, P=4096)
+MOE_JAMBA = dict(E=16, C=384, D=4096, F=14336, bt=128)
+MASA_JAMBA = dict(M=2048, K=4096, N=14336)
+MASA_WS_JAMBA = dict(M=2048, K=256, N=14336)
+
+
+def normal(rng, shape, scale: float = 1.0) -> np.ndarray:
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def masa_inputs(m: int, k: int, n: int, seed: int = 0):
+    """a [M, K], b [K, N]: standard normal float32."""
+    rng = np.random.default_rng(seed)
+    return normal(rng, (m, k)), normal(rng, (k, n))
+
+
+def moe_inputs(E: int, C: int, D: int, F: int, seed: int = 0,
+               w_scale: float = 0.1):
+    """x_sorted [E*C, D] standard normal and w [E, D, F] times
+    ``w_scale`` (the scales of tests/test_kernels.py), float32."""
+    rng = np.random.default_rng(seed)
+    return normal(rng, (E * C, D)), normal(rng, (E, D, F), w_scale)
+
+
+def paged_inputs(B: int, KVH: int, G: int, hd: int, P: int, page: int,
+                 n_pages: int, seed: int = 0):
+    """q, k_pages, v_pages (standard normal, float32), a block table of
+    random pages in [0, P) and random lengths in [1, n_pages * page], both
+    int32, drawn as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    q = normal(rng, (B, KVH, G, hd))
+    kp = normal(rng, (P, page, KVH, hd))
+    vp = normal(rng, (P, page, KVH, hd))
+    table = rng.integers(0, P, (B, n_pages)).astype(np.int32)
+    lens = rng.integers(1, n_pages * page + 1, (B,)).astype(np.int32)
+    return q, kp, vp, table, lens
+
+
+def flash_inputs(bh: int, s: int, hd: int, seed: int = 0):
+    """q, k, v [BH, S, hd]: standard normal float32."""
+    rng = np.random.default_rng(seed)
+    return tuple(normal(rng, (bh, s, hd)) for _ in range(3))
+
 
 #: The golden multicore cells' mix and trace length.
 GOLDEN_MIX, GOLDEN_MIX_N = ("mcf", "lbm"), 150
