@@ -173,7 +173,7 @@ def phase_build():
     built = cuda_build.build({**cuda_step.SOURCES, **kernels.SOURCES})
     for name in cuda_step.SOURCES:
         cuda_step._library(name)
-    kernels.build()
+    kernels.load()
     log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f}s")
     for name, (_, build_log) in built.items():
@@ -780,7 +780,7 @@ def phase_kernels():
     from repro_torch.kernels import (flash_attention, grouped_matmul,
                                      masa_gemm, paged_attention)
     from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.masa_gemm import kernel as MK, ops as masa_ops
+    from repro_torch.kernels.masa_gemm import kernel as MK
     from repro_torch.kernels.moe_gemm import capacity_block_eids
     from repro_torch.kernels.moe_gemm import kernel as EK
     from repro_torch.kernels.paged_attention import kernel as PK
@@ -794,6 +794,20 @@ def phase_kernels():
         n += 1
         err[kernel][dname] = max(err[kernel].get(dname, 0.0), e)
 
+    # weight-stationary takes a K that is no multiple of bk, as the
+    # reference does, on both sides of the fallback
+    for m, k, nn, dname in tc.MASA_WS_ODD_K:
+        a, b = card_inputs(tc.masa_inputs(m, k, nn), getattr(torch, dname))
+        kernels.reset_launches()
+        got = masa_gemm(a, b, order="weight_stationary")
+        ws = MK.ws_panel_bytes(k, a.dtype) <= cuda_build.MAX_SMEM_BYTES
+        if MK.LAUNCHES != {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}:
+            fail(f"kernels: masa_gemm weight_stationary at K={k} {dname} "
+                 f"launched {MK.LAUNCHES}")
+        record("masa_gemm", dname, kernel_err(
+            f"masa_gemm weight_stationary {m}x{k}x{nn}", got,
+            MK.masa_gemm_plain(a, b), dname))
+
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for m, k, nn in tc.MASA_SHAPES:
@@ -801,7 +815,7 @@ def phase_kernels():
             for order in MK.ORDERS:
                 kernels.reset_launches()
                 got = masa_gemm(a, b, order=order)
-                ws = (order == "weight_stationary" and masa_ops.ws_panel_bytes(
+                ws = (order == "weight_stationary" and MK.ws_panel_bytes(
                     k, dtype) <= cuda_build.MAX_SMEM_BYTES)
                 if MK.LAUNCHES != {"masa_gemm_os": int(not ws),
                                    "masa_gemm_ws": int(ws)}:
@@ -1071,7 +1085,7 @@ def phase_kernel_time(smi: str):
             fail(f"kernel_time: weight-stationary at K={K} launched "
                  f"{MK.LAUNCHES}, not the output-stationary fallback")
         log(f"[timing] masa_gemm weight_stationary at K={K} {dname}: the "
-            f"panel needs {masa_ops.ws_panel_bytes(K, dtype)} bytes of "
+            f"panel needs {MK.ws_panel_bytes(K, dtype)} bytes of "
             f"shared memory (> {cuda_build.MAX_SMEM_BYTES}), so ops.masa_gemm ran "
             f"output_stationary")
         row = timing_row(

@@ -10,9 +10,7 @@ lists ``build/``). A library is named by a hash of every file in its own
 ``csrc/`` directory and the flags, so an edit to a source or a header it
 includes rebuilds it, and an up-to-date library is reused. :func:`load`
 opens one with ``ctypes``; the family's wrapper declares its argument
-types; :func:`runs_plain`, :func:`stream` and :func:`check` are the steps
-every wrapper shares. Nothing is built or loaded when this module is
-imported.
+types. Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
@@ -24,8 +22,6 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Mapping
-
-import torch
 
 from repro_torch import compat
 
@@ -97,30 +93,3 @@ def load(name: str, src: Path) -> ctypes.CDLL:
     once per process."""
     return ctypes.CDLL(str(build({name: src})[name][0]))
 
-
-def runs_plain(name: str, *tensors: torch.Tensor) -> bool:
-    """True when the tensors lie on the CPU (the wrapper runs its plain
-    version), False when they lie on one CUDA device (it launches the
-    kernel); raises for any other device or a mix."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: inputs on {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda (or cpu for its plain "
-                         f"version), not {dev}")
-    return dev.type == "cpu"
-
-
-def stream(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``, as the C entries take it."""
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def check(name: str, err: int) -> None:
-    """Raise if a C entry did not launch: -1 for arguments the kernel
-    refused, else the CUDA error of the launch."""
-    if err == -1:
-        raise ValueError(f"{name}: the kernel refused its arguments")
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

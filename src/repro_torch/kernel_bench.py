@@ -1,7 +1,7 @@
 """The accelerator layer's kernels, end to end: the port of
 ``benchmarks/kernel_bench.py``.
 
-    python -m repro_torch.kernel_bench [--device cpu] [--seed 0]
+    python -m repro_torch.kernel_bench [--device cpu]
 
 Drives all five kernels of :mod:`repro_torch.kernels` through their public
 wrappers at the reference bench's shapes, each once, as the reference
@@ -14,7 +14,7 @@ It prints the reference's ``name,us_per_call,derived`` CSV rows and returns
 its keys (``errs``, ``moe_hit``, ``ladder``, ``kernels_ok``) plus
 ``launches``, the count of each kernel launch in the run.
 
-Inputs are drawn from ``numpy.random.default_rng(seed)``. On the card
+Inputs are drawn from ``numpy.random.default_rng(0)``. On the card
 (the default) every library is built before anything is timed, so no row
 includes ``nvcc``; ``--device cpu`` runs the kernels' plain versions, and
 its times are the host's.
@@ -87,12 +87,12 @@ def pipeline_ladder() -> dict[str, float]:
     return speedup_ladder(fetch, compute, wb, reuse_rate=0.5)
 
 
-def run(device=None, seed: int = 0) -> dict:
+def run(device=None) -> dict:
     dev = compat.resolve_device(device)
     if dev.type == "cuda":
         kernels.build()
     kernels.reset_launches()
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(0)
 
     def normal(shape, scale: float = 1.0) -> torch.Tensor:
         x = (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -177,9 +177,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (the plain versions)")
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    out = run(args.device, args.seed)
+    out = run(args.device)
     print(json.dumps(out))
     return 0 if out["kernels_ok"] else 1
 

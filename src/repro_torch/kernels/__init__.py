@@ -19,8 +19,10 @@ the model's layout), ``ref.py`` (the dense or brute-force oracle) and
   flash_attention -- fused attention forward; the S x S scores never reach
                      device memory
 
-:func:`build` compiles the five libraries together, :func:`launches` and
-:func:`reset_launches` read and clear every wrapper's launch count.
+:func:`build` compiles the five libraries together and :func:`load` opens
+them; :func:`launches` and :func:`reset_launches` read and clear every
+wrapper's launch count. ``dispatch`` holds the steps every wrapper shares
+between its checks and its kernel.
 """
 from repro_torch import cuda_build
 from repro_torch.kernels.flash_attention import kernel as _flash_attention
@@ -48,9 +50,14 @@ def build() -> dict:
     """Compile every library of the layer (one nvcc each, all at once) and
     load each; returns :func:`cuda_build.build`'s record."""
     built = cuda_build.build(SOURCES)
+    load()
+    return built
+
+
+def load() -> None:
+    """Open every library of the layer, each already built."""
     for m in MODULES:
         m._library()
-    return built
 
 
 def launches() -> dict[str, int]:

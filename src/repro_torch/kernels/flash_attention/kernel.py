@@ -28,6 +28,7 @@ from pathlib import Path
 import torch
 
 from repro_torch import cuda_build
+from repro_torch.kernels import dispatch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Kernel name -> source.
@@ -73,7 +74,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k/v [BH, S, hd] -> out [BH, S, hd]: the CUDA kernel on a CUDA
     tensor, :func:`flash_attention_plain` on a CPU tensor."""
     _check(q, k, v, bq, bk)
-    if cuda_build.runs_plain("flash_attention", q, k, v):
+    if dispatch.runs_plain("flash_attention", q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, bk=bk)
     return _launch(q, k, v, causal)
 
@@ -97,8 +98,8 @@ def _launch(q, k, v, causal: bool):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
             hd, int(causal), hd ** -0.5, int(q.dtype == torch.bfloat16),
-            cuda_build.stream(q.device))
-    cuda_build.check("flash_attention", err)
+            dispatch.stream(q.device))
+    dispatch.check("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
     return out
 

@@ -15,9 +15,10 @@
 //                      ([64, K], also in shared memory) against it, the
 //                      Pallas grid (N/bn, M/bm) with M innermost. The
 //                      panel and the A tile take (64 + 128) * K elements of
-//                      shared memory; the wrapper falls back to
-//                      output-stationary when that exceeds what a block may
-//                      have (ops.py).
+//                      shared memory, which the wrapper counts
+//                      (kernel.py's ws_panel_bytes) and passes to the
+//                      launch; ops.py falls back to output-stationary when
+//                      that exceeds what a block may have.
 //
 // What bounds it: operations. At the shapes the port times (M 2048, K
 // 4096, N 14336) the product is 240 GFLOP against 0.2 GB of traffic; in
@@ -178,22 +179,15 @@ int launch(const void* a, const void* b, void* c, int M, int K, int N,
 
 }  // namespace
 
-// Dynamic shared memory of one weight-stationary launch at depth K, in
-// bytes: the [K, 128] panel of B and the [64, K] tile of A, in the input
-// type.
-extern "C" long long masa_ws_smem_bytes(int K, int bf16) {
-  return (long long)(kWsBM + kBN) * K * (bf16 ? 2 : 4);
-}
-
 // One launch on `stream`: a [M, K], b [K, N], both bf16 if bf16 else f32
 // -> c [M, N] in the same type. order 0 is output-stationary, 1
-// weight-stationary. Returns the CUDA error of the launch (0 on success),
-// or -1 for arguments the kernel does not take.
+// weight-stationary with `smem` bytes of dynamic shared memory (the panel
+// and the A tile; unused by order 0). Returns the CUDA error of the launch
+// (0 on success), or -1 for arguments the kernel does not take.
 extern "C" int masa_gemm_launch(const void* a, const void* b, void* c, int M,
                                 int K, int N, int order, int bf16,
-                                void* stream) {
+                                long long smem, void* stream) {
   if (M < 1 || K < 1 || N < 1 || (order != 0 && order != 1)) return -1;
-  const long long smem = order ? masa_ws_smem_bytes(K, bf16) : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch<__nv_bfloat16>(a, b, c, M, K, N, order, smem, st);

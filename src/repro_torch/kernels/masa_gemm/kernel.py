@@ -6,11 +6,14 @@ bodies ``_kernel_os`` and ``_kernel_ws``): ``csrc/masa_gemm.cu`` computes
 (the source's header says how each keeps its tiles and what bounds it),
 summing in fp32 and writing ``c`` in a's dtype.
 
-* :func:`masa_gemm_kernel` is the wrapper: on a CUDA tensor it launches the
-  kernel (or raises), on a CPU tensor it runs :func:`masa_gemm_plain`. It
-  keeps the reference's divisibility checks (``bm``, ``bn``, and ``bk`` for
-  the output-stationary order), raised as ``ValueError``; the kernel's
-  tiles are its own.
+* :func:`masa_gemm_kernel` is the wrapper: :func:`check_args`, the
+  reference's divisibility checks (``bm``, ``bn``, and ``bk`` for the
+  output-stationary order) raised as ``ValueError``, then :func:`run`,
+  which launches the kernel on a CUDA tensor (or raises) and runs
+  :func:`masa_gemm_plain` on a CPU tensor. The kernel's tiles are its own.
+* :func:`ws_panel_bytes` is the weight-stationary launch's shared memory,
+  counted here alone: the launch passes it to the kernel and ``ops`` falls
+  back on it.
 * :func:`masa_gemm_plain` is the plain PyTorch version, on any device.
 * ``LAUNCHES`` counts launches by the order that ran: ``masa_gemm_os`` and
   ``masa_gemm_ws``.
@@ -26,6 +29,7 @@ from pathlib import Path
 import torch
 
 from repro_torch import cuda_build
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.masa_gemm.ref import masa_gemm_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -47,14 +51,25 @@ def reset_launches() -> None:
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("masa_gemm", SOURCES["masa_gemm"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.masa_gemm_launch.argtypes = [vp] * 3 + [ci] * 5 + [vp]
+    lib.masa_gemm_launch.argtypes = [vp] * 3 + [ci] * 5 + [ctypes.c_longlong,
+                                                          vp]
     lib.masa_gemm_launch.restype = ci
-    lib.masa_ws_smem_bytes.argtypes = [ci, ci]
-    lib.masa_ws_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def _check(a, b, bm: int, bn: int, bk: int, order: str) -> None:
+#: The weight-stationary kernel's tiles (csrc/masa_gemm.cu: kWsBM, kBN):
+#: rows of A a step, columns of the resident panel of B.
+WS_BM, WS_BN = 64, 128
+
+
+def ws_panel_bytes(k: int, dtype: torch.dtype) -> int:
+    """Shared memory of one weight-stationary launch at depth ``k``: the
+    ``[K, 128]`` panel of B and the ``[64, K]`` tile of A."""
+    return (WS_BM + WS_BN) * k * dtype.itemsize
+
+
+def check_args(a, b, bm: int, bn: int, bk: int, order: str) -> None:
+    """The reference's checks of ``masa_gemm_kernel``, for ``order``."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"masa_gemm takes a [M, K] and b [K, N]; got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -72,18 +87,17 @@ def _check(a, b, bm: int, bn: int, bk: int, order: str) -> None:
 def masa_gemm_kernel(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                      bn: int = 128, bk: int = 128,
                      order: str = "output_stationary") -> torch.Tensor:
-    """``a @ b`` in ``order``: the CUDA kernel on a CUDA tensor,
-    :func:`masa_gemm_plain` on a CPU tensor."""
-    _check(a, b, bm, bn, bk, order)
-    if cuda_build.runs_plain("masa_gemm", a, b):
+    """``a @ b`` in ``order``, after the reference's checks."""
+    check_args(a, b, bm, bn, bk, order)
+    return run(a, b, order)
+
+
+def run(a: torch.Tensor, b: torch.Tensor, order: str) -> torch.Tensor:
+    """``a @ b`` in ``order`` (checked by the caller): the CUDA kernel on
+    a CUDA tensor, :func:`masa_gemm_plain` on a CPU tensor."""
+    if dispatch.runs_plain("masa_gemm", a, b):
         return masa_gemm_plain(a, b)
     return _launch(a, b, order)
-
-
-def ws_smem_bytes(k: int, dtype: torch.dtype) -> int:
-    """Shared memory of one weight-stationary launch at depth ``k``: the
-    library's own count."""
-    return _library().masa_ws_smem_bytes(k, int(dtype == torch.bfloat16))
 
 
 def _launch(a, b, order: str):
@@ -95,22 +109,21 @@ def _launch(a, b, order: str):
         raise ValueError("masa_gemm kernel takes contiguous tensors")
     (m, k), n = a.shape, b.shape[1]
     ws = order == "weight_stationary"
-    lib = _library()
-    if ws and ws_smem_bytes(k, a.dtype) > cuda_build.MAX_SMEM_BYTES:
+    smem = ws_panel_bytes(k, a.dtype) if ws else 0
+    if smem > cuda_build.MAX_SMEM_BYTES:
         raise ValueError(
             f"masa_gemm weight-stationary kernel does not take K={k} in "
-            f"{a.dtype}: its panel needs {ws_smem_bytes(k, a.dtype)} bytes of "
-            f"shared memory, more than {cuda_build.MAX_SMEM_BYTES} "
-            f"(ops.masa_gemm falls back to output-stationary)")
+            f"{a.dtype}: its panel needs {smem} bytes of shared memory, more "
+            f"than {cuda_build.MAX_SMEM_BYTES} (ops.masa_gemm falls back to "
+            f"output-stationary)")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if c.numel() == 0 or k == 0:
         return c.zero_()
     with torch.cuda.device(a.device):
-        err = lib.masa_gemm_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                   m, k, n, int(ws),
-                                   int(a.dtype == torch.bfloat16),
-                                   cuda_build.stream(a.device))
-    cuda_build.check("masa_gemm", err)
+        err = _library().masa_gemm_launch(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k, n, int(ws),
+            int(a.dtype == torch.bfloat16), smem, dispatch.stream(a.device))
+    dispatch.check("masa_gemm", err)
     LAUNCHES["masa_gemm_ws" if ws else "masa_gemm_os"] += 1
     return c
 

@@ -3,39 +3,31 @@
 
 The reference falls back from the weight-stationary order to the
 output-stationary one when the whole-K panel exceeds its VMEM budget. The
-port keeps that fallback with the card's limit in the budget's place: the
-weight-stationary kernel holds a ``[K, 128]`` panel of B and a ``[64, K]``
-tile of A in one block's shared memory,
-
-    panel bytes = (64 + 128) * K * itemsize,
-
-and falls back when that exceeds the 232,448 bytes a block may have on the
-H100 (K above 302 in float32, above 605 in bfloat16). After the fallback
-the output-stationary order's ``K % bk`` check applies, as in the
-reference. The tensor's device picks the CUDA kernel or its plain version.
+port keeps that fallback with the card's limit in the budget's place: it
+runs output-stationary when the weight-stationary launch's shared memory
+(``kernel.ws_panel_bytes``, ``(64 + 128) * K`` elements) exceeds the
+232,448 bytes a block may have on the H100 (K above 302 in float32, above
+605 in bfloat16). The reference's checks apply to the order the caller
+asked for, before the fallback: the output-stationary kernel takes any K,
+so a weight-stationary K that is not a multiple of ``bk`` is taken on
+either side of the limit (the reference refuses it above its own budget,
+K above 8192 in float32 at the default tiles). The tensor's device picks the CUDA kernel or its
+plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import cuda_build
-from repro_torch.kernels.masa_gemm.kernel import masa_gemm_kernel
-
-#: The weight-stationary kernel's tiles (csrc/masa_gemm.cu): rows of A a
-#: step, columns of the resident panel of B.
-WS_BM, WS_BN = 64, 128
-
-
-def ws_panel_bytes(k: int, dtype: torch.dtype) -> int:
-    """Shared memory the weight-stationary kernel needs at depth ``k``."""
-    return (WS_BM + WS_BN) * k * dtype.itemsize
+from repro_torch.kernels.masa_gemm import kernel as K
 
 
 def masa_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
               bn: int = 128, bk: int = 128,
               order: str = "output_stationary") -> torch.Tensor:
     """C = A @ B with an explicit residency order (see kernel.py)."""
+    K.check_args(a, b, bm, bn, bk, order)
     if (order == "weight_stationary"
-            and ws_panel_bytes(a.shape[1], a.dtype) > cuda_build.MAX_SMEM_BYTES):
+            and K.ws_panel_bytes(a.shape[1], a.dtype) > cuda_build.MAX_SMEM_BYTES):
         order = "output_stationary"  # K panel too large: fall back
-    return masa_gemm_kernel(a, b, bm=bm, bn=bn, bk=bk, order=order)
+    return K.run(a, b, order)

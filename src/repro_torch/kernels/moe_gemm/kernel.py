@@ -30,6 +30,7 @@ from pathlib import Path
 import torch
 
 from repro_torch import cuda_build
+from repro_torch.kernels import dispatch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Kernel name -> source.
@@ -73,7 +74,7 @@ def grouped_matmul_kernel(x_sorted: torch.Tensor, w: torch.Tensor,
     """The grouped GEMM: the CUDA kernel on a CUDA tensor,
     :func:`grouped_matmul_plain` on a CPU tensor."""
     _check(x_sorted, w, block_eids, bt, bf)
-    if cuda_build.runs_plain("grouped_matmul", x_sorted, w, block_eids):
+    if dispatch.runs_plain("grouped_matmul", x_sorted, w, block_eids):
         return grouped_matmul_plain(x_sorted, w, block_eids, bt=bt)
     return _launch(x_sorted, w, block_eids, bt)
 
@@ -96,8 +97,8 @@ def _launch(x, w, block_eids, bt: int):
         err = _library().moe_gemm_launch(
             x.data_ptr(), w.data_ptr(), block_eids.data_ptr(), y.data_ptr(),
             t, d, f, bt, int(x.dtype == torch.bfloat16),
-            cuda_build.stream(x.device))
-    cuda_build.check("moe_gemm", err)
+            dispatch.stream(x.device))
+    dispatch.check("moe_gemm", err)
     LAUNCHES["moe_gemm"] += 1
     return y
 

@@ -31,6 +31,7 @@ from pathlib import Path
 import torch
 
 from repro_torch import cuda_build
+from repro_torch.kernels import dispatch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Kernel name -> source.
@@ -84,7 +85,7 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     tensor, :func:`paged_attention_plain` on a CPU tensor."""
     _check(q, k_pages, v_pages, block_table, seq_lens)
     args = (q, k_pages, v_pages, block_table, seq_lens)
-    if cuda_build.runs_plain("paged_attention", *args):
+    if dispatch.runs_plain("paged_attention", *args):
         return paged_attention_plain(*args)
     return _launch(*args)
 
@@ -116,8 +117,8 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens):
         err = lib.paged_attention_launch(
             *(t.data_ptr() for t in args), out.data_ptr(), bsz, kvh, g, hd,
             page, n_pages, hd ** -0.5, int(q.dtype == torch.bfloat16),
-            cuda_build.stream(q.device))
-    cuda_build.check("paged_attention", err)
+            dispatch.stream(q.device))
+    dispatch.check("paged_attention", err)
     LAUNCHES["paged_attention"] += 1
     return out
 

@@ -32,6 +32,7 @@ from pathlib import Path
 import torch
 
 from repro_torch import cuda_build
+from repro_torch.kernels import dispatch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Kernel name -> source.
@@ -82,7 +83,7 @@ def ssd_scan_kernel(xr: torch.Tensor, l: torch.Tensor, b: torch.Tensor,
     """The SSD scan in the kernel's layout: the CUDA kernel on a CUDA
     tensor, :func:`ssd_scan_plain` on a CPU tensor."""
     _check(xr, l, b, c, chunk, n_heads)
-    if cuda_build.runs_plain("ssd_scan", xr, l, b, c):
+    if dispatch.runs_plain("ssd_scan", xr, l, b, c):
         return ssd_scan_plain(xr, l, b, c, chunk=chunk, n_heads=n_heads)
     return _launch(xr, l, b, c, chunk, n_heads)
 
@@ -117,8 +118,8 @@ def _launch(xr, l, b, c, chunk: int, n_heads: int):
         err = lib.ssd_scan_launch(
             xr.data_ptr(), l.data_ptr(), b.data_ptr(), c.data_ptr(),
             y.data_ptr(), hT.data_ptr(), bh, L, hd, ds, chunk, n_heads,
-            int(xr.dtype == torch.bfloat16), cuda_build.stream(dev))
-        cuda_build.check("ssd_scan", err)
+            int(xr.dtype == torch.bfloat16), dispatch.stream(dev))
+        dispatch.check("ssd_scan", err)
         LAUNCHES["ssd_scan"] += 1
     return y, hT
 

@@ -4,7 +4,8 @@ Nothing is compiled here (there is no nvcc): these tests hold the naming
 that decides when a library is rebuilt. Each library is named by a hash of
 every file in its own ``csrc/`` directory and the flags, so an edit to
 ``dram_step.cuh`` rebuilds the lane and mix kernels and not the SSD scan.
-The wrappers' shared steps (``runs_plain``, ``check``) are held here too.
+The wrappers' shared steps (``kernels.dispatch``: ``runs_plain``,
+``check``) are held here too.
 """
 import shutil
 
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch import compat, cuda_build, kernels
+from repro_torch.kernels import dispatch
 from repro_torch.core.dram import cuda_step
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
@@ -59,16 +61,16 @@ def test_build_without_nvcc_raises():
 
 def test_runs_plain_picks_the_device():
     cpu = torch.zeros(2)
-    assert cuda_build.runs_plain("k", cpu, cpu) is True
+    assert dispatch.runs_plain("k", cpu, cpu) is True
     with pytest.raises(ValueError, match="runs on cuda"):
-        cuda_build.runs_plain("k", torch.zeros(2, device="meta"))
+        dispatch.runs_plain("k", torch.zeros(2, device="meta"))
     with pytest.raises(ValueError, match="inputs on"):
-        cuda_build.runs_plain("k", cpu, torch.zeros(2, device="meta"))
+        dispatch.runs_plain("k", cpu, torch.zeros(2, device="meta"))
 
 
 def test_check_raises_on_a_refused_or_failed_launch():
-    cuda_build.check("k", 0)
+    dispatch.check("k", 0)
     with pytest.raises(ValueError, match="refused"):
-        cuda_build.check("k", -1)
+        dispatch.check("k", -1)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        cuda_build.check("k", 700)
+        dispatch.check("k", 700)

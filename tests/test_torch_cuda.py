@@ -233,24 +233,30 @@ def assert_kernel_close(got, want, dtype: str):
 @pytest.mark.parametrize("m,k,n", tc.MASA_SHAPES)
 def test_masa_kernel_equals_plain(card, m, k, n, dtype, order):
     from repro_torch.kernels import masa_gemm
-    from repro_torch.kernels.masa_gemm import kernel as K, ops
+    from repro_torch.kernels.masa_gemm import kernel as K
 
     a, b = card_tensors(tc.masa_inputs(m, k, n), getattr(torch, dtype), card)
     K.reset_launches()
     got = masa_gemm(a, b, order=order)
     torch.cuda.synchronize()
     ws = (order == "weight_stationary"
-          and ops.ws_panel_bytes(k, a.dtype) <= K.cuda_build.MAX_SMEM_BYTES)
+          and K.ws_panel_bytes(k, a.dtype) <= K.cuda_build.MAX_SMEM_BYTES)
     assert K.LAUNCHES == {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}
     assert_kernel_close(got, K.masa_gemm_plain(a, b), dtype)
 
 
-@pytest.mark.parametrize("k", [1, 128, 256, 302, 303, 605, 606, 4096])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_masa_panel_formula_is_the_librarys(card, k, dtype):
-    from repro_torch.kernels.masa_gemm import kernel as K, ops
+@pytest.mark.parametrize("m,k,n,dtype", tc.MASA_WS_ODD_K)
+def test_masa_weight_stationary_takes_any_k(card, m, k, n, dtype):
+    from repro_torch.kernels import masa_gemm
+    from repro_torch.kernels.masa_gemm import kernel as K
 
-    assert ops.ws_panel_bytes(k, dtype) == K.ws_smem_bytes(k, dtype)
+    a, b = card_tensors(tc.masa_inputs(m, k, n), getattr(torch, dtype), card)
+    K.reset_launches()
+    got = masa_gemm(a, b, order="weight_stationary")
+    torch.cuda.synchronize()
+    ws = K.ws_panel_bytes(k, a.dtype) <= K.cuda_build.MAX_SMEM_BYTES
+    assert K.LAUNCHES == {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}
+    assert_kernel_close(got, K.masa_gemm_plain(a, b), dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

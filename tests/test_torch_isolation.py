@@ -85,6 +85,7 @@ print(json.dumps(dict(modules=names, leaked=leaked)))
             "repro_torch.kernels.flash_attention.kernel",
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.flash_attention.ref",
+            "repro_torch.kernels.dispatch",
             } <= set(out["modules"])
 
 

@@ -69,14 +69,24 @@ def test_weight_stationary_falls_back_past_shared_memory(k, dtype, want,
     """The reference's fallback with the card's limit: the panel of
     (64 + 128) * K elements must fit a block's 232,448 bytes."""
     seen = []
-    monkeypatch.setattr(ops, "masa_gemm_kernel",
-                        lambda a, b, **kw: seen.append(kw["order"]))
+    monkeypatch.setattr(K, "run", lambda a, b, order: seen.append(order))
     a = torch.zeros((128, k), dtype=dtype)
     b = torch.zeros((k, 128), dtype=dtype)
     ops.masa_gemm(a, b, order="weight_stationary")
     assert seen == [want]
-    assert (ops.ws_panel_bytes(k, dtype) <= cuda_build.MAX_SMEM_BYTES) == (
+    assert (K.ws_panel_bytes(k, dtype) <= cuda_build.MAX_SMEM_BYTES) == (
         want == "weight_stationary")
+
+
+@pytest.mark.parametrize("m,k,n,dtype", tc.MASA_WS_ODD_K)
+def test_weight_stationary_takes_any_k_as_jax_does(m, k, n, dtype):
+    """The reference checks K % bk only for output-stationary, and falls
+    back only past its 8 MiB budget: a weight-stationary K that is no
+    multiple of bk is taken on both sides of the port's fallback."""
+    (ja, jb), (ta, tb) = both(tc.masa_inputs(m, k, n), dtype)
+    got = masa_gemm(ta, tb, order="weight_stationary")
+    assert got.dtype == ta.dtype and got.shape == (m, n)
+    close(got, r_masa_gemm(ja, jb, order="weight_stationary"), tc.TOLS[dtype])
 
 
 def test_checks_are_the_references():

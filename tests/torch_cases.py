@@ -47,6 +47,12 @@ SSD_CARD_SHAPES = SSD_SHAPES + (SSD_SERVE, (2, 512, 128, 64, 16, 32),
 #: tests/test_kernels.py's masa_gemm sweep: (M, K, N).
 MASA_SHAPES = ((128, 128, 128), (256, 384, 512), (512, 128, 256),
                (128, 1024, 128))
+#: Weight-stationary shapes whose K is no multiple of bk (the reference
+#: takes them): (M, K, N, dtype). K 300 in float32 and 500 in bfloat16 fit
+#: the resident panel; K 400 in float32 and 700 in bfloat16 fall back to
+#: output-stationary.
+MASA_WS_ODD_K = ((128, 300, 128, "float32"), (128, 400, 128, "float32"),
+                 (128, 500, 128, "bfloat16"), (128, 700, 128, "bfloat16"))
 #: tests/test_kernels.py's moe_gemm sweep: (E, C, D, F, bt, bf).
 MOE_SHAPES = ((4, 256, 64, 256, 128, 128), (8, 128, 128, 384, 128, 128),
               (2, 512, 96, 128, 128, 128), (16, 128, 64, 128, 64, 128))
