@@ -71,7 +71,10 @@ on any mismatch:
                 partial page and full with out-of-range table entries
                 through ops; GQA through ops.flash_attention. Each wrapper
                 raises on a non-contiguous input, a wrong dtype or a refused
-                shape, before any launch.
+                shape, before any launch. Every masa and moe case ran the
+                body its wrapper picks by shape (``body()``: wgmma for bf16
+                with rows of whole 16-byte units, and moe's bt % 64 == 0;
+                simt otherwise), counted in ``BODIES``.
 16. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
@@ -85,7 +88,9 @@ on any mismatch:
                 attention, torch.bmm, torch.matmul; none for paged), beside
                 the bound max(FLOPs / peak, bytes / 3.35 TB/s). masa_gemm's
                 weight-stationary order falls back there and is also timed
-                at K = 256.
+                at K = 256. The masa (both orders) and moe rows fail unless
+                bfloat16 ran the wgmma body and float32 the simt body; each
+                prints its body and TFLOP/s.
 
 Each phase prints its seconds. The last lines are nvidia-smi's name and
 power limit, the per-kernel JSON record (all seven kernels), and ``{"ok":
@@ -787,12 +792,21 @@ def phase_kernels():
 
     err = {k: {} for k in ("masa_gemm", "moe_gemm", "paged_attention",
                            "flash_attention")}
+    bodies = {"masa_gemm": {}, "moe_gemm": {}}
     n = 0
 
     def record(kernel, dname, e):
         nonlocal n
         n += 1
         err[kernel][dname] = max(err[kernel].get(dname, 0.0), e)
+
+    def ran(kernel, mod, want, case):
+        """Count the body of ``mod``'s one launch since its reset, failing
+        unless it is ``want`` (the wrapper's choice by shape)."""
+        if mod.BODIES != {b: int(b == want) for b in mod.BODIES}:
+            fail(f"kernels: {kernel} {case} ran bodies {mod.BODIES}, "
+                 f"expected one {want}")
+        bodies[kernel][want] = bodies[kernel].get(want, 0) + 1
 
     # weight-stationary takes a K that is no multiple of bk, as the
     # reference does, on both sides of the fallback
@@ -804,6 +818,7 @@ def phase_kernels():
         if MK.LAUNCHES != {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}:
             fail(f"kernels: masa_gemm weight_stationary at K={k} {dname} "
                  f"launched {MK.LAUNCHES}")
+        ran("masa_gemm", MK, MK.body(a, b), f"K={k} {dname}")
         record("masa_gemm", dname, kernel_err(
             f"masa_gemm weight_stationary {m}x{k}x{nn}", got,
             MK.masa_gemm_plain(a, b), dname))
@@ -821,6 +836,8 @@ def phase_kernels():
                                    "masa_gemm_ws": int(ws)}:
                     fail(f"kernels: masa_gemm {order} at K={k} launched "
                          f"{MK.LAUNCHES}")
+                ran("masa_gemm", MK, MK.body(a, b),
+                    f"{order} {m}x{k}x{nn} {dname}")
                 record("masa_gemm", dname, kernel_err(
                     f"masa_gemm {order} {m}x{k}x{nn}", got,
                     MK.masa_gemm_plain(a, b), dname))
@@ -828,9 +845,12 @@ def phase_kernels():
             x, w = card_inputs(tc.moe_inputs(E, C, D, F, seed=1), dtype)
             eids = capacity_block_eids(E, C, bt, device="cuda")
             for ids in (eids, eids.flip(0).contiguous()):
+                EK.reset_launches()
+                got = grouped_matmul(x, w, ids, bt=bt, bf=bf)
+                ran("moe_gemm", EK, EK.body(x, w, bt),
+                    f"{(E, C, D, F, bt)} {dname}")
                 record("moe_gemm", dname, kernel_err(
-                    f"moe_gemm {(E, C, D, F, bt)}",
-                    grouped_matmul(x, w, ids, bt=bt, bf=bf),
+                    f"moe_gemm {(E, C, D, F, bt)}", got,
                     EK.grouped_matmul_plain(x, w, ids, bt=bt), dname))
         for shape in tc.PAGED_SHAPES:
             q, kp, vp, table, lens = tc.paged_inputs(*shape, seed=3)
@@ -930,8 +950,9 @@ def phase_kernels():
             f"float32 {e['float32']:.3e}, bfloat16 {e['bfloat16']:.3e}")
     log(f"[kernels] {n} cases in float32 (rtol = atol = "
         f"{tc.TOLS['float32']}) and bfloat16 ({tc.TOLS['bfloat16']}); "
-        f"{len(refusals)} refusals raised before any launch")
-    return err
+        f"{len(refusals)} refusals raised before any launch; bodies by "
+        f"case {bodies}")
+    return err, bodies
 
 
 # ----------------------------------------------------------- kernel_bench
@@ -998,6 +1019,57 @@ def timing_row(name, kernel, plain, library, flops, nbytes, dname, reps):
     return row
 
 
+def body_ran(mod, name: str, dname: str) -> str:
+    """The body of ``mod``'s launches since its reset: fails unless all took
+    wgmma in bfloat16 and simt in float32 (the jamba shapes suit wgmma)."""
+    want = "wgmma" if dname == "bfloat16" else "simt"
+    if not mod.BODIES[want] or any(c for b, c in mod.BODIES.items()
+                                   if b != want):
+        fail(f"kernel_time: {name} {dname} ran bodies {mod.BODIES}, "
+             f"expected only {want}")
+    return want
+
+
+def with_body(row: dict, mod, name: str, dname: str, flops: float) -> dict:
+    """Add the body that ran and the achieved TFLOP/s to a timing row."""
+    row["body"] = body_ran(mod, name, dname)
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    log(f"[timing] {name} {dname}: {row['body']} body, "
+        f"{row['tflops']:.1f} TFLOP/s")
+    return row
+
+
+def moe_raster_study(x, w, eids, bt: int, reps: int) -> dict:
+    """The designation's hit moved to L2, at jamba's MoE shape: wgmma times
+    with the launch raster's groups of ``GROUP_M`` row tiles (the default),
+    with groups of 1 (each row tile across all of F before the next), and
+    with a scattered designation (token block i takes expert i % E, so the
+    blocks that share a W tile launch E token blocks apart). Each is
+    held to the plain version."""
+    from repro_torch.kernels.moe_gemm import kernel as EK
+
+    E = w.shape[0]
+    scattered = (torch.arange(eids.numel(), device="cuda") % E).to(torch.int32)
+    out = {"group_m": EK.GROUP_M}
+    for name, ids, group_m in (("capacity", eids, EK.GROUP_M),
+                               ("capacity_group_m_1", eids, 1),
+                               ("scattered", scattered, EK.GROUP_M)):
+        default, EK.GROUP_M = EK.GROUP_M, group_m
+        try:
+            kernel_err(f"moe_gemm {name}", EK.grouped_matmul_kernel(
+                x, w, ids, bt=bt), EK.grouped_matmul_plain(x, w, ids, bt=bt),
+                "bfloat16")
+            out[f"{name}_ms"] = time_ms(
+                lambda: EK.grouped_matmul_kernel(x, w, ids, bt=bt), reps, 1)
+        finally:
+            EK.GROUP_M = default
+    log(f"[timing] moe_gemm raster bfloat16: capacity layout in groups of "
+        f"{out['group_m']} {out['capacity_ms']:.4f} ms, in groups of 1 "
+        f"{out['capacity_group_m_1_ms']:.4f} ms, scattered designation "
+        f"{out['scattered_ms']:.4f} ms")
+    return out
+
+
 def phase_kernel_time(smi: str):
     import torch_cases as tc
     import torch.nn.functional as Fn
@@ -1019,6 +1091,8 @@ def phase_kernel_time(smi: str):
     for dname in ("bfloat16", "float32"):
         dtype = getattr(torch, dname)
         es = dtype.itemsize
+        # the GEMMs' launches timed: the fp32 simt bodies take ~10 ms each
+        reps = 10 if dname == "bfloat16" else 3
         # ---- flash: jamba's attention layer, causal prefill of 2048
         s = tc.FLASH_JAMBA
         B, S, H, Hkv, hd = s["B"], s["S"], s["H"], s["Hkv"], s["hd"]
@@ -1066,13 +1140,17 @@ def phase_kernel_time(smi: str):
         x, w = randn((E * C, D), dtype), randn((E, D, F), dtype, D ** -0.5)
         eids = capacity_block_eids(E, C, bt, device="cuda")
         T = E * C
+        EK.reset_launches()
         row = timing_row(
             "moe_gemm", lambda: EK.grouped_matmul_kernel(x, w, eids, bt=bt),
             lambda: EK.grouped_matmul_plain(x, w, eids, bt=bt),
             lambda: torch.bmm(x.view(E, C, D), w), 2 * T * D * F,
             es * (T * D + E * D * F + T * F) + 4 * eids.numel(), dname,
-            reps=3)
-        out["moe_gemm"][dname] = row
+            reps=reps)
+        out["moe_gemm"][dname] = with_body(row, EK, "moe_gemm", dname,
+                                           2 * T * D * F)
+        if dname == "bfloat16":
+            row["raster"] = moe_raster_study(x, w, eids, bt, reps)
         del x, w
         torch.cuda.empty_cache()
         # ---- masa: a dense FFN up-projection of 2048 tokens, both orders
@@ -1088,21 +1166,25 @@ def phase_kernel_time(smi: str):
             f"panel needs {MK.ws_panel_bytes(K, dtype)} bytes of "
             f"shared memory (> {cuda_build.MAX_SMEM_BYTES}), so ops.masa_gemm ran "
             f"output_stationary")
+        MK.reset_launches()
         row = timing_row(
             "masa_gemm output_stationary",
             lambda: MK.masa_gemm_kernel(a, b), lambda: MK.masa_gemm_plain(a, b),
             lambda: torch.matmul(a, b), 2 * M * K * N,
-            es * (M * K + K * N + M * N), dname, reps=3)
+            es * (M * K + K * N + M * N), dname, reps=reps)
+        with_body(row, MK, "masa_gemm output_stationary", dname, 2 * M * K * N)
         s = tc.MASA_WS_JAMBA
         M, K, N = s["M"], s["K"], s["N"]
         a, b = randn((M, K), dtype), randn((K, N), dtype, K ** -0.5)
+        MK.reset_launches()
         ws = timing_row(
             "masa_gemm weight_stationary",
             lambda: MK.masa_gemm_kernel(a, b, order="weight_stationary"),
             lambda: MK.masa_gemm_plain(a, b), lambda: torch.matmul(a, b),
-            2 * M * K * N, es * (M * K + K * N + M * N), dname, reps=5)
+            2 * M * K * N, es * (M * K + K * N + M * N), dname, reps=2 * reps)
+        with_body(ws, MK, "masa_gemm weight_stationary", dname, 2 * M * K * N)
         ws["output_stationary_ms"] = time_ms(lambda: MK.masa_gemm_kernel(a, b),
-                                             5, 1)
+                                             2 * reps, 1)
         log(f"[timing] masa_gemm at M={M} K={K} N={N} {dname}: "
             f"weight_stationary {ws['ms']:.4f} ms, output_stationary "
             f"{ws['output_stationary_ms']:.4f} ms")
@@ -1115,7 +1197,7 @@ def phase_kernel_time(smi: str):
 
 
 #: The accelerator layer's kernels: (name, source, the TPU kernel it
-#: replaces, the jamba shape timed).
+#: replaces, the jamba shape timed and, for the GEMMs, their bodies).
 LAYER_KERNELS = (
     ("flash_attention",
      "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -1130,18 +1212,26 @@ LAYER_KERNELS = (
     ("moe_gemm", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
      "src/repro/kernels/moe_gemm/kernel.py:28",
      "E=16 C=384 D=4096 F=14336 bt=128 (jamba-v0.1-52b MoE up-projection "
-     "of 2048 tokens)"),
+     "of 2048 tokens); bf16 on the wgmma body (128 x 256 tiles, TMA ring of "
+     "4 stages, W through a rank-3 tensor map at the block's expert, tiles "
+     "rastered M fastest in groups of 12 row tiles), fp32 on the simt "
+     "body"),
     ("masa_gemm", "src/repro_torch/kernels/masa_gemm/csrc/masa_gemm.cu",
      "src/repro/kernels/masa_gemm/kernel.py:53",
      "M=2048 K=4096 N=14336 output_stationary (weight_stationary falls back "
-     "there; timed at K=256) (jamba-v0.1-52b dense FFN up-projection)"),
+     "there; timed at K=256) (jamba-v0.1-52b dense FFN up-projection); "
+     "bf16 on the wgmma body (output-stationary 128 x 256 tiles, TMA ring "
+     "of 4 stages; weight-stationary a resident [K, 128] panel with A "
+     "through a ring per consumer warpgroup), fp32 on the simt body"),
 )
 
 
-def layer_records(sweep_err, bench, ktime) -> list[dict]:
+def layer_records(sweep, bench, ktime) -> list[dict]:
     """The record line's entries of the four accelerator-layer kernels:
     launches from main path four (kernel_bench.run), times at the jamba
-    shapes in bfloat16 (float32 beside them)."""
+    shapes in bfloat16 (float32 beside them), and the GEMMs' bodies by
+    sweep case."""
+    sweep_err, bodies = sweep
     out = []
     for name, source, replaces, shape in LAYER_KERNELS:
         launches = {k: v for k, v in bench["launches"].items()
@@ -1158,6 +1248,8 @@ def layer_records(sweep_err, bench, ktime) -> list[dict]:
                  "sweep_max_abs_err": sweep_err[name]}
         if name == "masa_gemm":
             entry["launches_by_order"] = launches
+        if name in bodies:
+            entry["sweep_bodies"] = bodies[name]
         out.append(entry)
     return out
 
@@ -1196,7 +1288,7 @@ def main() -> None:
     prof = run_phase("profile", phase_profile, model, fixture)
     del model
     ssd_t = run_phase("ssd_time", phase_ssd_time, smi)
-    sweep_err = run_phase("kernels", phase_kernels)
+    sweep = run_phase("kernels", phase_kernels)
     bench = run_phase("kernel_bench", phase_kernel_bench)
     ktime = run_phase("kernel_time", phase_kernel_time, smi)
     b_ms, b_by = bound(fig4["B"], fig4["N"])
@@ -1247,7 +1339,7 @@ def main() -> None:
             "stats", "wall_s", "prefill_s", "decode_s", "prefill_tok_s",
             "decode_tok_s", "near_ties", "tokens_compared")},
         "logits": tf, "profile": prof}]}
-    record["kernels"] += layer_records(sweep_err, bench, ktime)
+    record["kernels"] += layer_records(sweep, bench, ktime)
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ wrapper (``core/dram/csrc/`` for the lane and mix kernels,
 with a plain C interface, one ``nvcc`` per source, all started together,
 under ``build/repro_torch_kernels/`` at the repository root (``.gitignore``
 lists ``build/``). A library is named by a hash of every file in its own
-``csrc/`` directory and the flags, so an edit to a source or a header it
-includes rebuilds it, and an up-to-date library is reused. :func:`load`
+``csrc/`` directory, every header those files include by a quoted path
+(``kernels/csrc/hopper_gemm.cuh``, which masa_gemm and moe_gemm share) and
+the flags, so an edit to a source or a header it includes rebuilds it, and
+an up-to-date library is reused. :func:`load`
 opens one with ``ctypes``; the family's wrapper declares its argument
 types. Nothing is built or loaded when this module is imported.
 """
@@ -18,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -33,11 +36,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_SMEM_BYTES = 232448
 
 
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(csrc: Path) -> list[Path]:
+    """Every source and header in ``csrc`` and, recursively, every file
+    they include by a quoted path, each once."""
+    todo = sorted(Path(csrc).glob("*.cu*"))
+    seen: dict[Path, None] = {}
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen:
+            continue
+        seen[path] = None
+        for inc in _QUOTED_INCLUDE.findall(path.read_text()):
+            if (path.parent / inc).is_file():
+                todo.append(path.parent / inc)
+    return list(seen)
+
+
 def source_tag(csrc: Path) -> str:
-    """Hash of every source and header in ``csrc`` and the flags."""
+    """Hash of :func:`sources_of` ``csrc`` (each by its path relative to
+    ``csrc`` and its bytes) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(Path(csrc).glob("*.cu*")):
-        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    root = Path(csrc).resolve()
+    for path in sources_of(csrc):
+        h.update(os.path.relpath(path, root).encode() + b"\0"
+                 + path.read_bytes())
     return h.hexdigest()[:16]
 
 

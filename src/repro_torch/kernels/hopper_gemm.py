@@ -1,0 +1,37 @@
+"""The Python side of ``csrc/hopper_gemm.cuh``, the bf16 body that the
+masa_gemm and moe_gemm kernels share (wgmma on tiles that TMA feeds
+through a ring of shared-memory stages).
+
+Each wrapper picks its body by shape, before the launch, in one predicate
+(``masa_gemm.kernel.body``, ``moe_gemm.kernel.body``) built on
+:func:`tma_ready`; every other input takes the wrapper's simt body. The
+choice is never a fallback on failure: a wgmma launch that fails raises.
+:func:`raster` mirrors the header's tile raster, which the launch order of
+both kernels follows.
+"""
+from __future__ import annotations
+
+import torch
+
+#: The bodies a GEMM wrapper counts its launches by.
+BODIES = ("wgmma", "simt")
+
+
+def tma_ready(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is bf16 with a 16-byte aligned base, as TMA's
+    tensor maps need (the caller checks that the rows are whole 16-byte
+    units)."""
+    return all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+               for t in tensors)
+
+
+def raster(t: int, mt: int, nt: int, group_m: int) -> tuple[int, int]:
+    """Tile ``t`` of an ``mt`` x ``nt`` grid of output tiles -> its (row
+    tile, column tile), as ``hopper::raster`` launches them: groups of
+    ``group_m`` row tiles one after the other, M fastest within one column
+    tile inside a group."""
+    per_group = group_m * nt
+    g, r = divmod(t, per_group)
+    first = g * group_m
+    rows = min(mt - first, group_m)
+    return first + r % rows, r // rows

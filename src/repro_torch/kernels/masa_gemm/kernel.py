@@ -4,19 +4,24 @@ The counterpart of ``repro.kernels.masa_gemm.kernel`` (``masa_gemm_kernel``,
 bodies ``_kernel_os`` and ``_kernel_ws``): ``csrc/masa_gemm.cu`` computes
 ``c = a @ b`` for ``a [M, K]``, ``b [K, N]`` in one of two residency orders
 (the source's header says how each keeps its tiles and what bounds it),
-summing in fp32 and writing ``c`` in a's dtype.
+summing in fp32 and writing ``c`` in a's dtype. It has two bodies:
+wgmma on TMA-fed tiles for bf16 (``csrc/hopper_gemm.cuh``) and fp32 FMAs
+on the CUDA cores for the rest.
 
 * :func:`masa_gemm_kernel` is the wrapper: :func:`check_args`, the
   reference's divisibility checks (``bm``, ``bn``, and ``bk`` for the
   output-stationary order) raised as ``ValueError``, then :func:`run`,
   which launches the kernel on a CUDA tensor (or raises) and runs
   :func:`masa_gemm_plain` on a CPU tensor. The kernel's tiles are its own.
-* :func:`ws_panel_bytes` is the weight-stationary launch's shared memory,
-  counted here alone: the launch passes it to the kernel and ``ops`` falls
+* :func:`ws_panel_bytes` is the weight-stationary budget, counted here
+  alone: the simt launch takes it as its shared memory and ``ops`` falls
   back on it.
+* :func:`body` picks the body of a launch by shape, before it: ``wgmma``
+  for bf16 with K and N multiples of 8 and 16-byte aligned bases, else
+  ``simt``.
 * :func:`masa_gemm_plain` is the plain PyTorch version, on any device.
 * ``LAUNCHES`` counts launches by the order that ran: ``masa_gemm_os`` and
-  ``masa_gemm_ws``.
+  ``masa_gemm_ws``; ``BODIES`` counts the same launches by body.
 
 The library is built at first use by :mod:`repro_torch.cuda_build`.
 """
@@ -29,7 +34,7 @@ from pathlib import Path
 import torch
 
 from repro_torch import cuda_build
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, hopper_gemm
 from repro_torch.kernels.masa_gemm.ref import masa_gemm_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -37,35 +42,54 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"masa_gemm": CSRC / "masa_gemm.cu"}
 #: Kernel launches by order (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"masa_gemm_os": 0, "masa_gemm_ws": 0}
+#: The same launches by body (set to 0 with :func:`reset_launches`).
+BODIES: dict[str, int] = dict.fromkeys(hopper_gemm.BODIES, 0)
+#: Row tiles in one group of the output-stationary wgmma raster
+#: (``hopper_gemm.raster``): at the port's timing shape all 16, so a wave
+#: shares B's column tiles and all of A stays in L2.
+GROUP_M = 16
 ORDERS = ("output_stationary", "weight_stationary")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BODIES):
+        for k in counts:
+            counts[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("masa_gemm", SOURCES["masa_gemm"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.masa_gemm_launch.argtypes = [vp] * 3 + [ci] * 5 + [ctypes.c_longlong,
+    lib.masa_gemm_launch.argtypes = [vp] * 3 + [ci] * 7 + [ctypes.c_longlong,
                                                           vp]
     lib.masa_gemm_launch.restype = ci
     return lib
 
 
-#: The weight-stationary kernel's tiles (csrc/masa_gemm.cu: kWsBM, kBN):
-#: rows of A a step, columns of the resident panel of B.
+#: The weight-stationary simt body's tiles (csrc/masa_gemm.cu: kWsBM,
+#: kBN): rows of A a step, columns of the resident panel of B.
 WS_BM, WS_BN = 64, 128
 
 
 def ws_panel_bytes(k: int, dtype: torch.dtype) -> int:
-    """Shared memory of one weight-stationary launch at depth ``k``: the
-    ``[K, 128]`` panel of B and the ``[64, K]`` tile of A."""
+    """The weight-stationary budget at depth ``k``: the ``[K, 128]`` panel
+    of B and a ``[64, K]`` tile of A, the simt body's shared memory. ``ops``
+    falls back on it alone; the wgmma body's layout (the panel and a ring
+    of A) fits a block whenever this does (csrc/masa_gemm.cu)."""
     return (WS_BM + WS_BN) * k * dtype.itemsize
+
+
+def body(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The body a launch on ``a`` and ``b`` takes, by shape, in either
+    order: ``wgmma`` for bf16 with K and N multiples of 8 (rows of whole
+    16-byte units, as TMA's strides need) and 16-byte aligned bases, else
+    ``simt``."""
+    k, n = a.shape[1], b.shape[1]
+    wgmma = hopper_gemm.tma_ready(a, b) and k % 8 == 0 and n % 8 == 0
+    return "wgmma" if wgmma else "simt"
 
 
 def check_args(a, b, bm: int, bn: int, bk: int, order: str) -> None:
@@ -119,12 +143,15 @@ def _launch(a, b, order: str):
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if c.numel() == 0 or k == 0:
         return c.zero_()
+    which = body(a, b)
     with torch.cuda.device(a.device):
         err = _library().masa_gemm_launch(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k, n, int(ws),
-            int(a.dtype == torch.bfloat16), smem, dispatch.stream(a.device))
+            int(a.dtype == torch.bfloat16), int(which == "wgmma"), GROUP_M,
+            smem, dispatch.stream(a.device))
     dispatch.check("masa_gemm", err)
     LAUNCHES["masa_gemm_ws" if ws else "masa_gemm_os"] += 1
+    BODIES[which] += 1
     return c
 
 

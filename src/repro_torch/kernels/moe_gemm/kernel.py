@@ -5,10 +5,12 @@ The counterpart of ``repro.kernels.moe_gemm.kernel``
 
   y[T, F] = x_sorted[T, D] @ W[block_eids[t // bt], D, F]
 
-``csrc/moe_gemm.cu`` runs one block per (tile of token rows, 128 columns
-of F); the block reads its token block's expert id and multiplies by that
+``csrc/moe_gemm.cu`` runs one block per (tile of token rows, columns of
+F); the block reads its token block's expert id and multiplies by that
 expert's panel (the designation), summing in fp32 and writing ``y`` in x's
-dtype.
+dtype. It has two bodies: wgmma on TMA-fed tiles for bf16
+(``csrc/hopper_gemm.cuh``, tiles launched in the raster of
+``hopper_gemm.raster``) and fp32 FMAs on the CUDA cores for the rest.
 
 * :func:`grouped_matmul_kernel` is the wrapper: on a CUDA tensor it
   launches the kernel (or raises), on a CPU tensor it runs
@@ -16,8 +18,12 @@ dtype.
   (``T % bt``, ``F % bf``, one expert id per token block), raised as
   ``ValueError``; ``bt`` is also the token block that ``block_eids``
   indexes.
+* :func:`body` picks the body of a launch by shape, before it: ``wgmma``
+  for bf16 with D and F multiples of 8, ``bt % 64 == 0`` and 16-byte
+  aligned bases, else ``simt``.
 * :func:`grouped_matmul_plain` is the plain PyTorch version, on any device.
-* ``LAUNCHES["moe_gemm"]`` counts kernel launches.
+* ``LAUNCHES["moe_gemm"]`` counts kernel launches; ``BODIES`` counts the
+  same launches by body.
 
 The library is built at first use by :mod:`repro_torch.cuda_build`.
 """
@@ -30,27 +36,34 @@ from pathlib import Path
 import torch
 
 from repro_torch import cuda_build
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, hopper_gemm
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Kernel name -> source.
 SOURCES = {"moe_gemm": CSRC / "moe_gemm.cu"}
 #: Kernel launches (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"moe_gemm": 0}
+#: The same launches by body (set to 0 with :func:`reset_launches`).
+BODIES: dict[str, int] = dict.fromkeys(hopper_gemm.BODIES, 0)
+#: Row tiles in one group of the wgmma raster (``hopper_gemm.raster``): 12
+#: tiles hold whole experts at jamba's capacity (3 token blocks of 128, or
+#: 6 of 64), and the group's rows of x (12 MB at D 4096) stay in L2.
+GROUP_M = 12
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BODIES):
+        for k in counts:
+            counts[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("moe_gemm", SOURCES["moe_gemm"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.moe_gemm_launch.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+    lib.moe_gemm_launch.argtypes = [vp] * 4 + [ci] * 8 + [vp]
     lib.moe_gemm_launch.restype = ci
     return lib
 
@@ -66,6 +79,18 @@ def _check(x, w, block_eids, bt: int, bf: int) -> None:
     if tuple(block_eids.shape) != (t // bt,):
         raise ValueError(f"grouped_matmul: block_eids has shape "
                          f"{tuple(block_eids.shape)}, not ({t // bt},)")
+
+
+def body(x: torch.Tensor, w: torch.Tensor, bt: int) -> str:
+    """The body a launch on ``x`` and ``w`` with token blocks of ``bt``
+    takes, by shape: ``wgmma`` for bf16 with D and F multiples of 8 (rows of
+    whole 16-byte units, as TMA's strides need), ``bt % 64 == 0`` (tiles of
+    128 or 64 rows that never straddle two token blocks) and 16-byte aligned
+    bases, else ``simt``."""
+    d, f = x.shape[1], w.shape[2]
+    wgmma = (hopper_gemm.tma_ready(x, w) and d % 8 == 0 and f % 8 == 0
+             and bt % 64 == 0)
+    return "wgmma" if wgmma else "simt"
 
 
 def grouped_matmul_kernel(x_sorted: torch.Tensor, w: torch.Tensor,
@@ -89,17 +114,19 @@ def _launch(x, w, block_eids, bt: int):
                         f"{block_eids.dtype}")
     if not all(t.is_contiguous() for t in (x, w, block_eids)):
         raise ValueError("moe_gemm kernel takes contiguous tensors")
-    (t, d), f = x.shape, w.shape[2]
+    (t, d), (e, _, f) = x.shape, w.shape
     y = torch.empty((t, f), dtype=x.dtype, device=x.device)
     if y.numel() == 0 or d == 0:
         return y.zero_()
+    which = body(x, w, bt)
     with torch.cuda.device(x.device):
         err = _library().moe_gemm_launch(
             x.data_ptr(), w.data_ptr(), block_eids.data_ptr(), y.data_ptr(),
-            t, d, f, bt, int(x.dtype == torch.bfloat16),
-            dispatch.stream(x.device))
+            t, d, f, e, bt, int(x.dtype == torch.bfloat16),
+            int(which == "wgmma"), GROUP_M, dispatch.stream(x.device))
     dispatch.check("moe_gemm", err)
     LAUNCHES["moe_gemm"] += 1
+    BODIES[which] += 1
     return y
 
 

@@ -2,12 +2,15 @@
 
 Nothing is compiled here (there is no nvcc): these tests hold the naming
 that decides when a library is rebuilt. Each library is named by a hash of
-every file in its own ``csrc/`` directory and the flags, so an edit to
-``dram_step.cuh`` rebuilds the lane and mix kernels and not the SSD scan.
+every file in its own ``csrc/`` directory, the headers they include by a
+quoted path, and the flags, so an edit to ``dram_step.cuh`` rebuilds the
+lane and mix kernels and not the SSD scan, and an edit to
+``kernels/csrc/hopper_gemm.cuh`` rebuilds masa_gemm and moe_gemm.
 The wrappers' shared steps (``kernels.dispatch``: ``runs_plain``,
 ``check``) are held here too.
 """
 import shutil
+from pathlib import Path
 
 import pytest
 
@@ -50,6 +53,31 @@ def test_header_edit_renames_the_dram_libraries(tmp_path):
     assert after != before
     assert (cuda_build.library_path("mix_step", copy / "mix_step.cu").name
             .split("_")[-1] == after.name.split("_")[-1])
+
+
+def test_shared_header_edit_renames_the_gemm_libraries(tmp_path):
+    """hopper_gemm.cuh lies outside masa_gemm's and moe_gemm's csrc/ and is
+    hashed into both names through their quoted includes."""
+    copy = tmp_path / "kernels"
+    shutil.copytree(Path(kernels.__file__).parent, copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+
+    def names():
+        return {n: cuda_build.library_path(n, copy / n / "csrc" / f"{n}.cu")
+                for n in ("masa_gemm", "moe_gemm", "ssd_scan")}
+
+    before = names()
+    for n, path in before.items():
+        assert path == cuda_build.library_path(n, kernels.SOURCES[n])
+    header = (copy / "csrc" / "hopper_gemm.cuh").resolve()
+    for n in ("masa_gemm", "moe_gemm"):
+        assert cuda_build.sources_of(copy / n / "csrc") == [
+            (copy / n / "csrc" / f"{n}.cu").resolve(), header]
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = names()
+    assert after["masa_gemm"] != before["masa_gemm"]
+    assert after["moe_gemm"] != before["moe_gemm"]
+    assert after["ssd_scan"] == before["ssd_scan"]
 
 
 def test_build_without_nvcc_raises():

@@ -242,6 +242,8 @@ def test_masa_kernel_equals_plain(card, m, k, n, dtype, order):
     ws = (order == "weight_stationary"
           and K.ws_panel_bytes(k, a.dtype) <= K.cuda_build.MAX_SMEM_BYTES)
     assert K.LAUNCHES == {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}
+    body = "wgmma" if dtype == "bfloat16" else "simt"
+    assert K.body(a, b) == body and K.BODIES[body] == 1
     assert_kernel_close(got, K.masa_gemm_plain(a, b), dtype)
 
 
@@ -256,7 +258,43 @@ def test_masa_weight_stationary_takes_any_k(card, m, k, n, dtype):
     torch.cuda.synchronize()
     ws = K.ws_panel_bytes(k, a.dtype) <= K.cuda_build.MAX_SMEM_BYTES
     assert K.LAUNCHES == {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}
+    assert K.BODIES == {"wgmma": 0, "simt": 1}      # K % 8 != 0
     assert_kernel_close(got, K.masa_gemm_plain(a, b), dtype)
+
+
+#: wgmma-body shapes (M, K, N) with ragged edges: one 64 x 256 x 64 tile;
+#: M and N no multiples of the tiles (128 x 256, 128-column panels) and K
+#: a multiple of 8 but not of 64; a K step of 8 past the last full stage;
+#: and K 600, the deepest multiple of 8 whose weight-stationary budget
+#: (ws_panel_bytes) fits in bf16.
+MASA_WGMMA_RAGGED = ((64, 64, 256), (192, 200, 384), (300, 136, 520),
+                     (128, 72, 8), (136, 600, 136))
+
+
+@pytest.mark.parametrize("order", ["output_stationary", "weight_stationary"])
+@pytest.mark.parametrize("m,k,n", MASA_WGMMA_RAGGED)
+def test_masa_wgmma_ragged_edges(card, m, k, n, order):
+    from repro_torch.kernels.masa_gemm import kernel as K
+
+    a, b = card_tensors(tc.masa_inputs(m, k, n, seed=3), torch.bfloat16,
+                        card)
+    K.reset_launches()
+    got = K.masa_gemm_kernel(a, b, bm=4, bn=8, bk=8, order=order)
+    torch.cuda.synchronize()
+    assert K.BODIES == {"wgmma": 1, "simt": 0}
+    assert_kernel_close(got, K.masa_gemm_plain(a, b), "bfloat16")
+
+
+def test_masa_fp32_takes_the_simt_body(card):
+    from repro_torch.kernels.masa_gemm import kernel as K
+
+    a, b = card_tensors(tc.masa_inputs(192, 200, 384, seed=3), torch.float32,
+                        card)
+    K.reset_launches()
+    got = K.masa_gemm_kernel(a, b, bm=64, bn=128, bk=8)
+    torch.cuda.synchronize()
+    assert K.BODIES == {"wgmma": 0, "simt": 1}
+    assert_kernel_close(got, K.masa_gemm_plain(a, b), "float32")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -275,7 +313,35 @@ def test_moe_kernel_equals_plain(card, E, C, D, F, bt, bf, dtype):
     got = grouped_matmul(x, w, eids, bt=bt, bf=bf)
     torch.cuda.synchronize()
     assert K.LAUNCHES["moe_gemm"] == 1
+    body = "wgmma" if dtype == "bfloat16" and bt % 64 == 0 else "simt"
+    assert K.body(x, w, bt) == body and K.BODIES[body] == 1
     assert_kernel_close(got, K.grouped_matmul_plain(x, w, eids, bt=bt), dtype)
+
+
+#: wgmma-body MoE shapes (E, C, D, F, bt) with ragged edges: bt 64 (one
+#: consumer warpgroup, 64-row tiles) with D and F no multiples of the
+#: stage (64) or the column tile (256); bt 128 likewise.
+MOE_WGMMA_RAGGED = ((4, 128, 200, 264, 64), (3, 256, 136, 384, 128),
+                    (5, 128, 64, 256, 128))
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("E,C,D,F,bt", MOE_WGMMA_RAGGED)
+def test_moe_wgmma_ragged_edges(card, E, C, D, F, bt, flip):
+    from repro_torch.kernels.moe_gemm import capacity_block_eids
+    from repro_torch.kernels.moe_gemm import kernel as K
+
+    x, w = card_tensors(tc.moe_inputs(E, C, D, F, seed=2), torch.bfloat16,
+                        card)
+    eids = capacity_block_eids(E, C, bt, device=card)
+    if flip:
+        eids = eids.flip(0).contiguous()
+    K.reset_launches()
+    got = K.grouped_matmul_kernel(x, w, eids, bt=bt, bf=8)
+    torch.cuda.synchronize()
+    assert K.BODIES == {"wgmma": 1, "simt": 0}
+    assert_kernel_close(got, K.grouped_matmul_plain(x, w, eids, bt=bt),
+                        "bfloat16")
 
 
 def paged_case(shape, dtype, device, seed=3, lens=None, table=None):

@@ -1,0 +1,152 @@
+"""Which body the masa_gemm and moe_gemm kernels take, and the tile raster
+of their wgmma body, on the CPU.
+
+Each wrapper picks ``wgmma`` (csrc/hopper_gemm.cuh: TMA-fed tiles, bf16) or
+``simt`` (fp32 FMAs on the CUDA cores) by shape, before the launch, in one
+predicate (``kernel.body``); nothing here launches, since a CPU tensor runs
+the plain version. The shapes are ``torch_cases``' sweeps, the card tests'
+odd token blocks and the jamba-v0.1-52b timing shapes. ``hopper_gemm.raster``
+mirrors the header's launch order; the card holds the kernels themselves
+(``tests/test_torch_cuda.py``).
+"""
+import pytest
+import torch
+
+import torch_cases as tc
+from repro_torch import cuda_build
+from repro_torch.kernels import hopper_gemm
+from repro_torch.kernels.masa_gemm import kernel as MK
+from repro_torch.kernels.masa_gemm import ops as masa_ops
+from repro_torch.kernels.moe_gemm import capacity_block_eids
+from repro_torch.kernels.moe_gemm import kernel as EK
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def empty(shape, dtype):
+    """An input of ``shape`` on one element of storage: a body is chosen by
+    dtype, shape and base address alone (jamba's W is 3.8 GB in fp32)."""
+    return torch.empty(1, dtype=dtype).expand(shape)
+
+
+MASA_CASES = ([(m, k, n, d) for m, k, n in tc.MASA_SHAPES for d in DTYPES]
+              + list(tc.MASA_WS_ODD_K)
+              + [(s["M"], s["K"], s["N"], d) for d in DTYPES
+                 for s in (tc.MASA_JAMBA, tc.MASA_WS_JAMBA)])
+
+
+@pytest.mark.parametrize("m,k,n,dtype", MASA_CASES)
+def test_masa_body_by_shape(m, k, n, dtype):
+    """bf16 with K and N multiples of 8 takes wgmma (every sweep shape and
+    the jamba shapes); fp32 and K 500 / 700 in bf16 take simt."""
+    a, b = empty((m, k), DTYPES[dtype]), empty((k, n), DTYPES[dtype])
+    want = "wgmma" if dtype == "bfloat16" and k % 8 == 0 and n % 8 == 0 \
+        else "simt"
+    assert MK.body(a, b) == want
+    assert (k, dtype) not in ((500, "bfloat16"), (700, "bfloat16")) \
+        or want == "simt"
+
+
+MOE_CASES = ([(E, C, D, F, bt, d) for E, C, D, F, bt, _ in tc.MOE_SHAPES
+              for d in DTYPES]
+             + [(4, 24, 40, 128, 24, d) for d in DTYPES]
+             + [(3, 12, 16, 128, 3, d) for d in DTYPES]
+             + [(tc.MOE_JAMBA["E"], tc.MOE_JAMBA["C"], tc.MOE_JAMBA["D"],
+                 tc.MOE_JAMBA["F"], tc.MOE_JAMBA["bt"], d) for d in DTYPES])
+
+
+@pytest.mark.parametrize("E,C,D,F,bt,dtype", MOE_CASES)
+def test_moe_body_by_shape(E, C, D, F, bt, dtype):
+    """bf16 with D and F multiples of 8 and bt % 64 == 0 takes wgmma (the
+    sweep's bt 128 and 64, jamba's 128); fp32 and the card test's bt 24 and
+    3 take simt."""
+    x, w = empty((E * C, D), DTYPES[dtype]), empty((E, D, F), DTYPES[dtype])
+    want = ("wgmma" if dtype == "bfloat16" and D % 8 == 0 and F % 8 == 0
+            and bt % 64 == 0 else "simt")
+    assert EK.body(x, w, bt) == want
+    assert bt not in (24, 3) or want == "simt"
+
+
+def test_bodies_need_rows_of_whole_16_byte_units_and_aligned_bases():
+    bf = torch.bfloat16
+    a, b = empty((128, 256), bf), empty((256, 128), bf)
+    assert MK.body(a, b) == "wgmma"
+    assert MK.body(empty((128, 252), bf), empty((252, 128), bf)) == "simt"
+    assert MK.body(a, empty((256, 124), bf)) == "simt"
+    shifted = torch.empty(128 * 256 + 1, dtype=bf)[1:].view(128, 256)
+    assert shifted.data_ptr() % 16 and MK.body(shifted, b) == "simt"
+    assert MK.body(a, b.float()) == "simt"
+    x, w = empty((256, 64), bf), empty((2, 64, 128), bf)
+    assert EK.body(x, w, 128) == EK.body(x, w, 64) == "wgmma"
+    assert EK.body(x, w, 32) == "simt"
+    assert EK.body(empty((256, 60), bf), empty((2, 60, 128), bf), 128) == \
+        "simt"
+    assert EK.body(x, empty((2, 64, 132), bf), 128) == "simt"
+    assert not hopper_gemm.tma_ready(shifted) and hopper_gemm.tma_ready(a)
+
+
+def test_cpu_runs_count_no_body():
+    """A CPU tensor runs the plain version: no launch, no body counted."""
+    a, b = (torch.ones((128, 128), dtype=torch.bfloat16) for _ in range(2))
+    MK.reset_launches()
+    masa_ops.masa_gemm(a, b)
+    assert MK.BODIES == {"wgmma": 0, "simt": 0}
+    x, w = torch.ones((128, 64), dtype=torch.bfloat16), torch.ones(
+        (1, 64, 128), dtype=torch.bfloat16)
+    EK.reset_launches()
+    EK.grouped_matmul_kernel(x, w, torch.zeros(1, dtype=torch.int32))
+    assert EK.BODIES == {"wgmma": 0, "simt": 0}
+    assert tuple(MK.BODIES) == tuple(EK.BODIES) == hopper_gemm.BODIES
+
+
+RASTERS = [(1, 1, 12), (5, 3, 12), (13, 7, 4), (48, 56, EK.GROUP_M),
+           (16, 56, MK.GROUP_M), (96, 5, EK.GROUP_M), (7, 9, 1)]
+
+
+@pytest.mark.parametrize("mt,nt,group_m", RASTERS)
+def test_raster_covers_every_tile_once(mt, nt, group_m):
+    tiles = [hopper_gemm.raster(t, mt, nt, group_m) for t in range(mt * nt)]
+    assert sorted(tiles) == [(m, n) for m in range(mt) for n in range(nt)]
+    # group by group, M fastest within one column tile
+    assert tiles == [(m, n) for g in range(0, mt, group_m) for n in range(nt)
+                     for m in range(g, min(g + group_m, mt))]
+
+
+@pytest.mark.parametrize("E,C,bt", [(16, 384, 128), (16, 384, 64),
+                                    (8, 256, 128), (4, 256, 64)])
+def test_raster_puts_the_blocks_of_one_w_tile_side_by_side(E, C, bt):
+    """In the capacity layout the token blocks that share one [D, 256] W
+    tile (one expert, one column tile) launch consecutively, so they read
+    it from L2 once; at jamba's shape each W tile is read by one run."""
+    bm = 128 if bt % 128 == 0 else 64
+    eids = capacity_block_eids(E, C, bt, device="cpu").tolist()
+    mt, nt = E * C // bm, 56
+    order = [hopper_gemm.raster(t, mt, nt, EK.GROUP_M)
+             for t in range(mt * nt)]
+    runs = {}
+    for t, (m, n) in enumerate(order):
+        key = (eids[m * bm // bt], n)
+        runs.setdefault(key, []).append(t)
+    for key, ts in runs.items():
+        assert ts == list(range(ts[0], ts[0] + len(ts))), key
+        assert len(ts) == C // bm
+
+
+@pytest.mark.parametrize("k,dtype", [(256, torch.bfloat16),
+                                     (600, torch.bfloat16),
+                                     (605, torch.bfloat16),
+                                     (606, torch.bfloat16),
+                                     (302, torch.float32),
+                                     (303, torch.float32)])
+def test_ws_panel_bytes_alone_decides_the_fallback(k, dtype, monkeypatch):
+    """ops consults ws_panel_bytes and nothing else: the same K falls back
+    or not as the budget says, whichever body would run."""
+    seen = []
+    monkeypatch.setattr(MK, "run", lambda a, b, order: seen.append(order))
+    a, b = empty((128, k), dtype), empty((k, 128), dtype)
+    masa_ops.masa_gemm(a, b, order="weight_stationary")
+    fits = MK.ws_panel_bytes(k, dtype) <= cuda_build.MAX_SMEM_BYTES
+    assert seen == ["weight_stationary" if fits else "output_stationary"]
+    monkeypatch.setattr(MK, "ws_panel_bytes", lambda k, dtype: 0)
+    masa_ops.masa_gemm(a, b, order="weight_stationary")
+    assert seen[-1] == "weight_stationary"
