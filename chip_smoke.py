@@ -67,13 +67,15 @@ on any mismatch:
                 their plain versions on the card, in float32 (rtol = atol =
                 2e-4) and bfloat16 (2e-2), at tests/test_kernels.py's and
                 tests/test_flash_attention.py's sweep shapes (flash at both
-                causal values and hd 96 too); paged at seq_lens 0, 1, a
-                partial page and full with out-of-range table entries
-                through ops; GQA through ops.flash_attention. Each wrapper
-                raises on a non-contiguous input, a wrong dtype or a refused
-                shape, before any launch. Every masa and moe case ran the
-                body its wrapper picks by shape (``body()``: wgmma for bf16
-                with rows of whole 16-byte units, and moe's bt % 64 == 0;
+                causal values, and at hd 96 and S 100 too); paged at
+                seq_lens 0, 1, a partial page and full with out-of-range
+                table entries through ops; GQA through ops.flash_attention
+                (one launch, on the unexpanded kv heads [B * Hkv, S, hd]).
+                Each wrapper raises on a non-contiguous input, a wrong dtype
+                or a refused shape, before any launch. Every masa, moe and
+                flash case ran the body its wrapper picks by shape
+                (``body()``: wgmma for bf16 with rows of whole 16-byte
+                units, moe's bt % 64 == 0 and flash's hd 64, 96 or 128;
                 simt otherwise), counted in ``BODIES``.
 16. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
@@ -88,9 +90,12 @@ on any mismatch:
                 attention, torch.bmm, torch.matmul; none for paged), beside
                 the bound max(FLOPs / peak, bytes / 3.35 TB/s). masa_gemm's
                 weight-stationary order falls back there and is also timed
-                at K = 256. The masa (both orders) and moe rows fail unless
-                bfloat16 ran the wgmma body and float32 the simt body; each
-                prints its body and TFLOP/s.
+                at K = 256. The flash, masa (both orders) and moe rows fail
+                unless bfloat16 ran the wgmma body and float32 the simt
+                body; each prints its body and TFLOP/s. Flash is also timed
+                through ops.flash_attention on the 8 unexpanded kv heads
+                (one launch, held to the kernel on the expanded heads),
+                beside SDPA with enable_gqa.
 
 Each phase prints its seconds. The last lines are nvidia-smi's name and
 power limit, the per-kernel JSON record (all seven kernels), and ``{"ok":
@@ -134,6 +139,9 @@ PEAK_FP32_FLOPS = 67e12
 SSD_LONG = (1, 2048, 48, 64, 128, 64)
 #: SSD-scan launches of the serve path: one per layer per admitted request.
 SERVE_SSD_LAUNCHES = 4 * 48
+#: Cycles a second that the timing's sleep kernel counts: the H100's
+#: highest SM clock (1980 MHz) rounded up.
+SLEEP_CYCLES_PER_S = 2e9
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989.4e12
 #: kernel_bench.run()'s oracles and launches: one call of each kernel as the
@@ -361,10 +369,21 @@ def phase_plain():
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean CUDA-event time of ``fn`` over ``reps`` calls, after warm-up."""
+    """Mean CUDA-event time of ``fn`` over ``reps`` calls, after warm-up.
+    A sleep kernel holds the stream while the host queues the calls, so a
+    launch shorter than its wrapper's host time, or a plain version's loop
+    of small ops, is timed on the card and not at the host's rate (a call
+    that waits for the card, as a copy to the host does, is still timed
+    as the host feeds it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # at most 2 GHz, so this sleeps at least 1.5x the host's time to queue
+    torch.cuda._sleep(int(min(1.5 * reps * host_s, 0.5) * SLEEP_CYCLES_PER_S))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -779,6 +798,23 @@ def refuses(name: str, exc, fn) -> None:
     fail(f"kernels: {name} did not raise {exc.__name__}")
 
 
+def launch_shapes(mod, fn):
+    """Run ``fn`` with ``mod._launch`` recording the shapes of its
+    tensor arguments at every launch: (``fn()``, [shapes])."""
+    seen, launch = [], mod._launch
+
+    def spy(*args):
+        seen.append(tuple(tuple(a.shape) for a in args
+                          if isinstance(a, torch.Tensor)))
+        return launch(*args)
+
+    mod._launch = spy
+    try:
+        return fn(), seen
+    finally:
+        mod._launch = launch
+
+
 def phase_kernels():
     import torch_cases as tc
     from repro_torch import cuda_build, kernels
@@ -792,7 +828,7 @@ def phase_kernels():
 
     err = {k: {} for k in ("masa_gemm", "moe_gemm", "paged_attention",
                            "flash_attention")}
-    bodies = {"masa_gemm": {}, "moe_gemm": {}}
+    bodies = {"masa_gemm": {}, "moe_gemm": {}, "flash_attention": {}}
     n = 0
 
     def record(kernel, dname, e):
@@ -872,16 +908,21 @@ def phase_kernels():
             "paged_attention lengths 0/1/21/64, clamped table",
             paged_attention(*args),
             PK.paged_attention_plain(*args[:3], clamped, args[4]), dname))
-        for bh, s, hd, bq, bk in tc.FLASH_SHAPES + ((2, 128, 96, 128, 128),):
+        for bh, s, hd, bq, bk in tc.FLASH_SHAPES + ((2, 128, 96, 128, 128),
+                                                    (1, 100, 64, 100, 50)):
             t = card_inputs(tc.flash_inputs(bh, s, hd), dtype)
             for causal in (True, False):
+                case = f"flash_attention {(bh, s, hd)} causal={causal}"
+                FK.reset_launches()
+                got = FK.flash_attention_kernel(*t, causal=causal, bq=bq,
+                                                bk=bk)
+                ran("flash_attention", FK, FK.body(*t), f"{case} {dname}")
                 record("flash_attention", dname, kernel_err(
-                    f"flash_attention {(bh, s, hd)} causal={causal}",
-                    FK.flash_attention_kernel(*t, causal=causal, bq=bq,
-                                              bk=bk),
+                    case, got,
                     FK.flash_attention_plain(*t, causal=causal, bk=bk),
                     dname))
-        # GQA through ops (8 query heads on 2 kv heads of 128)
+        # GQA through ops (8 query heads on 2 kv heads of 128): one launch,
+        # on the unexpanded kv heads
         rng = np.random.default_rng(11)
         q, k, v = card_inputs([rng.standard_normal(sh).astype(np.float32)
                                for sh in ((2, 256, 8, 128), (2, 256, 2, 128),
@@ -889,8 +930,15 @@ def phase_kernels():
         flat = [t.repeat_interleave(8 // t.shape[2], dim=2).transpose(1, 2)
                 .reshape(16, 256, 128) for t in (q, k, v)]
         want = FK.flash_attention_plain(*flat, causal=True)
+        FK.reset_launches()
+        got, shapes = launch_shapes(FK, lambda: flash_attention(q, k, v))
+        if shapes != [((16, 256, 128), (4, 256, 128), (4, 256, 128))]:
+            fail(f"kernels: flash_attention GQA through ops launched on "
+                 f"{shapes}, expected one launch on kv [4, 256, 128]")
+        ran("flash_attention", FK, FK.body(q, k, v),
+            f"GQA through ops {dname}")
         record("flash_attention", dname, kernel_err(
-            "flash_attention GQA through ops", flash_attention(q, k, v),
+            "flash_attention GQA through ops", got,
             want.reshape(2, 8, 256, 128).transpose(1, 2), dname))
     torch.cuda.synchronize()
 
@@ -1075,6 +1123,8 @@ def phase_kernel_time(smi: str):
     import torch.nn.functional as Fn
     from repro_torch import cuda_build
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention as flash_ops)
     from repro_torch.kernels.masa_gemm import kernel as MK, ops as masa_ops
     from repro_torch.kernels.moe_gemm import capacity_block_eids
     from repro_torch.kernels.moe_gemm import kernel as EK
@@ -1101,15 +1151,35 @@ def phase_kernel_time(smi: str):
         ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
         qf, kf, vf = (t.reshape(B * H, S, hd) for t in (q, ke, ve))
         pairs = B * H * S * (S + 1) // 2
+        FK.reset_launches()
         row = timing_row(
             "flash_attention", lambda: FK.flash_attention_kernel(qf, kf, vf),
             lambda: FK.flash_attention_plain(qf, kf, vf),
             lambda: Fn.scaled_dot_product_attention(q, ke, ve,
                                                     is_causal=True),
             4 * hd * pairs, es * 4 * B * H * S * hd, dname, reps=10)
+        with_body(row, FK, "flash_attention", dname, 4 * hd * pairs)
         row["library_gqa_ms"] = time_ms(
             lambda: Fn.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                     enable_gqa=True), 10, 1)
+        # ops on the 8 unexpanded kv heads, in the model's [B, S, H, hd]
+        # layout (views of the same storage: ops copies nothing)
+        gqa = lambda: flash_ops(*(t.transpose(1, 2) for t in (q, k, v)))
+        FK.reset_launches()
+        got, shapes = launch_shapes(FK, gqa)
+        if shapes != [((B * H, S, hd), (B * Hkv, S, hd), (B * Hkv, S, hd))]:
+            fail(f"kernel_time: flash_attention through ops launched on "
+                 f"{shapes}, expected one launch on the {B * Hkv} kv heads")
+        row["ops_gqa_max_abs_err"] = kernel_err(
+            "flash_attention through ops (8 kv heads)",
+            got.transpose(1, 2).reshape(B * H, S, hd),
+            FK.flash_attention_kernel(qf, kf, vf), dname)
+        row["ops_gqa_ms"] = time_ms(gqa, 10, 1)
+        body_ran(FK, "flash_attention through ops", dname)
+        log(f"[timing] flash_attention through ops on {Hkv} kv heads "
+            f"{dname}: {row['ops_gqa_ms']:.4f} ms, "
+            f"{4 * hd * pairs / (row['ops_gqa_ms'] * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s; SDPA enable_gqa {row['library_gqa_ms']:.4f} ms")
         out["flash_attention"][dname] = row
         del q, k, v, ke, ve, qf, kf, vf
         # ---- paged: one decode step at batch 32, 2048 tokens, private pages
@@ -1197,13 +1267,19 @@ def phase_kernel_time(smi: str):
 
 
 #: The accelerator layer's kernels: (name, source, the TPU kernel it
-#: replaces, the jamba shape timed and, for the GEMMs, their bodies).
+#: replaces, the jamba shape timed and, for flash and the GEMMs, their
+#: bodies).
 LAYER_KERNELS = (
     ("flash_attention",
      "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention/kernel.py:60",
      "B=1 S=2048 H=32 Hkv=8 hd=128 causal, kernel on the GQA-expanded "
-     "[32, 2048, 128] (jamba-v0.1-52b attention prefill)"),
+     "[32, 2048, 128] (jamba-v0.1-52b attention prefill; ops_gqa_ms: "
+     "through ops on the 8 kv heads, indexed in the kernel); bf16 on the "
+     "wgmma body (128 query rows a block in two consumer warpgroups, K/V "
+     "tiles of 128 through a 2-stage TMA ring, S = Q K^T and O += P V on "
+     "wgmma, P from registers, the online softmax on the accumulator "
+     "fragment), fp32 on the simt body"),
     ("paged_attention",
      "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention/kernel.py:67",
@@ -1229,8 +1305,8 @@ LAYER_KERNELS = (
 def layer_records(sweep, bench, ktime) -> list[dict]:
     """The record line's entries of the four accelerator-layer kernels:
     launches from main path four (kernel_bench.run), times at the jamba
-    shapes in bfloat16 (float32 beside them), and the GEMMs' bodies by
-    sweep case."""
+    shapes in bfloat16 (float32 beside them), and the bodies of the GEMMs
+    and flash by sweep case."""
     sweep_err, bodies = sweep
     out = []
     for name, source, replaces, shape in LAYER_KERNELS:

@@ -17,7 +17,8 @@ the model's layout), ``ref.py`` (the dense or brute-force oracle) and
   paged_attention -- decode attention over a paged KV cache through a
                      block table, online softmax over the pages
   flash_attention -- fused attention forward; the S x S scores never reach
-                     device memory
+                     device memory, and GQA's kv head is indexed, not
+                     expanded
 
 :func:`build` compiles the five libraries together and :func:`load` opens
 them; :func:`launches` and :func:`reset_launches` read and clear every

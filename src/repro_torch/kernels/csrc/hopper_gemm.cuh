@@ -1,9 +1,11 @@
-// Hopper building blocks of the bf16 GEMM bodies of masa_gemm.cu and
-// moe_gemm.cu: TMA loads into a ring of shared-memory stages guarded by
-// mbarriers, wgmma on those stages with fp32 accumulators in registers,
-// one producer warpgroup and one or two consumer warpgroups (warp
-// specialisation with setmaxnreg), the masked epilogue, the tile raster,
-// and the host's tensor maps.
+// Hopper building blocks of the bf16 wgmma bodies of masa_gemm.cu,
+// moe_gemm.cu and flash_attention.cu: TMA loads into a ring of
+// shared-memory stages guarded by mbarriers, wgmma on those stages with
+// fp32 accumulators in registers (B MN-major or K-major, A from shared
+// memory or, as bf16, from an accumulator in registers: a_fragment), one
+// producer warpgroup and one or two consumer warpgroups (warp
+// specialisation with setmaxnreg), the masked epilogue, the GEMMs' ring
+// kernel and tile raster, and the host's tensor maps.
 //
 // Layouts. Every tile in shared memory is in TMA's 128-byte swizzle, in
 // boxes of 64 bf16 along the contiguous dimension (128 bytes, the widest
@@ -17,7 +19,12 @@
 //                        boxes of [64 k rows][64 n], 8192 bytes apart
 //                        (LBO: the next 64 columns), 8-row groups 1024
 //                        bytes apart (SBO); slice kk starts kk * 2048 bytes
-//                        in. wgmma reads it transposed (tnspB = 1).
+//                        in. wgmma reads it transposed (tnspB = 1). desc_b
+//                        takes boxes of another depth too (flash's V: 128
+//                        keys, 16384 bytes apart).
+//   B [BN][64 k]         K-major (B stored [N, K] with K contiguous, as
+//                        flash's K for S = Q K^T): A's layout and desc_a,
+//                        read with tnspB = 0.
 // Ragged edges: TMA fills what lies outside the tensor with zeros, so a
 // partial K step adds nothing, and the epilogue masks rows >= M and
 // columns >= N.
@@ -130,13 +137,15 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
          (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
 }
-// A: K-major rows of 128 bytes (LBO unused in this layout).
+// A, or a K-major B (stored [N][K]): rows of 128 bytes (LBO unused in this
+// layout).
 __device__ __forceinline__ uint64_t desc_a(uint32_t addr) {
   return smem_desc(addr, 16, 1024);
 }
-// B: MN-major boxes of 64 columns, kBoxBytes apart.
-__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
-  return smem_desc(addr, kBoxBytes, 1024);
+// B: MN-major boxes of 64 columns, box_bytes apart.
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr,
+                                          uint32_t box_bytes = kBoxBytes) {
+  return smem_desc(addr, box_bytes, 1024);
 }
 
 // d += A[64 x 16] (K-major, desc_a) @ B[16 x 256] (MN-major, desc_b), bf16
@@ -174,10 +183,14 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// d += A[64 x 16] (K-major, desc_a) @ B[16 x 128] (MN-major, desc_b), bf16
-// operands from shared memory, fp32 accumulators: 64 a thread.
+// d += A[64 x 16] (K-major, desc_a) @ B[16 x 128], bf16 operands from
+// shared memory, fp32 accumulators: 64 a thread. B is MN-major (desc_b,
+// TNSP_B 1) or K-major, stored [128][16] (desc_a, TNSP_B 0). scale_d 0
+// overwrites d instead of adding to it.
+template <int TNSP_B = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b) {
+                                                 uint64_t desc_b,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -185,7 +198,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -194,7 +207,77 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
+}
+
+// Pin wgmma registers in place: the compiler may move no read or write of
+// them across this point (put after wgmma_wait_all and before a wgmma_fence,
+// between which the registers belong to the asynchronous unit).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A[64 x 16] @ B[16 x 128]: A bf16 from registers (the fragment of
+// a_fragment), B MN-major from shared memory (desc_b; tnspB = 1),
+// fp32 accumulators: 64 a thread.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A[64 x 16] @ B[16 x 64]: A bf16 from registers (the fragment of
+// a_fragment), B MN-major from shared memory (desc_b; tnspB = 1),
+// fp32 accumulators: 32 a thread.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The A fragment of a register-A wgmma for the 16-deep slice kk of a
+// product whose A is an fp32 accumulator d of m64nNk16 (N >= 16 kk + 16):
+// columns 16 kk .. 16 kk + 15 of d, rounded to bf16. The two layouts agree
+// thread for thread: register r holds (row g + 8 (r % 2), columns 2 (t %
+// 4) + 8 (r / 2) and the next) of the slice, which d keeps at
+// d[8 kk + 2 r] and d[8 kk + 2 r + 1].
+template <int N>
+__device__ __forceinline__ void a_fragment(const float (&d)[N], int kk,
+                                           uint32_t (&a)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    __nv_bfloat162 p = __floats2bfloat162_rn(d[8 * kk + 2 * r],
+                                             d[8 * kk + 2 * r + 1]);
+    a[r] = *reinterpret_cast<uint32_t*>(&p);
+  }
 }
 
 // The epilogue's staging buffer: each consumer warp owns 16 rows x 32

@@ -1,44 +1,81 @@
 // Fused attention forward (flash schedule) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel flash_attention_kernel (src/repro/kernels/
-// flash_attention/kernel.py, body _body): q, k, v [BH, S, hd], both f32 or
-// both bf16 -> out [BH, S, hd] in q's type, with scores q . k * scale
-// (scale = hd ** -0.5, passed by the wrapper), an optional causal mask at
-// -1e30 per element, and the fp32 online softmax (m, l, acc) over key
-// tiles; out = acc / max(l, 1e-30). The S x S score matrix never reaches
-// device memory.
+// flash_attention/kernel.py:60, pallas_call :69, body _body :24): q
+// [BH, S, hd], k and v [BH / group, S, hd], all f32 or all bf16 -> out
+// [BH, S, hd] in q's type, with scores q . k * scale (scale = hd ** -0.5,
+// passed by the wrapper), an optional causal mask at -1e30 per element, and
+// the fp32 online softmax (m, l, acc) over key tiles; out = acc / max(l,
+// 1e-30). The S x S score matrix never reaches device memory. GQA is
+// indexed, not expanded: q's row bh (b * H + h) reads k/v row bh / group
+// (b * Hkv + h / group, group = H / Hkv). One block per (query tile,
+// batch*head) walks the key tiles in order, so the TPU kernel's sequential
+// key axis becomes that loop and nothing carries between blocks; causal key
+// tiles wholly above the diagonal are skipped (their terms are exp(-1e30 -
+// m) = 0), and the query tiles with the most key tiles launch first. Two
+// bodies, chosen by the wrapper (kernel.py's body()) before the launch and
+// counted there:
 //
-// One block per (query tile of kBQ rows, batch*head) walks the key tiles
-// of kBK rows in order. The TPU kernel's sequential key axis becomes that
-// loop; nothing carries between blocks. Per key tile:
-//   1. K is staged, transposed, in shared memory;
-//   2. each thread forms a 4 x 4 patch of the scores (q from shared memory,
-//      transposed too), masks it and stores it, transposed, in shared
-//      memory;
-//   3. V replaces K in shared memory while four threads per query row take
-//      the row's max and sum of exponentials, and the row's m, l and the
-//      correction exp(m_old - m_new) are updated;
-//   4. each thread rescales its 4 x hd/16 patch of the accumulator, kept in
-//      registers, and adds P @ V.
-// Causal key tiles entirely above the diagonal are skipped (their terms are
-// exp(-1e30 - m) = 0), and the query tiles with the most key tiles are
-// launched first. hd is a template argument: 64, 96 or 128.
+// wgmma body (bf16, hd 64, 96 or 128, 16-byte aligned bases). What bounds
+// it: operations. At jamba's attention shape (S 2048, 32 query heads on 8
+// kv heads of 128, causal) the forward is 34.4 GFLOP against 42 MB of
+// traffic, 35 us at the bf16 tensor-core peak. The design keeps the two
+// products on the tensor cores and the softmax in registers:
+//   - one block per 128 query rows: two consumer warpgroups of 64 rows and
+//     a producer warpgroup whose one thread issues the TMA loads
+//     (setmaxnreg: 40 registers for it, 232 for the consumers);
+//   - Q [128 x hd] is loaded once; K and V tiles of 128 keys come through a
+//     ring of 2 stages each (full/empty mbarriers per stage, K and V apart,
+//     so S = Q K^T starts before V lands). Every tile is 128-byte swizzled
+//     in boxes of 64 columns; hd 96 takes two boxes whose upper 32 columns
+//     TMA fills with zeros, so it runs as hd 128 (a third more work).
+//     Tensor maps are rank 3 ([BH, S, hd]), so a tile at a ragged S reads
+//     zeros, never the next head's rows. 171 KB at hd 128 with the
+//     epilogue's staging, so one block an SM;
+//   - S = Q K^T: wgmma m64n128k16 with both operands in shared memory, K
+//     read K-major (tnspB = 0), fp32 accumulators (64 a thread);
+//   - the online softmax on that fragment: a row lives in 4 lanes of a
+//     warp (two rows a thread), so its max and sum take two __shfl_xor
+//     each; exp2 with log2(e) folded into the scale; masked scores (keys
+//     past S, and above the diagonal in the diagonal tile only) are -1e30,
+//     whose exp2 is exactly 0; l sums the fp32 probabilities per lane and
+//     is reduced once at the end;
+//   - O += P V: wgmma with A from registers, P rounded to bf16 in the A
+//     fragment of each 16-key slice (the accumulator's layout, thread for
+//     thread: hopper::a_fragment), V read MN-major (tnspB = 1); O stays in
+//     registers over every key tile, rescaled by exp2(m_old - m_new);
+//   - the epilogue divides by max(l, 1e-30), rounds to bf16 once and
+//     stores through shared memory in 16-byte pieces (hopper::store_tile).
+// What bounds it now, and what comes next: each product is waited on
+// before the softmax that reads it, so the tensor cores idle while the
+// exponentials run (tests/check_torch_flash_parts.py times the body
+// without its softmax: on an H100 at jamba's shape the products alone take
+// three fifths of the kernel's time). Next: overlap one warpgroup's
+// softmax with the other's products (ping-pong, ordered by named
+// barriers), or a tile's softmax with the next tile's Q K^T inside a
+// warpgroup; then walk tiles persistently, and skip the fully masked half
+// of the diagonal tile for the first warpgroup.
 //
-// What bounds it: operations. At jamba's attention shape (S 2048, 32 heads
-// of 128, causal) the forward is 34 GFLOP against 42 MB of traffic in
-// bf16; the bf16 tensor cores would need 35 us. This first form runs fp32
-// FMAs on the CUDA cores with both operands from shared memory, so it stays
-// far above that; mma/wgmma, TMA and a ring of key tiles are later work.
+// simt body (fp32, and bf16 the wgmma body does not take): fp32 FMAs on the
+// CUDA cores, 64 x 64 tiles. Per key tile, K is staged transposed in shared
+// memory; each thread forms a 4 x 4 patch of scores, masks it and stores it
+// transposed; V replaces K while four threads a query row take the row's
+// max and sum; each thread rescales its 4 x hd/16 patch of the accumulator
+// in registers and adds P @ V. hd is a template argument: 64, 96 or 128.
+#include "../../csrc/hopper_gemm.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+// ------------------------------------------------------------ simt body
 constexpr int kBQ = 64;        // query rows of a block
 constexpr int kBK = 64;        // key rows of a step
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int kPad = kBQ + 4;  // row stride of the transposed tiles
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -74,7 +111,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int S,
-                       int causal, float scale) {
+                       int group, int causal, float scale) {
   constexpr int W = HD / 16;   // accumulator columns a thread owns
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -92,9 +129,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nq = (S + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;   // longest first
   const size_t base = (size_t)blockIdx.y * S * HD;
+  const size_t kv_base = (size_t)(blockIdx.y / group) * S * HD;
   const T* qh = q + base;
-  const T* kh = k + base;
-  const T* vh = v + base;
+  const T* kh = k + kv_base;
+  const T* vh = v + kv_base;
 
   for (int e = tid; e < kBQ * HD; e += kThreads) {
     const int r = e / HD, d = e - r * HD;
@@ -211,7 +249,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int S, int causal, float scale, cudaStream_t stream) {
+           int S, int group, int causal, float scale, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, HD>;
   const size_t smem = (size_t)layout(HD).total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -220,41 +258,280 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   dim3 grid((S + kBQ - 1) / kBQ, bh);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), S, group, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
-             int S, int hd, int causal, float scale, cudaStream_t st) {
+             int S, int hd, int group, int causal, float scale,
+             cudaStream_t st) {
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, out, bh, S, causal, scale, st);
-    case 96: return launch<T, 96>(q, k, v, out, bh, S, causal, scale, st);
-    case 128: return launch<T, 128>(q, k, v, out, bh, S, causal, scale, st);
+    case 64: return launch<T, 64>(q, k, v, out, bh, S, group, causal, scale, st);
+    case 96: return launch<T, 96>(q, k, v, out, bh, S, group, causal, scale, st);
+    case 128: return launch<T, 128>(q, k, v, out, bh, S, group, causal, scale, st);
     default: return -1;
   }
 }
 
-}  // namespace
+// ----------------------------------------------------------- wgmma body
+constexpr int kWBQ = 128;   // query rows of a block (two warpgroups of 64)
+constexpr int kWBK = 128;   // keys of a ring stage
+constexpr int kWStages = 2;
+constexpr int kWConsumers = 2;
+constexpr int kWThreads = (kWConsumers + 1) * hopper::kWarpgroup;
+constexpr int kTileBox = kWBK * 128;   // one [128 rows][64 bf16] box, 16 KB
+constexpr float kLog2e = 1.4426950408889634f;
 
-// 1 if the kernel takes head dim hd, else 0.
-extern "C" int flash_attention_takes_head_dim(int hd) {
-  return hd == 64 || hd == 96 || hd == 128;
+// Shared memory of one block at padded head dim HDP (64 or 128), in bytes
+// from the 1024-aligned base: Q, the K ring, the V ring, the epilogue's
+// staging (hopper::store_tile, 8 consumer warps), then the barriers:
+// full_q, and per stage full_k, empty_k, full_v, empty_v.
+template <int HDP>
+struct FlashSmem {
+  static constexpr int kBoxes = HDP / 64;
+  static constexpr int kTile = kBoxes * kTileBox;   // Q, or one K or V stage
+  static constexpr int kK = kTile;
+  static constexpr int kV = kK + kWStages * kTile;
+  static constexpr int kStaging = kV + kWStages * kTile;
+  static constexpr int kBars =
+      kStaging + 4 * kWConsumers * hopper::kStageWarpBytes;
+  static constexpr int kBytes =
+      hopper::kSmemAlign + kBars + 8 * (1 + 4 * kWStages);
+};
+
+enum StageBar { kFullK = 0, kEmptyK = 1, kFullV = 2, kEmptyV = 3 };
+
+__device__ __forceinline__ uint32_t stage_bar(uint32_t bars, StageBar kind,
+                                              int s) {
+  return bars + 8 + 32 * s + 8 * kind;
 }
 
-// One launch on `stream`: q, k, v [BH, S, hd], all bf16 if bf16 else f32
-// -> out [BH, S, hd] in the same type; scores are q . k * scale. Returns
-// the CUDA error of the launch (0 on success), or -1 for arguments the
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD, int HDP>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   __nv_bfloat16* __restrict__ out, int S, int group,
+                   int causal, float scale_log2) {
+  using namespace hopper;
+  using L = FlashSmem<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      (smem_u32(smem_raw) + kSmemAlign - 1) & ~(uint32_t)(kSmemAlign - 1);
+  const uint32_t q_s = base, k_s = base + L::kK, v_s = base + L::kV;
+  const uint32_t bars = base + L::kBars, full_q = bars;
+  const int wg = threadIdx.x / kWarpgroup, t = threadIdx.x % kWarpgroup;
+  const int nq = (S + kWBQ - 1) / kWBQ;
+  const int qt = nq - 1 - (int)blockIdx.y;   // longest first
+  const int q0 = qt * kWBQ;
+  const int bh = blockIdx.x;
+  const int nk = causal ? qt + 1 : (S + kWBK - 1) / kWBK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(stage_bar(bars, kFullK, s), 1);
+      mbar_init(stage_bar(bars, kEmptyK, s), 4 * kWConsumers);
+      mbar_init(stage_bar(bars, kFullV, s), 1);
+      mbar_init(stage_bar(bars, kEmptyV, s), 4 * kWConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kWConsumers) {   // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t != 0) return;
+    const int kvh = bh / group;
+    mbar_expect_tx(full_q, L::kTile);
+#pragma unroll
+    for (int j = 0; j < L::kBoxes; ++j)
+      tma_load_3d(q_s + j * kTileBox, &map_q, full_q, 64 * j, q0, bh);
+    int s = 0, phase = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      const uint32_t fk = stage_bar(bars, kFullK, s);
+      const uint32_t fv = stage_bar(bars, kFullV, s);
+      mbar_wait(stage_bar(bars, kEmptyK, s), phase ^ 1);
+      mbar_expect_tx(fk, L::kTile);
+#pragma unroll
+      for (int j = 0; j < L::kBoxes; ++j)
+        tma_load_3d(k_s + s * L::kTile + j * kTileBox, &map_k, fk, 64 * j,
+                    kt * kWBK, kvh);
+      mbar_wait(stage_bar(bars, kEmptyV, s), phase ^ 1);
+      mbar_expect_tx(fv, L::kTile);
+#pragma unroll
+      for (int j = 0; j < L::kBoxes; ++j)
+        tma_load_3d(v_s + s * L::kTile + j * kTileBox, &map_v, fv, 64 * j,
+                    kt * kWBK, kvh);
+      if (++s == kWStages) { s = 0; phase ^= 1; }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg ..; thread t holds
+  // rows r0 and r0 + 8 and, in every 8 columns, columns c0 and c0 + 1
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int lane = t % 32;
+  const int r0 = q0 + wg * 64 + (t / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const uint32_t qa = q_s + wg * 64 * 128;   // this warpgroup's rows of Q
+  float o[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(full_q, 0);
+  int s = 0, phase = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    // ---- S = Q K^T (64 x 128 keys), overwriting sc
+    float sc[64];
+    mbar_wait(stage_bar(bars, kFullK, s), phase);
+    const uint32_t kb = k_s + s * L::kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kTileBox + (kk % 4) * 32;
+      wgmma_m64n128k16<0>(sc, desc_a(qa + off), desc_a(kb + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    release(stage_bar(bars, kEmptyK, s), t);
+
+    // ---- the online softmax, in log2 units, on the fragment
+    const int k0 = kt * kWBK;
+    const bool edge = k0 + kWBK > S || (causal && kt == qt);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = sc[i] * scale_log2;
+      if (edge) {
+        const int col = k0 + 8 * (i / 4) + c0 + (i % 2);
+        const int row = r0 + 8 * ((i / 2) % 2);
+        if (col >= S || (causal && col > row)) x = kNegInf;
+      }
+      sc[i] = x;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = ex2(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      sc[i] = ex2(sc[i] - m[(i / 2) % 2]);
+      sum[(i / 2) % 2] += sc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) a_fragment(sc, kk, pa[kk]);
+
+    // ---- O += P V
+    mbar_wait(stage_bar(bars, kFullV, s), phase);
+    const uint32_t vb = v_s + s * L::kTile;
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t dv = desc_b(vb + kk * 16 * 128, kTileBox);
+      if constexpr (HDP == 128)
+        wgmma_m64n128k16_rs(o, pa[kk], dv);
+      else
+        wgmma_m64n64k16_rs(o, pa[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    release(stage_bar(bars, kEmptyV, s), t);
+    if (++s == kWStages) { s = 0; phase ^= 1; }
+  }
+
+  // ---- epilogue: l over the row's 4 lanes, O / max(l, 1e-30), bf16 once
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) o[i] *= inv[(i / 2) % 2];
+  store_tile<HDP>(o,
+                  smem_raw + (base - smem_u32(smem_raw)) + L::kStaging +
+                      (threadIdx.x / 32) * kStageWarpBytes,
+                  out + (size_t)bh * S * HD, S, HD, q0 + wg * 64, 0, t);
+}
+
+template <int HD, int HDP>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int bh, int S, int group, int causal, float scale,
+                 cudaStream_t stream) {
+  using L = FlashSmem<HDP>;
+  CUtensorMap map_q, map_k, map_v;
+  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)S * HD * 2};
+  const cuuint64_t dims_q[3] = {(cuuint64_t)HD, (cuuint64_t)S, (cuuint64_t)bh};
+  const cuuint64_t dims_kv[3] = {(cuuint64_t)HD, (cuuint64_t)S,
+                                 (cuuint64_t)(bh / group)};
+  int err = hopper::make_map(&map_q, q, 3, dims_q, strides, kWBQ);
+  if (!err) err = hopper::make_map(&map_k, k, 3, dims_kv, strides, kWBK);
+  if (!err) err = hopper::make_map(&map_v, v, 3, dims_kv, strides, kWBK);
+  if (err) return err;
+  auto kernel = flash_wgmma_kernel<HD, HDP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(bh, (S + kWBQ - 1) / kWBQ);   // every head's longest tile first
+  kernel<<<grid, kWThreads, L::kBytes, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), S, group,
+      causal, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// Both bodies take head dims 64, 96 and 128 (kernel.py's HEAD_DIMS).
+bool takes_head_dim(int hd) { return hd == 64 || hd == 96 || hd == 128; }
+
+}  // namespace
+
+// One launch on `stream`: q [BH, S, hd], k and v [BH / group, S, hd], all
+// bf16 if bf16 else f32 -> out [BH, S, hd] in the same type; scores are
+// q . k * scale, and q's row bh reads k/v row bh / group. wgmma 1 takes the
+// wgmma body (bf16 only; 16-byte aligned bases), 0 the simt body. Returns
+// the CUDA error of the launch (0 on success), hopper::kNoEncoder or
+// kMapError + the CUresult of a tensor map, or -1 for arguments the
 // kernel does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int bh,
                                       int S, int hd, int causal, float scale,
-                                      int bf16, void* stream) {
-  if (bh < 1 || bh > 65535 || S < 1 || !flash_attention_takes_head_dim(hd))
+                                      int bf16, int wgmma, int group,
+                                      void* stream) {
+  if (bh < 1 || bh > 65535 || S < 1 || group < 1 || bh % group ||
+      !takes_head_dim(hd) || (wgmma && !bf16))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wgmma) {
+    switch (hd) {
+      case 64: return launch_wgmma<64, 64>(q, k, v, out, bh, S, group, causal, scale, st);
+      case 96: return launch_wgmma<96, 128>(q, k, v, out, bh, S, group, causal, scale, st);
+      default: return launch_wgmma<128, 128>(q, k, v, out, bh, S, group, causal, scale, st);
+    }
+  }
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, out, bh, S, hd, causal, scale,
-                                   st);
-  return dispatch<float>(q, k, v, out, bh, S, hd, causal, scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, out, bh, S, hd, group, causal,
+                                   scale, st);
+  return dispatch<float>(q, k, v, out, bh, S, hd, group, causal, scale, st);
 }

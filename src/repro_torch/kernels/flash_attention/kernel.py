@@ -6,16 +6,25 @@ out ``[BH, S, hd]`` in q's dtype, scores ``q . k * hd ** -0.5``, an
 optional causal mask at -1e30, the fp32 online softmax over key blocks and
 ``acc / max(l, 1e-30)``. ``csrc/flash_attention.cu`` runs one block per
 (query tile, batch*head) and walks the key tiles in order (the source's
-header says what bounds it); it takes head dims 64, 96 and 128.
+header says what bounds it); it takes head dims 64, 96 and 128. It has two
+bodies: wgmma with a TMA ring of K/V tiles and the softmax in registers for
+bf16 (``csrc/hopper_gemm.cuh``'s building blocks), and fp32 FMAs on the
+CUDA cores for the rest. The kernel indexes GQA itself: k and v may have
+``BH / g`` rows, and q's row ``bh`` reads their row ``bh // g``.
 
-* :func:`flash_attention_kernel` is the wrapper: on a CUDA tensor it
-  launches the kernel (or raises), on a CPU tensor it runs
-  :func:`flash_attention_plain`. It keeps the reference's checks (``S``
-  a multiple of ``bq`` and ``bk``), raised as ``ValueError``; the kernel's
+* :func:`flash_attention_kernel` is the wrapper: it keeps the reference's
+  signature and checks (q, k, v of one shape; ``S`` a multiple of ``bq``
+  and ``bk``), raised as ``ValueError``, then :func:`run`. The kernel's
   tiles are its own.
+* :func:`run` takes k/v of ``BH / g`` rows (``ops.flash_attention``'s
+  unexpanded kv heads): on a CUDA tensor it launches the kernel (or
+  raises), on a CPU tensor it runs :func:`flash_attention_plain`.
+* :func:`body` picks the body of a launch by shape, before it: ``wgmma``
+  for bf16 with 16-byte aligned bases and hd 64, 96 or 128, else ``simt``.
 * :func:`flash_attention_plain` is the plain PyTorch version, on any
   device: the online softmax over the reference's key blocks of ``bk``.
-* ``LAUNCHES["flash_attention"]`` counts kernel launches.
+* ``LAUNCHES["flash_attention"]`` counts kernel launches; ``BODIES``
+  counts the same launches by body.
 
 The library is built at first use by :mod:`repro_torch.cuda_build`.
 """
@@ -28,21 +37,27 @@ from pathlib import Path
 import torch
 
 from repro_torch import cuda_build
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, hopper_gemm
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: Kernel name -> source.
 SOURCES = {"flash_attention": CSRC / "flash_attention.cu"}
 #: Kernel launches (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"flash_attention": 0}
+#: The same launches by body (set to 0 with :func:`reset_launches`).
+BODIES: dict[str, int] = dict.fromkeys(hopper_gemm.BODIES, 0)
+#: Head dims the kernel takes, in both bodies (the wgmma body runs hd 96 as
+#: 128, TMA filling the upper 32 columns with zeros).
+HEAD_DIMS = (64, 96, 128)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _NEG_INF = -1e30
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BODIES):
+        for k in counts:
+            counts[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,18 +65,30 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load("flash_attention", SOURCES["flash_attention"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = ([vp] * 4 + [ci] * 4
-                                           + [ctypes.c_float, ci, vp])
+                                           + [ctypes.c_float] + [ci] * 3
+                                           + [vp])
     lib.flash_attention_launch.restype = ci
-    lib.flash_attention_takes_head_dim.argtypes = [ci]
-    lib.flash_attention_takes_head_dim.restype = ci
     return lib
 
 
-def _check(q, k, v, bq: int, bk: int) -> None:
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention takes q, k, v [BH, S, hd] of one "
-                         f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+def body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The body a launch on q, k and v takes, by shape: ``wgmma`` for bf16
+    with 16-byte aligned bases (TMA's tensor maps; rows of hd 64, 96 and
+    128 are whole 16-byte units) and hd in :data:`HEAD_DIMS`, else
+    ``simt``."""
+    wgmma = hopper_gemm.tma_ready(q, k, v) and q.shape[-1] in HEAD_DIMS
+    return "wgmma" if wgmma else "simt"
+
+
+def check_gqa(q, k, v, bq: int, bk: int) -> None:
+    """q ``[BH, S, hd]`` and k, v ``[BH / g, S, hd]`` for a whole group
+    ``g``, and the reference's ``S`` multiple of ``bq`` and ``bk``."""
+    if (q.dim() != 3 or k.dim() != 3 or v.shape != k.shape
+            or k.shape[1:] != q.shape[1:] or k.shape[0] < 1
+            or q.shape[0] % k.shape[0]):
+        raise ValueError(f"flash_attention takes q [BH, S, hd] and k, v "
+                         f"[BH / g, S, hd]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     s = q.shape[1]
     if bq < 1 or bk < 1 or s % bq or s % bk:
         raise ValueError(f"flash_attention: S={s} must be a multiple of "
@@ -73,7 +100,19 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bk: int = 128) -> torch.Tensor:
     """q/k/v [BH, S, hd] -> out [BH, S, hd]: the CUDA kernel on a CUDA
     tensor, :func:`flash_attention_plain` on a CPU tensor."""
-    _check(q, k, v, bq, bk)
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention takes q, k, v [BH, S, hd] of one "
+                         f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    check_gqa(q, k, v, bq, bk)
+    return run(q, k, v, causal=causal, bk=bk)
+
+
+def run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, bk: int = 128) -> torch.Tensor:
+    """q [BH, S, hd], k/v [BH / g, S, hd] (checked by the caller) -> out
+    [BH, S, hd], q's row bh attending k/v row bh // g: the CUDA kernel on a
+    CUDA tensor, :func:`flash_attention_plain` on a CPU tensor."""
     if dispatch.runs_plain("flash_attention", q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, bk=bk)
     return _launch(q, k, v, causal)
@@ -87,20 +126,22 @@ def _launch(q, k, v, causal: bool):
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes contiguous tensors")
     bh, s, hd = q.shape
-    lib = _library()
-    if not lib.flash_attention_takes_head_dim(hd):
+    if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dims 64, 96 and "
                          f"128, not {hd}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    which = body(q, k, v)
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
+        err = _library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
             hd, int(causal), hd ** -0.5, int(q.dtype == torch.bfloat16),
+            int(which == "wgmma"), bh // k.shape[0],
             dispatch.stream(q.device))
     dispatch.check("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
+    BODIES[which] += 1
     return out
 
 
@@ -109,8 +150,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           ) -> torch.Tensor:
     """The plain PyTorch version, on q's device: ``_body``'s online softmax
     over key blocks of ``bk``, every batch*head and query at once, in
-    fp32."""
+    fp32. k/v of ``BH / g`` rows are expanded as the reference's ops
+    expands GQA (row ``bh`` of q reads row ``bh // g``)."""
     bh, s, hd = q.shape
+    if k.shape[0] != bh:
+        k, v = (t.repeat_interleave(bh // k.shape[0], dim=0) for t in (k, v))
     f32 = torch.float32
     q32 = q.to(f32)
     m = torch.full((bh, s, 1), _NEG_INF, dtype=f32, device=q.device)

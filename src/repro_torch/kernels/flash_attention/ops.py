@@ -2,16 +2,17 @@
 counterpart of ``repro.kernels.flash_attention.ops``).
 
 Drop-in for the model's attention core (after the QKV projections). GQA is
-expanded as the reference expands it, by repeating each KV head for its
-group of query heads; indexing the KV head inside the kernel instead is a
-later optimisation. The tensor's device picks the CUDA kernel or its plain
-version.
+indexed, not expanded: the kv heads go to the kernel as they are
+(``[B * Hkv, S, hd]``) and q's row ``b * H + h`` reads their row
+``b * Hkv + h // g``, as the reference's BlockSpecs would view one page
+for a group. The tensor's device picks the CUDA kernel or its plain
+version, which expands the kv heads as the reference's ops does.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention import kernel as K
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -20,12 +21,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B,S,H,hd], k/v [B,S,Hkv,hd] -> out [B,S,H,hd]."""
     b, s, h, hd = q.shape
     hkv = k.shape[2]
-    if hkv < 1 or h % hkv or v.shape != k.shape:
+    if (hkv < 1 or h % hkv or v.shape != k.shape
+            or (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd)):
         raise ValueError(f"flash_attention: {h} query heads cannot share "
                          f"k {tuple(k.shape)} and v {tuple(v.shape)}")
-    k = k.repeat_interleave(h // hkv, dim=2)
-    v = v.repeat_interleave(h // hkv, dim=2)
-    qf, kf, vf = (t.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    qf, kf, vf = (t.transpose(1, 2).reshape(-1, s, hd).contiguous()
                   for t in (q, k, v))
-    out = flash_attention_kernel(qf, kf, vf, causal=causal, bq=bq, bk=bk)
+    K.check_gqa(qf, kf, vf, bq, bk)
+    out = K.run(qf, kf, vf, causal=causal, bk=bk)
     return out.reshape(b, h, s, hd).transpose(1, 2)

@@ -1,19 +1,20 @@
-"""The Python side of ``csrc/hopper_gemm.cuh``, the bf16 body that the
-masa_gemm and moe_gemm kernels share (wgmma on tiles that TMA feeds
-through a ring of shared-memory stages).
+"""The Python side of ``csrc/hopper_gemm.cuh``, the Hopper building blocks
+of the bf16 bodies that the masa_gemm and moe_gemm kernels share (wgmma on
+tiles that TMA feeds through a ring of shared-memory stages) and that the
+flash_attention kernel's wgmma body is built from.
 
 Each wrapper picks its body by shape, before the launch, in one predicate
-(``masa_gemm.kernel.body``, ``moe_gemm.kernel.body``) built on
-:func:`tma_ready`; every other input takes the wrapper's simt body. The
-choice is never a fallback on failure: a wgmma launch that fails raises.
-:func:`raster` mirrors the header's tile raster, which the launch order of
-both kernels follows.
+(``masa_gemm.kernel.body``, ``moe_gemm.kernel.body``,
+``flash_attention.kernel.body``) built on :func:`tma_ready`; every other
+input takes the wrapper's simt body. The choice is never a fallback on
+failure: a wgmma launch that fails raises. :func:`raster` mirrors the
+header's tile raster, which the launch order of both GEMMs follows.
 """
 from __future__ import annotations
 
 import torch
 
-#: The bodies a GEMM wrapper counts its launches by.
+#: The bodies a wrapper with a wgmma body counts its launches by.
 BODIES = ("wgmma", "simt")
 
 

@@ -5,7 +5,8 @@ that decides when a library is rebuilt. Each library is named by a hash of
 every file in its own ``csrc/`` directory, the headers they include by a
 quoted path, and the flags, so an edit to ``dram_step.cuh`` rebuilds the
 lane and mix kernels and not the SSD scan, and an edit to
-``kernels/csrc/hopper_gemm.cuh`` rebuilds masa_gemm and moe_gemm.
+``kernels/csrc/hopper_gemm.cuh`` rebuilds masa_gemm, moe_gemm and
+flash_attention.
 The wrappers' shared steps (``kernels.dispatch``: ``runs_plain``,
 ``check``) are held here too.
 """
@@ -56,27 +57,30 @@ def test_header_edit_renames_the_dram_libraries(tmp_path):
 
 
 def test_shared_header_edit_renames_the_gemm_libraries(tmp_path):
-    """hopper_gemm.cuh lies outside masa_gemm's and moe_gemm's csrc/ and is
-    hashed into both names through their quoted includes."""
+    """hopper_gemm.cuh lies outside masa_gemm's, moe_gemm's and
+    flash_attention's csrc/ and is hashed into their names through their
+    quoted includes."""
     copy = tmp_path / "kernels"
     shutil.copytree(Path(kernels.__file__).parent, copy,
                     ignore=shutil.ignore_patterns("__pycache__"))
 
     def names():
         return {n: cuda_build.library_path(n, copy / n / "csrc" / f"{n}.cu")
-                for n in ("masa_gemm", "moe_gemm", "ssd_scan")}
+                for n in ("masa_gemm", "moe_gemm", "flash_attention",
+                          "ssd_scan")}
 
     before = names()
     for n, path in before.items():
         assert path == cuda_build.library_path(n, kernels.SOURCES[n])
     header = (copy / "csrc" / "hopper_gemm.cuh").resolve()
-    for n in ("masa_gemm", "moe_gemm"):
+    for n in ("masa_gemm", "moe_gemm", "flash_attention"):
         assert cuda_build.sources_of(copy / n / "csrc") == [
             (copy / n / "csrc" / f"{n}.cu").resolve(), header]
     header.write_text(header.read_text() + "\n// edited\n")
     after = names()
     assert after["masa_gemm"] != before["masa_gemm"]
     assert after["moe_gemm"] != before["moe_gemm"]
+    assert after["flash_attention"] != before["flash_attention"]
     assert after["ssd_scan"] == before["ssd_scan"]
 
 

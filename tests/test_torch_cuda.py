@@ -397,12 +397,49 @@ def test_flash_kernel_equals_plain(card, bh, s, hd, bq, bk, causal, dtype):
     got = K.flash_attention_kernel(q, k, v, causal=causal, bq=bq, bk=bk)
     torch.cuda.synchronize()
     assert K.LAUNCHES["flash_attention"] == 1
+    body = "wgmma" if dtype == "bfloat16" else "simt"
+    assert K.body(q, k, v) == body and K.BODIES[body] == 1
     assert_kernel_close(got, K.flash_attention_plain(q, k, v, causal=causal,
                                                      bk=bk), dtype)
 
 
+#: wgmma-body shapes (BH, S, hd) with ragged edges: S past one tile of 128
+#: but no multiple of it (keys past S zero-filled by TMA and masked), hd 96
+#: over three query tiles, and one key past a tile.
+FLASH_WGMMA_RAGGED = ((2, 200, 128), (3, 300, 96), (1, 129, 64))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,hd", FLASH_WGMMA_RAGGED)
+def test_flash_wgmma_ragged_edges(card, bh, s, hd, causal):
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    q, k, v = card_tensors(tc.flash_inputs(bh, s, hd, seed=4),
+                           torch.bfloat16, card)
+    K.reset_launches()
+    got = K.flash_attention_kernel(q, k, v, causal=causal, bq=s, bk=s)
+    torch.cuda.synchronize()
+    assert K.BODIES == {"wgmma": 1, "simt": 0}
+    assert_kernel_close(got, K.flash_attention_plain(q, k, v, causal=causal,
+                                                     bk=s), "bfloat16")
+
+
+def spy_launches(monkeypatch, K):
+    """Record the shapes of q, k and v at every kernel launch."""
+    seen, launch = [], K._launch
+
+    def spy(q, k, v, causal):
+        seen.append(tuple(tuple(t.shape) for t in (q, k, v)))
+        return launch(q, k, v, causal)
+
+    monkeypatch.setattr(K, "_launch", spy)
+    return seen
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_gqa_through_ops_equals_plain(card, dtype):
+def test_flash_gqa_through_ops_equals_plain(card, dtype, monkeypatch):
+    """8 query heads on 2 kv heads through ops: one launch, on the
+    unexpanded kv heads ([B * Hkv, S, hd])."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import kernel as K
 
@@ -411,12 +448,44 @@ def test_flash_gqa_through_ops_equals_plain(card, dtype):
     k, v = (rng.standard_normal((2, 256, 2, 128)).astype(np.float32)
             for _ in range(2))
     q, k, v = card_tensors((q, k, v), getattr(torch, dtype), card)
+    seen = spy_launches(monkeypatch, K)
+    K.reset_launches()
     got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == 1
+    assert seen == [((16, 256, 128), (4, 256, 128), (4, 256, 128))]
     ke, ve = (t.repeat_interleave(4, dim=2) for t in (k, v))
     flat = [t.transpose(1, 2).reshape(16, 256, 128) for t in (q, ke, ve)]
     want = K.flash_attention_plain(*flat, causal=True)
     assert_kernel_close(got, want.reshape(2, 8, 256, 128).transpose(1, 2),
                         dtype)
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128])
+@pytest.mark.parametrize("h,hkv", [(32, 8), (9, 3), (48, 1)])
+def test_flash_gqa_wgmma_indexes_the_kv_head(card, h, hkv, hd, monkeypatch):
+    """jamba's, smollm's and granite's head ratios in bf16 through ops: one
+    wgmma launch on [B * Hkv, S, hd], equal to the plain version on the
+    expanded heads."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    rng = np.random.default_rng(h + hkv + hd)
+    q = tc.normal(rng, (2, 256, h, hd))
+    k, v = (tc.normal(rng, (2, 256, hkv, hd)) for _ in range(2))
+    q, k, v = card_tensors((q, k, v), torch.bfloat16, card)
+    seen = spy_launches(monkeypatch, K)
+    K.reset_launches()
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert K.BODIES == {"wgmma": 1, "simt": 0}
+    assert seen == [((2 * h, 256, hd), (2 * hkv, 256, hd),
+                     (2 * hkv, 256, hd))]
+    ke, ve = (t.repeat_interleave(h // hkv, dim=2) for t in (k, v))
+    flat = [t.transpose(1, 2).reshape(2 * h, 256, hd) for t in (q, ke, ve)]
+    want = K.flash_attention_plain(*flat, causal=True)
+    assert_kernel_close(got, want.reshape(2, h, 256, hd).transpose(1, 2),
+                        "bfloat16")
 
 
 def test_accelerator_kernels_refuse_without_falling_back(card):

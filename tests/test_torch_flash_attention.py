@@ -114,3 +114,80 @@ def test_checks():
     with pytest.raises(ValueError, match="runs on cuda"):
         K.flash_attention_kernel(*(torch.zeros((1, 128, 64), device="meta"),) * 3)
     assert K.LAUNCHES == {"flash_attention": 0}
+
+
+@pytest.mark.parametrize("hd", [48, 64, 96, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_body_by_dtype_and_head_dim(dtype, hd):
+    """bf16 at hd 64, 96 and 128 takes the wgmma body; fp32, and any hd the
+    kernel does not take, the simt body (whose launch then refuses hd 48)."""
+    t = torch.empty((2, 128, hd), dtype=DTYPES[dtype][1])
+    want = "wgmma" if dtype == "bfloat16" and hd in K.HEAD_DIMS else "simt"
+    assert K.body(t, t, t) == want
+    kv = torch.empty((1, 128, hd), dtype=DTYPES[dtype][1])
+    assert K.body(t, kv, kv) == want                  # GQA's kv rows
+
+
+def test_body_needs_aligned_bases_and_one_dtype():
+    bf = torch.bfloat16
+    q = torch.empty((4, 128, 64), dtype=bf)
+    assert K.body(q, q, q) == "wgmma"
+    shifted = torch.empty(4 * 128 * 64 + 1, dtype=bf)[1:].view(4, 128, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    assert K.body(shifted, q, q) == K.body(q, q, shifted) == "simt"
+    assert K.body(q, q.float(), q) == "simt"
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128])
+@pytest.mark.parametrize("h,hkv", [(32, 8), (9, 3), (48, 1)])
+def test_gqa_ops_matches_jax_ops(h, hkv, hd):
+    """ops.flash_attention on unexpanded kv heads == the JAX package's ops
+    (which repeats them) at the head counts of jamba (32 on 8), smollm (9 on
+    3) and granite (48 on 1), S cut to 128 in two blocks of 64."""
+    from repro.kernels.flash_attention.ops import flash_attention as r_ops
+
+    rng = np.random.default_rng(h * 1000 + hkv * 10 + hd)
+    q = tc.normal(rng, (1, 128, h, hd))
+    k, v = (tc.normal(rng, (1, 128, hkv, hd)) for _ in range(2))
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=True, bq=64, bk=64)
+    assert got.shape == (1, 128, h, hd)
+    close(got, r_ops(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, bq=64, bk=64), 2e-4)
+
+
+def test_ops_hands_the_kernel_unexpanded_kv(monkeypatch):
+    """ops reaches the wrapper's launch path with k/v of [B * Hkv, S, hd]:
+    q's row b * H + h reads kv row b * Hkv + h // g, which the plain
+    version expands as the reference does."""
+    seen = []
+    run = K.run
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+        return run(q, k, v, **kw)
+
+    monkeypatch.setattr(K, "run", spy)
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(tc.normal(rng, (2, 128, 6, 64)))
+    k, v = (torch.from_numpy(tc.normal(rng, (2, 128, 2, 64)))
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=False)
+    assert seen == [((12, 128, 64), (4, 128, 64), (4, 128, 64))]
+    flat = [t.repeat_interleave(6 // t.shape[2], dim=2).transpose(1, 2)
+            .reshape(12, 128, 64) for t in (q, k, v)]
+    want = flash_attention_ref(*flat, causal=False)
+    close(got, want.reshape(2, 6, 128, 64).transpose(1, 2), 2e-4)
+
+
+def test_gqa_checks():
+    q = torch.zeros((6, 128, 64))
+    with pytest.raises(ValueError, match=r"BH / g"):
+        K.check_gqa(q, q[:4], q[:4], 128, 128)       # 6 rows on 4
+    with pytest.raises(ValueError, match=r"BH / g"):
+        K.check_gqa(q, q[:2], q[:3], 128, 128)
+    with pytest.raises(ValueError, match="query heads"):
+        flash_attention(torch.zeros((2, 128, 4, 64)),
+                        torch.zeros((1, 128, 2, 64)),
+                        torch.zeros((1, 128, 2, 64)))
+    K.check_gqa(q, q[:2], q[:2], 128, 128)
