@@ -70,7 +70,9 @@ on any mismatch:
                 causal values, and at hd 96 and S 100 too); paged at
                 seq_lens 0, 1, a partial page and full with out-of-range
                 table entries through ops; GQA through ops.flash_attention
-                (one launch, on the unexpanded kv heads [B * Hkv, S, hd]).
+                (one launch, on the unexpanded kv heads [B * Hkv, S, hd]);
+                flash in bf16 on bases that are not 16-byte aligned (the
+                simt body, k/v of BH / g rows).
                 Each wrapper raises on a non-contiguous input, a wrong dtype
                 or a refused shape, before any launch. Every masa, moe and
                 flash case ran the body its wrapper picks by shape
@@ -940,6 +942,23 @@ def phase_kernels():
         record("flash_attention", dname, kernel_err(
             "flash_attention GQA through ops", got,
             want.reshape(2, 8, 256, 128).transpose(1, 2), dname))
+    # bf16 on bases that are not 16-byte aligned takes the simt body, with
+    # k/v of BH / g rows read in the kernel
+    for bh, s, hd, bq, bk, g in tc.FLASH_SHIFTED:
+        q, k, v = (tc.shifted(t) for t in card_inputs(
+            tc.flash_inputs(bh, s, hd, seed=6), torch.bfloat16))
+        k, v = tc.shifted(k[:bh // g]), tc.shifted(v[:bh // g])
+        FK.check_blocks(s, bq, bk)
+        for causal in (True, False):
+            case = f"flash_attention unaligned {(bh, s, hd)} g={g} " \
+                   f"causal={causal}"
+            FK.reset_launches()
+            got = FK.run(q, k, v, causal=causal, bk=bk)
+            ran("flash_attention", FK, "simt", f"{case} bfloat16")
+            record("flash_attention", "bfloat16", kernel_err(
+                case, got,
+                FK.flash_attention_plain(q, k, v, causal=causal, bk=bk),
+                "bfloat16"))
     torch.cuda.synchronize()
 
     # ---- refusals: no fallback to the plain version

@@ -62,7 +62,12 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("flash_attention", SOURCES["flash_attention"])
+    return declare(cuda_build.load("flash_attention",
+                                   SOURCES["flash_attention"]))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signature of its ``flash_attention_launch``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = ([vp] * 4 + [ci] * 4
                                            + [ctypes.c_float] + [ci] * 3
@@ -80,16 +85,8 @@ def body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "wgmma" if wgmma else "simt"
 
 
-def check_gqa(q, k, v, bq: int, bk: int) -> None:
-    """q ``[BH, S, hd]`` and k, v ``[BH / g, S, hd]`` for a whole group
-    ``g``, and the reference's ``S`` multiple of ``bq`` and ``bk``."""
-    if (q.dim() != 3 or k.dim() != 3 or v.shape != k.shape
-            or k.shape[1:] != q.shape[1:] or k.shape[0] < 1
-            or q.shape[0] % k.shape[0]):
-        raise ValueError(f"flash_attention takes q [BH, S, hd] and k, v "
-                         f"[BH / g, S, hd]; got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    s = q.shape[1]
+def check_blocks(s: int, bq: int, bk: int) -> None:
+    """The reference's ``S`` multiple of ``bq`` and ``bk``."""
     if bq < 1 or bk < 1 or s % bq or s % bk:
         raise ValueError(f"flash_attention: S={s} must be a multiple of "
                          f"bq={bq} and bk={bk}")
@@ -104,7 +101,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention takes q, k, v [BH, S, hd] of one "
                          f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    check_gqa(q, k, v, bq, bk)
+    check_blocks(q.shape[1], bq, bk)
     return run(q, k, v, causal=causal, bk=bk)
 
 

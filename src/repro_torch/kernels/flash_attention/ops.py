@@ -20,13 +20,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bk: int = 128) -> torch.Tensor:
     """q [B,S,H,hd], k/v [B,S,Hkv,hd] -> out [B,S,H,hd]."""
     b, s, h, hd = q.shape
-    hkv = k.shape[2]
-    if (hkv < 1 or h % hkv or v.shape != k.shape
+    if (k.dim() != 4 or v.shape != k.shape or k.shape[2] < 1
+            or h % k.shape[2]
             or (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd)):
         raise ValueError(f"flash_attention: {h} query heads cannot share "
                          f"k {tuple(k.shape)} and v {tuple(v.shape)}")
     qf, kf, vf = (t.transpose(1, 2).reshape(-1, s, hd).contiguous()
                   for t in (q, k, v))
-    K.check_gqa(qf, kf, vf, bq, bk)
+    K.check_blocks(s, bq, bk)
     out = K.run(qf, kf, vf, causal=causal, bk=bk)
     return out.reshape(b, h, s, hd).transpose(1, 2)

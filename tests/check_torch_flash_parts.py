@@ -9,8 +9,9 @@ flash_attention.cu`` with the port's nvcc flags, under
 online softmax cut out (``no_softmax``: the raw scores go to P V as they
 are), and the kernel with its P V products cut out (``no_pv``). The cut
 variants compute nothing useful; they show what each part costs. Each is
-timed with CUDA events at jamba-v0.1-52b's attention shape (B 1, S 2048, 32
-query heads on 8 kv heads of 128, causal, bf16, the kv heads indexed in the
+timed with ``chip_smoke.time_ms`` (CUDA events, the calls queued behind a
+sleep kernel) at jamba-v0.1-52b's attention shape (B 1, S 2048, 32 query
+heads on 8 kv heads of 128, causal, bf16, the kv heads indexed in the
 kernel), in turns (full, no_softmax, no_pv, then backwards, then again),
 and printed with the card's name and power limit.
 """
@@ -24,8 +25,10 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+from chip_smoke import time_ms  # noqa: E402
 from repro_torch import compat, cuda_build  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import declare  # noqa: E402
 
 SRC = ROOT / "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 HEADER = ROOT / "src/repro_torch/kernels/csrc/hopper_gemm.cuh"
@@ -67,12 +70,7 @@ def build() -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode:
             sys.exit(f"nvcc failed on the {name} variant:\n{log}")
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = ([vp] * 4 + [ci] * 4
-                                               + [ctypes.c_float] + [ci] * 3
-                                               + [vp])
-        libs[name] = lib
+        libs[name] = declare(ctypes.CDLL(str(OUT / f"{name}.so")))
     return libs
 
 
@@ -94,22 +92,12 @@ def main() -> None:
         if err:
             sys.exit(f"{name}: launch failed with {err}")
 
-    def time_ms(name: str, reps: int = 50) -> float:
-        for _ in range(3):
-            launch(name)
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(reps):
-            launch(name)
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
     flops = 4 * HD * B * H * S * (S + 1) // 2
     times = {n: [] for n in libs}
     for order in (list(libs), list(libs)[::-1], list(libs)):
         for name in order:
-            times[name].append(time_ms(name))
+            times[name].append(time_ms(lambda: launch(name), reps=50,
+                                       warmup=3))
     for name, ts in times.items():
         print(f"{name}: {', '.join(f'{t:.4f}' for t in ts)} ms; best "
               f"{min(ts):.4f} ms = {flops / min(ts) / 1e9:.0f} TFLOP/s of "

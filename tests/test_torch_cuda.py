@@ -424,6 +424,28 @@ def test_flash_wgmma_ragged_edges(card, bh, s, hd, causal):
                                                      bk=s), "bfloat16")
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,hd,bq,bk,g", tc.FLASH_SHIFTED)
+def test_flash_bf16_unaligned_takes_the_simt_body(card, bh, s, hd, bq, bk, g,
+                                                  causal):
+    """bf16 on bases that are not 16-byte aligned: one simt launch, k/v
+    row bh // g read in the kernel, equal to the plain version."""
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    q, k, v = (tc.shifted(t) for t in card_tensors(
+        tc.flash_inputs(bh, s, hd, seed=6), torch.bfloat16, card))
+    k, v = tc.shifted(k[:bh // g]), tc.shifted(v[:bh // g])
+    assert K.body(q, k, v) == "simt"
+    K.check_blocks(s, bq, bk)
+    K.reset_launches()
+    got = K.run(q, k, v, causal=causal, bk=bk)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == 1
+    assert K.BODIES == {"wgmma": 0, "simt": 1}
+    assert_kernel_close(got, K.flash_attention_plain(q, k, v, causal=causal,
+                                                     bk=bk), "bfloat16")
+
+
 def spy_launches(monkeypatch, K):
     """Record the shapes of q, k and v at every kernel launch."""
     seen, launch = [], K._launch

@@ -181,13 +181,29 @@ def test_ops_hands_the_kernel_unexpanded_kv(monkeypatch):
 
 
 def test_gqa_checks():
-    q = torch.zeros((6, 128, 64))
-    with pytest.raises(ValueError, match=r"BH / g"):
-        K.check_gqa(q, q[:4], q[:4], 128, 128)       # 6 rows on 4
-    with pytest.raises(ValueError, match=r"BH / g"):
-        K.check_gqa(q, q[:2], q[:3], 128, 128)
-    with pytest.raises(ValueError, match="query heads"):
-        flash_attention(torch.zeros((2, 128, 4, 64)),
-                        torch.zeros((1, 128, 2, 64)),
-                        torch.zeros((1, 128, 2, 64)))
-    K.check_gqa(q, q[:2], q[:2], 128, 128)
+    """ops owns the GQA shape rule, the kernel's wrapper its one-shape
+    rule; both hold S to the reference's bq and bk."""
+    z = torch.zeros
+    with pytest.raises(ValueError, match="query heads"):   # 4 on 3
+        flash_attention(z((2, 128, 4, 64)), z((2, 128, 3, 64)),
+                        z((2, 128, 3, 64)))
+    with pytest.raises(ValueError, match="query heads"):   # v != k
+        flash_attention(z((2, 128, 4, 64)), z((2, 128, 2, 64)),
+                        z((2, 128, 1, 64)))
+    with pytest.raises(ValueError, match="query heads"):   # batch 1 != 2
+        flash_attention(z((2, 128, 4, 64)), z((1, 128, 2, 64)),
+                        z((1, 128, 2, 64)))
+    with pytest.raises(ValueError, match="query heads"):   # k not 4-d
+        flash_attention(z((2, 128, 4, 64)), z((2, 128, 2, 1, 64)),
+                        z((2, 128, 2, 1, 64)))
+    with pytest.raises(ValueError, match="multiple of"):
+        flash_attention(z((2, 128, 4, 64)), z((2, 128, 2, 64)),
+                        z((2, 128, 2, 64)), bq=96)
+    q = z((6, 128, 64))
+    with pytest.raises(ValueError, match="one shape"):     # 6 rows on 2
+        K.flash_attention_kernel(q, q[:2], q[:2])
+    with pytest.raises(ValueError, match="multiple of"):
+        K.flash_attention_kernel(q, q, q, bk=48)
+    got = flash_attention(z((2, 128, 4, 64)), z((2, 128, 2, 64)),
+                          z((2, 128, 2, 64)))
+    assert got.shape == (2, 128, 4, 64)

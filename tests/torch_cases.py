@@ -21,6 +21,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from repro_torch.core.dram import (ROW_SPACE_STRIDE, Scheduler, SimConfig,
                                    generate_trace, stack_traces, workload)
@@ -118,6 +119,18 @@ def flash_inputs(bh: int, s: int, hd: int, seed: int = 0):
     """q, k, v [BH, S, hd]: standard normal float32."""
     rng = np.random.default_rng(seed)
     return tuple(normal(rng, (bh, s, hd)) for _ in range(3))
+
+
+#: Flash cases on bases that are not 16-byte aligned, which bf16 runs on
+#: the simt body: (BH, S, hd, bq, bk, g), k and v of BH / g rows.
+FLASH_SHIFTED = ((4, 512, 64, 128, 128, 1), (4, 256, 128, 128, 64, 2))
+
+
+def shifted(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base lies one element past its
+    allocation's: not 16-byte aligned, so TMA cannot map it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
 
 
 #: The golden multicore cells' mix and trace length.
