@@ -25,27 +25,38 @@ on any mismatch:
                 every config under FR-FCFS x {BASELINE, MASA}, geometries
                 8x8 and 4x16, C = 1, 2 and 4 (a 1-core mix also equals the
                 lane kernel).
-7. fig4       — main path one: the paper's Fig. 4 grid (32 workloads x 5
+   Phases 3-6 fail unless every lane and mix launch ran the smem body
+   (``cuda_step.BODIES``: one warp a chain, its state in shared memory),
+   the body ``cuda_step.body()`` picks at every geometry they run.
+7. global_body — both kernels with the global body forced (one thread a
+                chain, its state in a scratch buffer) vs their plain
+                versions, and 16 x 1024 (over a block's shared memory),
+                which ``body()`` sends to the global body.
+8. fig4       — main path one: the paper's Fig. 4 grid (32 workloads x 5
                 policies x 8000 requests, seed 7) through
                 ``repro_torch.paper_repro.run_fig4`` on the card. Exactly
-                one lane-kernel launch per policy; the counters equal
-                ``tests/data/torch_fig4_n8000.json`` (made by the JAX
-                package) and the plain version on the card.
-8. multicore  — main path two: ``paper_repro.run_multicore`` (four 4-core
+                one lane-kernel launch per policy, each on the smem body; the
+                counters equal ``tests/data/torch_fig4_n8000.json`` (made by
+                the JAX package) and the plain version on the card.
+9. multicore  — main path two: ``paper_repro.run_multicore`` (four 4-core
                 mixes x 1500 requests) and ``run_sched`` (x 1000, refresh
                 on) on the card. Exactly 17 mix-kernel and 2 lane-kernel
-                launches; every cell equals
+                launches, each on the smem body; every cell equals
                 ``tests/data/torch_multicore_fixture.json`` (made by the JAX
                 package); MASA under FR-FCFS also equals the plain version.
-9. timing     — CUDA-event times of both kernels and their plain versions at
-                the main paths' shapes and at throughput shapes, beside the
-                byte bound.
-10. ssd       — the SSD-scan kernel vs its plain version on the card, in
+10. timing    — CUDA-event times of both kernels, each body timed in turns
+                (global, smem, smem, global), at the main paths' shapes and
+                at throughput shapes, with nvidia-smi's SM clock sampled
+                meanwhile: ms, us and cycles a step, req/s, beside the byte
+                bound and the chain bound (steps a chain x one step's
+                critical path as counted from the smem bodies' code); and
+                the smem lane kernel at 1 and 4 chains a block.
+11. ssd       — the SSD-scan kernel vs its plain version on the card, in
                 float32 (rtol = atol = 2e-4) and bfloat16 (2e-2), at
                 tests/test_kernels.py's sweep, mamba2-780m's serve shape,
                 jamba's SSM shape and chunk 256 with ds 128; the decay-bound
                 property and no NaN at a huge dt.
-11. serve     — main path three: ``repro_torch.launch.serve``'s path with
+12. serve     — main path three: ``repro_torch.launch.serve``'s path with
                 the fixture's arguments (mamba2-780m at full width, fp32,
                 4 requests x 256 prompt tokens x 16 new, MASA). Weights equal
                 the fixture's numpy stream (sha256 of every leaf);
@@ -53,16 +64,16 @@ on any mismatch:
                 (made by the JAX package); every request's tokens equal the
                 fixture's up to its first near-tie step (top-1/top-2 gap
                 under 1e-2); exactly 4 x 48 = 192 SSD-scan launches.
-12. logits    — teacher-forced: the fixture's tokens through ``prefill`` and
+13. logits    — teacher-forced: the fixture's tokens through ``prefill`` and
                 ``decode_step``; every step's logits at the fixture's top-8
                 ids within rtol = atol = 1e-3.
-13. profile   — ``torch.profiler`` trace of one request's prefill and its
+14. profile   — ``torch.profiler`` trace of one request's prefill and its
                 16 decode steps: the card's busy and idle share, and the
                 SSD-scan and matmul kernels' device time (reported, not
                 checked: the trace may hold no device activity there).
-14. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
+15. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound.
-15. kernels   — the masa_gemm (both orders, through ops and its fallback),
+16. kernels   — the masa_gemm (both orders, through ops and its fallback),
                 moe_gemm, paged_attention and flash_attention kernels vs
                 their plain versions on the card, in float32 (rtol = atol =
                 2e-4) and bfloat16 (2e-2), at tests/test_kernels.py's and
@@ -79,12 +90,12 @@ on any mismatch:
                 (``body()``: wgmma for bf16 with rows of whole 16-byte
                 units, moe's bt % 64 == 0 and flash's hd 64, 96 or 128;
                 simt otherwise), counted in ``BODIES``.
-16. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
+17. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
                 (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
                 paged_attention 2, flash_attention 1); no DRAM-kernel launch.
-17. kernel_time — the four kernels at jamba-v0.1-52b's full width
+18. kernel_time — the four kernels at jamba-v0.1-52b's full width
                 (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
                 kernel vs plain within the tolerances above, then CUDA-event
                 times of the kernel, its plain version and the one PyTorch
@@ -100,8 +111,9 @@ on any mismatch:
                 beside SDPA with enable_gqa.
 
 Each phase prints its seconds. The last lines are nvidia-smi's name and
-power limit, the per-kernel JSON record (all seven kernels), and ``{"ok":
-true, "device": {...}}``.
+power limit, the per-kernel JSON record (all seven kernels; lane_step and
+mix_step also give their body, µs and cycles a step, chain bound and the
+global body's time), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -126,6 +138,19 @@ PEAK_32BIT_OPS_PER_S = 67e12
 #: open-row read, tiers, compare).
 OPS_PER_STEP = 80
 OPS_PER_HEAD = 40
+
+#: One step's critical path in the smem bodies, counted from their code at
+#: the timed shapes (open row): dependent shared-memory reads, dependent
+#: integer ops and warp collectives, at the cycles below. Lane: the bank-
+#: vector row, then the other subarray's row it names; about 25 ops (the
+#: visibility's 3, the row address's 3, the ACT max-chain's 8, the column
+#: command's 9, the completion's 2). Mix: the key's open row, the two rows
+#: of the served step and the owner's ring read; about 35 ops (the key's 6,
+#: the lowest core's 2, the served step's 22, the next visibility's 5); the
+#: min-reduce, the ballot and the shuffles.
+SMEM_READ_CYCLES, INT_OP_CYCLES, COLLECTIVE_CYCLES = 30, 4, 30
+LANE_STEP_PATH = dict(reads=2, ops=25, collectives=0)
+MIX_STEP_PATH = dict(reads=4, ops=35, collectives=3)
 
 FIG4_N, FIG4_SEED = 8000, 7
 THROUGHPUT_SEEDS = 32
@@ -162,6 +187,82 @@ def fail(msg: str) -> None:
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
+
+
+def check_smem(phase: str, *kernels: str) -> None:
+    """Fail unless every launch of ``kernels`` since the last
+    ``cuda_step.reset_launches()`` ran the smem body, and there was one."""
+    from repro_torch.core.dram import cuda_step
+
+    for k in kernels:
+        b, n = cuda_step.BODIES[k], cuda_step.LAUNCHES[k]
+        if n == 0 or b != {"global": 0, "smem": n}:
+            fail(f"{phase}: {k} launches by body {b} of {n}; every one should "
+                 f"run the smem body")
+
+
+def step_cycles(path: dict) -> int:
+    """Cycles of one step's critical path (``*_STEP_PATH``)."""
+    return (path["reads"] * SMEM_READ_CYCLES + path["ops"] * INT_OP_CYCLES
+            + path["collectives"] * COLLECTIVE_CYCLES)
+
+
+class SmClock:
+    """nvidia-smi's SM clock (MHz) sampled every 100 ms while open; ``mhz``
+    is the median sample."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        vals = sorted(float(x) for x in out.split()
+                      if x.replace(".", "", 1).isdigit())
+        if not vals:
+            fail("nvidia-smi gave no SM clock samples")
+        self.mhz = vals[len(vals) // 2]
+        self.samples = len(vals)
+        return False
+
+
+def per_step(ms: float, steps: int, mhz: float) -> dict:
+    """µs and cycles a step of one chain of ``steps`` steps."""
+    us = ms * 1e3 / steps
+    return dict(us_per_step=us, cycles_per_step=us * mhz)
+
+
+def time_bodies(launch, reps: int, warmup: int = 2) -> tuple[float, float]:
+    """``(global ms, smem ms)`` of ``launch(body)``, timed in turns: global,
+    smem, smem, global."""
+    g1 = time_ms(lambda: launch("global"), reps, warmup)
+    s1 = time_ms(lambda: launch("smem"), reps, warmup)
+    s2 = time_ms(lambda: launch("smem"), reps, warmup)
+    g2 = time_ms(lambda: launch("global"), reps, warmup)
+    return (g1 + g2) / 2, (s1 + s2) / 2
+
+
+def lane_launch(eff, nb, ns, config, xs, mlp, body=None, warps=None):
+    """One lane-kernel launch in ``body`` (timing only)."""
+    from repro_torch.core.dram import cuda_step
+
+    return cuda_step._launch(eff, nb, ns, config.timing, config.refresh_mode,
+                             xs, mlp, config.row_policy == "closed",
+                             _body=body, _warps=warps)
+
+
+def mix_launch(args, config, body=None):
+    """One mix-kernel launch in ``body`` (timing only)."""
+    from repro_torch.core.dram import cuda_step
+
+    eff, sched, nb, ns, reqs, mlp, rank = args
+    return cuda_step._launch_cores(eff, sched, nb, ns, config.timing,
+                                   config.refresh_mode, reqs, mlp, rank,
+                                   config.row_policy == "closed", _body=body)
 
 
 def phase_card():
@@ -201,6 +302,9 @@ def phase_golden():
     import torch_cases as tc
     from repro_torch.core.dram import Policy, SimConfig, simulate_stacked
 
+    from repro_torch.core.dram import cuda_step
+
+    cuda_step.reset_launches()
     bad, n = [], 0
     for (cfg, pol), cells in tc.golden_groups().items():
         res = simulate_stacked(tc.golden_stacked(cells), Policy[pol],
@@ -213,7 +317,9 @@ def phase_golden():
                 bad.append((cfg, pol, c["seed"], got, c["counters"]))
     if bad:
         fail(f"golden: {len(bad)} of {n} cells differ, e.g. {bad[:2]}")
-    log(f"[golden] {n} cells bit-exact through the lane kernel")
+    check_smem("golden", "lane_step")
+    log(f"[golden] {n} cells bit-exact through the lane kernel; bodies "
+        f"{cuda_step.BODIES['lane_step']}")
 
 
 def phase_mc_golden():
@@ -221,6 +327,9 @@ def phase_mc_golden():
     from repro_torch.core.dram import Policy, simulate_multicore_batch
     from repro_torch.paper_repro import COUNTERS
 
+    from repro_torch.core.dram import cuda_step
+
+    cuda_step.reset_launches()
     bad, n = [], 0
     for (cfg, sched, pol), cells in tc.golden_multicore_groups().items():
         res = simulate_multicore_batch(
@@ -234,7 +343,9 @@ def phase_mc_golden():
                 bad.append((cfg, sched, pol, c["seed"], got, core))
     if bad:
         fail(f"mc_golden: {len(bad)} of {n} cells differ, e.g. {bad[:2]}")
-    log(f"[mc_golden] {n} multicore cells bit-exact through the mix kernel")
+    check_smem("mc_golden", "mix_step", "lane_step")
+    log(f"[mc_golden] {n} multicore cells bit-exact through the mix kernel; "
+        f"bodies {cuda_step.BODIES}")
 
 
 def random_mix_args(config, pol, M: int, C: int, N: int, seed: int):
@@ -293,6 +404,9 @@ def phase_mc_plain() -> int:
             cases.append((cfg, Scheduler.FRFCFS, pol, 2, 48))
     for cfg in ("default", "darp", "closed_refresh", "sarp"):
         cases.append((cfg, Scheduler.FRFCFS, Policy.SALP2, 1, 96))
+    from repro_torch.core.dram import cuda_step
+
+    cuda_step.reset_launches()
     err, n_lane = 0, 0
     for k, (cfg, sched, pol, C, N) in enumerate(cases):
         nb, ns = geometries[k % len(geometries)]
@@ -315,6 +429,7 @@ def phase_mc_plain() -> int:
                      f"for config {cfg}")
             n_lane += 1
         err = max(err, e)
+    check_smem("mc_plain", "mix_step", "lane_step")
     log(f"[mc_plain] mix kernel == plain on the card for {len(cases)} "
         f"(config, scheduler, policy, C) cases x 8 mixes; {n_lane} 1-core "
         f"cases also == the lane kernel")
@@ -350,8 +465,11 @@ def phase_plain():
     from repro_torch.core.dram import Policy, SimConfig, stack_traces
     from repro_torch.core.dram.engine import lane_inputs
 
+    from repro_torch.core.dram import cuda_step
+
     dev = torch.device("cuda")
     geometries = ((8, 8), (4, 16), (2, 32))
+    cuda_step.reset_launches()
     n = 0
     for k, (cfg, kw) in enumerate(tc.CONFIGS.items()):
         nb, ns = geometries[k % len(geometries)]
@@ -366,8 +484,59 @@ def phase_plain():
                 fail(f"plain: kernel != plain for config {cfg} "
                      f"({nb}x{ns}), policy {pol.name}")
             n += 1
+    check_smem("plain", "lane_step")
     log(f"[plain] kernel == plain on the card for {n} (config, policy) "
         f"pairs x 8 lanes x 256 requests")
+
+
+def phase_global_body():
+    """The global body forced at one shape per config, and the 16 x 1024
+    geometry body() sends to it, vs the plain versions."""
+    import torch_cases as tc
+    from repro_torch.core.dram import (Policy, Scheduler, SimConfig, cuda_step,
+                                       stack_traces)
+    from repro_torch.core.dram.engine import lane_inputs
+
+    dev = torch.device("cuda")
+    cuda_step.reset_launches()
+    cases = [(cfg, 4, 16) for cfg in tc.CONFIGS]
+    cases += [(cfg, 16, 1024) for cfg in ("default", "closed_refresh")]
+    for k, (cfg, nb, ns) in enumerate(cases):
+        config = SimConfig(n_banks=nb, n_subarrays=ns,
+                           scheduler=Scheduler.FRFCFS, **tc.CONFIGS[cfg])
+        forced = "global" if ns == 16 else None
+        if ns == 1024 and cuda_step.body(nb, ns, config.refresh_mode) != "global":
+            fail("global_body: body() does not send 16 x 1024 to the global "
+                 "body")
+        for pol in (Policy.BASELINE, Policy.SALP1, Policy.MASA):
+            traces = [tc.random_trace(2000 + 5 * k + j, n=120, nb=nb, ns=ns)
+                      for j in range(6)]
+            eff, knb, kns, xs, mlp = lane_inputs(stack_traces(traces), pol,
+                                                 config, dev)
+            got = lane_launch(eff, knb, kns, config, xs, mlp, body=forced)
+            ref = cuda_step.simulate_lanes_plain(
+                eff, knb, kns, config.timing, config.refresh_mode, xs, mlp,
+                closed_row=config.row_policy == "closed")
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                fail(f"global_body: lane kernel != plain for {cfg} "
+                     f"({nb}x{ns}), {pol.name}")
+            args = random_mix_args(config, pol, 4, 3, 60, 2500 + 7 * k)
+            got = mix_launch(args, config, body=forced)
+            eff, sched, knb, kns, reqs, mlp, rank = args
+            ref = cuda_step.simulate_cores_plain(
+                eff, sched, knb, kns, config.timing, config.refresh_mode,
+                reqs, mlp, rank, closed_row=config.row_policy == "closed")
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                fail(f"global_body: mix kernel != plain for {cfg} "
+                     f"({nb}x{ns}), {pol.name}")
+    torch.cuda.synchronize()
+    want = {"global": 3 * len(cases), "smem": 0}
+    if cuda_step.BODIES != {"lane_step": want, "mix_step": want}:
+        fail(f"global_body: launches by body {cuda_step.BODIES}, expected "
+             f"{want} for each kernel")
+    log(f"[global_body] global body == plain on the card for {len(cases)} "
+        f"(config, geometry) cases x 3 policies, lane and mix; 16 x 1024 "
+        f"takes it by shape")
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -426,6 +595,7 @@ def phase_fig4():
     if launches["lane_step"] != len(pr.POLICIES):
         fail(f"fig4: expected {len(pr.POLICIES)} lane-kernel launches, "
              f"counted {launches['lane_step']}")
+    check_smem("fig4", "lane_step")
     for pol, res in results.items():
         for f in pr.COUNTERS:
             v = getattr(res, f)
@@ -461,16 +631,31 @@ def phase_fig4():
         fail(f"fig4: kernel and plain differ on the card by up to {err}")
     log(f"[fig4] kernel == plain on the card (max abs err {err})")
 
-    # ---- kernel timing at the Fig. 4 shapes
-    kernel_ms = [time_ms(lambda a=args: kernel_result(*a[:3], config, *a[3:]),
-                         reps=20) for args in inputs.values()]
+    # ---- kernel timing at the Fig. 4 shapes: both bodies in turns, and the
+    # smem body at 1 and 4 chains a block (1, 4, 4, 1)
     B, N = len(pr.PAPER_WORKLOADS), FIG4_N
-    for pol, k, p in zip(inputs, kernel_ms, plain_ms):
-        log(f"[timing] fig4 {pol.name:8s} B={B} N={N}: kernel {k:.4f} ms, "
-            f"plain {p:.1f} ms")
+    global_ms, kernel_ms, warps_ms = [], [], {1: [], 4: []}
+    with SmClock() as clock:
+        for pol, args in inputs.items():
+            g, k = time_bodies(lambda b, a=args: lane_launch(
+                *a[:3], config, *a[3:], body=b), reps=20)
+            global_ms.append(g)
+            kernel_ms.append(k)
+            for w in (1, 4, 4, 1):
+                warps_ms[w].append(time_ms(lambda a=args, w=w: lane_launch(
+                    *a[:3], config, *a[3:], body="smem", warps=w), reps=20))
+    for pol, g, k, p in zip(inputs, global_ms, kernel_ms, plain_ms):
+        log(f"[timing] fig4 {pol.name:8s} B={B} N={N}: smem {k:.4f} ms, "
+            f"global {g:.4f} ms, plain {p:.1f} ms")
+    n_pol = len(kernel_ms)
+    warps = {f"warps_{w}_ms": sum(v) / len(v) for w, v in warps_ms.items()}
+    log(f"[timing] fig4 smem body by chains a block: 1: "
+        f"{warps['warps_1_ms']:.4f} ms, 4: {warps['warps_4_ms']:.4f} ms "
+        f"(mean of 5 policies, in turns 1, 4, 4, 1)")
     return dict(launches=launches["lane_step"], max_abs_err=err,
-                ms=sum(kernel_ms) / len(kernel_ms),
-                plain_ms=sum(plain_ms) / len(plain_ms), B=B, N=N)
+                ms=sum(kernel_ms) / n_pol, global_ms=sum(global_ms) / n_pol,
+                plain_ms=sum(plain_ms) / len(plain_ms), B=B, N=N,
+                clock_mhz=clock.mhz, **warps)
 
 
 def phase_throughput(smi: str):
@@ -484,15 +669,24 @@ def phase_throughput(smi: str):
     args = lane_inputs(stack_traces(traces), Policy.MASA, config,
                        torch.device("cuda"))
     B, N = args[3].shape[0], args[3].shape[1]
-    k_ms = time_ms(lambda: kernel_result(*args[:3], config, *args[3:]), reps=10)
+    with SmClock() as clock:
+        g_ms, k_ms = time_bodies(lambda b: lane_launch(
+            *args[:3], config, *args[3:], body=b), reps=5)
     p_ms = time_ms(lambda: plain_result(*args[:3], config, *args[3:]), reps=1,
                    warmup=0)
     b_ms, _ = bound(B, N)
-    log(f"[timing] throughput MASA B={B} N={N}: kernel {k_ms:.4f} ms "
-        f"({B * N / k_ms * 1e3:.4e} req/s), plain {p_ms:.1f} ms "
-        f"({B * N / p_ms * 1e3:.4e} req/s), byte bound {b_ms:.5f} ms; "
-        f"card {smi}")
-    return dict(B=B, N=N, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms)
+    row = dict(B=B, N=N, body="smem", ms=k_ms, global_ms=g_ms, plain_ms=p_ms,
+               bound_ms=b_ms, req_per_s=B * N / k_ms * 1e3,
+               chain_bound_ms=N * step_cycles(LANE_STEP_PATH)
+               / (clock.mhz * 1e3), clock_mhz=clock.mhz,
+               **per_step(k_ms, N, clock.mhz))
+    log(f"[timing] throughput MASA B={B} N={N}: smem {k_ms:.4f} ms "
+        f"({row['req_per_s']:.4e} req/s, {row['us_per_step']:.4f} us, "
+        f"{row['cycles_per_step']:.0f} cycles a step at {clock.mhz:.0f} MHz), "
+        f"global {g_ms:.4f} ms, plain {p_ms:.1f} ms "
+        f"({B * N / p_ms * 1e3:.4e} req/s), byte bound {b_ms:.5f} ms, chain "
+        f"bound {row['chain_bound_ms']:.4f} ms; card {smi}")
+    return row
 
 
 def mix_bound(M: int, C: int, N: int):
@@ -532,6 +726,7 @@ def phase_multicore(smi: str):
     if launches != MULTICORE_LAUNCHES:
         fail(f"multicore: expected launches {MULTICORE_LAUNCHES}, counted "
              f"{launches}")
+    check_smem("multicore", "mix_step", "lane_step")
     for per_mix in list(mc.values()) + list(sc.values()):
         for r in per_mix:
             if (not r.shared.total_cycles.is_cuda
@@ -581,35 +776,56 @@ def phase_multicore(smi: str):
     log(f"[multicore] MASA FR-FCFS n={pr.MULTICORE_N}: kernel == plain on "
         f"the card (max abs err {err})")
 
-    # ---- timing at the bench shape (each of run_multicore's points)
+    # ---- timing at the bench shape (each of run_multicore's points), both
+    # bodies in turns
     M, C, N = len(pr.MIXES), len(pr.MIXES[0]), pr.MULTICORE_N
     points = ([(pol, Scheduler.FRFCFS) for pol in pr.POLICIES]
               + [(Policy.BASELINE, Scheduler.TCM), (Policy.MASA, Scheduler.TCM)])
-    kernel_ms = []
-    for pol, sched in points:
-        a, cfg = bench_args(pol, sched, N, [FIG4_SEED])
-        kernel_ms.append(time_ms(lambda a=a, c=cfg: mix_kernel_result(a, c),
-                                 reps=10))
-        log(f"[timing] multicore {pol.name:8s} {sched.name:6s} M={M} C={C} "
-            f"N={N}: kernel {kernel_ms[-1]:.4f} ms")
+    global_ms, kernel_ms = [], []
+    with SmClock() as clock:
+        for pol, sched in points:
+            a, cfg = bench_args(pol, sched, N, [FIG4_SEED])
+            g, k = time_bodies(lambda b, a=a, c=cfg: mix_launch(a, c, b),
+                               reps=10)
+            global_ms.append(g)
+            kernel_ms.append(k)
+            log(f"[timing] multicore {pol.name:8s} {sched.name:6s} M={M} C={C} "
+                f"N={N}: smem {k:.4f} ms, global {g:.4f} ms")
     ms = sum(kernel_ms) / len(kernel_ms)
     b_ms, b_by = mix_bound(M, C, N)
+    steps = C * N
+    chain_ms = steps * step_cycles(MIX_STEP_PATH) / (clock.mhz * 1e3)
     log(f"[timing] multicore per launch (mean of {len(points)} points): "
-        f"kernel {ms:.4f} ms, plain (MASA FR-FCFS) {plain_ms:.1f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by}); {M * C * N / ms * 1e3:.4e} req/s; card {smi}")
+        f"smem {ms:.4f} ms, global {sum(global_ms) / len(global_ms):.4f} ms, "
+        f"plain (MASA FR-FCFS) {plain_ms:.1f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}), chain bound {chain_ms:.4f} ms; "
+        f"{M * C * N / ms * 1e3:.4e} req/s; card {smi}")
 
-    # ---- throughput shape
+    # ---- throughput shape, both bodies in turns
     seeds = range(FIG4_SEED, FIG4_SEED + MIX_THROUGHPUT_SEEDS)
     a, cfg = bench_args(Policy.MASA, Scheduler.FRFCFS, MIX_THROUGHPUT_N, seeds)
     tM, tN = a[4].shape[0], a[4].shape[2]
-    t_ms = time_ms(lambda: mix_kernel_result(a, cfg), reps=3, warmup=1)
+    with SmClock() as t_clock:
+        tg_ms, t_ms = time_bodies(lambda b: mix_launch(a, cfg, b), reps=3,
+                                  warmup=1)
     tb_ms, _ = mix_bound(tM, C, tN)
-    log(f"[timing] mix throughput MASA FR-FCFS M={tM} C={C} N={tN}: kernel "
-        f"{t_ms:.4f} ms ({tM * C * tN / t_ms * 1e3:.4e} req/s), byte bound "
-        f"{tb_ms:.5f} ms; card {smi}")
-    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, M=M, C=C, N=N,
-                throughput=dict(M=tM, C=C, N=tN, ms=t_ms, bound_ms=tb_ms))
+    thr = dict(M=tM, C=C, N=tN, body="smem", ms=t_ms, global_ms=tg_ms,
+               bound_ms=tb_ms, req_per_s=tM * C * tN / t_ms * 1e3,
+               chain_bound_ms=C * tN * step_cycles(MIX_STEP_PATH)
+               / (t_clock.mhz * 1e3), clock_mhz=t_clock.mhz,
+               **per_step(t_ms, C * tN, t_clock.mhz))
+    log(f"[timing] mix throughput MASA FR-FCFS M={tM} C={C} N={tN}: smem "
+        f"{t_ms:.4f} ms ({thr['req_per_s']:.4e} req/s, "
+        f"{thr['us_per_step']:.4f} us, {thr['cycles_per_step']:.0f} cycles a "
+        f"step at {t_clock.mhz:.0f} MHz), global {tg_ms:.4f} ms, byte bound "
+        f"{tb_ms:.5f} ms, chain bound {thr['chain_bound_ms']:.4f} ms; "
+        f"card {smi}")
+    return dict(launches=launches, max_abs_err=err, ms=ms,
+                global_ms=sum(global_ms) / len(global_ms), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, M=M, C=C, N=N, body="smem",
+                chain_bound_ms=chain_ms, clock_mhz=clock.mhz,
+                req_per_s=M * C * N / ms * 1e3,
+                **per_step(ms, steps, clock.mhz), throughput=thr)
 
 
 def phase_ssd():
@@ -1374,6 +1590,7 @@ def main() -> None:
     run_phase("plain", phase_plain)
     run_phase("mc_golden", phase_mc_golden)
     mc_plain_err = run_phase("mc_plain", phase_mc_plain)
+    run_phase("global_body", phase_global_body)
     fig4 = run_phase("fig4", phase_fig4)
     mc = run_phase("multicore", phase_multicore, smi)
     thr = run_phase("timing", phase_throughput, smi)
@@ -1387,10 +1604,17 @@ def main() -> None:
     bench = run_phase("kernel_bench", phase_kernel_bench)
     ktime = run_phase("kernel_time", phase_kernel_time, smi)
     b_ms, b_by = bound(fig4["B"], fig4["N"])
-    log(f"[timing] fig4 per launch (mean of 5 policies): kernel "
-        f"{fig4['ms']:.4f} ms, plain {fig4['plain_ms']:.1f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by}); "
-        f"{fig4['B'] * fig4['N'] / fig4['ms'] * 1e3:.4e} req/s; card {smi}")
+    fig4.update(per_step(fig4["ms"], fig4["N"], fig4["clock_mhz"]),
+                chain_bound_ms=fig4["N"] * step_cycles(LANE_STEP_PATH)
+                / (fig4["clock_mhz"] * 1e3),
+                req_per_s=fig4["B"] * fig4["N"] / fig4["ms"] * 1e3)
+    log(f"[timing] fig4 per launch (mean of 5 policies): smem "
+        f"{fig4['ms']:.4f} ms ({fig4['us_per_step']:.4f} us, "
+        f"{fig4['cycles_per_step']:.0f} cycles a step at "
+        f"{fig4['clock_mhz']:.0f} MHz), global {fig4['global_ms']:.4f} ms, "
+        f"plain {fig4['plain_ms']:.1f} ms, bound {b_ms:.5f} ms ({b_by}), "
+        f"chain bound {fig4['chain_bound_ms']:.4f} ms; "
+        f"{fig4['req_per_s']:.4e} req/s; card {smi}")
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         fail("the JAX package was imported")
@@ -1405,8 +1629,12 @@ def main() -> None:
         "launches_by_path": lane_launches,
         "max_abs_err": fig4["max_abs_err"],
         "ms": fig4["ms"], "plain_ms": fig4["plain_ms"], "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None,
-        "shape": f"B={fig4['B']} N={fig4['N']} (Fig. 4, mean of 5 policies)",
+        "bound_by": b_by, "library_ms": None, "body": "smem",
+        **{k: fig4[k] for k in ("global_ms", "us_per_step", "cycles_per_step",
+                                "chain_bound_ms", "clock_mhz", "req_per_s",
+                                "warps_1_ms", "warps_4_ms")},
+        "shape": f"B={fig4['B']} N={fig4['N']} (Fig. 4, mean of 5 policies; "
+                 f"ms the smem body, global_ms the global body, in turns)",
         "throughput": thr}, {
         "name": "mix_step", "route": "cuda",
         "source": "src/repro_torch/core/dram/csrc/mix_step.cu",
@@ -1415,9 +1643,12 @@ def main() -> None:
         "max_abs_err": max(mc["max_abs_err"], mc_plain_err),
         "ms": mc["ms"], "plain_ms": mc["plain_ms"],
         "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "body": "smem",
+        **{k: mc[k] for k in ("global_ms", "us_per_step", "cycles_per_step",
+                              "chain_bound_ms", "clock_mhz", "req_per_s")},
         "shape": f"M={mc['M']} C={mc['C']} N={mc['N']} (run_multicore, "
-                 f"mean of 7 points; plain_ms MASA FR-FCFS)",
+                 f"mean of 7 points; plain_ms MASA FR-FCFS; ms the smem body, "
+                 f"global_ms the global body, in turns)",
         "throughput": mc["throughput"]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",

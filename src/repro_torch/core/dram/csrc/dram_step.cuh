@@ -7,10 +7,26 @@
 // lane_step.cu loops them over one trace, mix_step.cu over the scheduler's
 // choice among C cores; neither kernel carries a copy of the timing math.
 //
-// State layout (repro_torch/core/dram/state_layout.py): a lane's or mix's
-// packed [nb][ns + 1][SA_F] bank/subarray plane (row ns of each bank is the
-// bank-vector row) and [nb][REF_F] refresh table live in its scratch slice;
-// the channel scalars and the ACT history stay in registers (Channel).
+// State layout (repro_torch/core/dram/state_layout.py): a chain's (one
+// lane's or one mix's) packed [nb][ns + 1][SA_F] bank/subarray plane (row ns
+// of each bank is the bank-vector row), completion ring(s) and [nb][REF_F]
+// refresh table live in one block of ints: the chain's slice of a global
+// scratch buffer in the "global" bodies (one thread a chain), the warp's
+// slice of dynamic shared memory in the "smem" bodies (one warp a chain);
+// cuda_step.body() picks the body by shape before the launch. The channel
+// scalars and the ACT history stay in registers (Channel).
+//
+// In the smem bodies all 32 lanes of the warp run the served step's
+// arithmetic uniformly: each lane holds the same Channel, reads the same
+// shared words and stores the same values, so a lane's later reads of what
+// the step stored need no barrier (it sees its own stores). One
+// __syncwarp() a step parts the step's reads from its stores, so no lane
+// stores before every lane has read; the O(ns) loops, which store
+// different words from different lanes, run between two more. commit_ref's
+// read-modify-writes are idempotent (max of the row and a value, or a
+// plain store), so a lane that reads another's store of the same step
+// computes the same row. Requests reach shared memory through cp.async
+// chunks staged ahead (stage_chunk), so no step waits on a global load.
 //
 // Semantics that must match the reference bit for bit:
 //  * every / and % below has non-negative operands on the path that uses
@@ -21,7 +37,9 @@
 //  * the other-subarray index is made safe (NEG -> 0) before it is read;
 //  * bank-granular refresh closes and the closed-row BASELINE / SALP-1
 //    precharge bump touch every subarray row of the bank (O(ns) loops), and
-//    the bank-vector row is then rebuilt wholesale.
+//    the bank-vector row is then rebuilt wholesale. The own row is written
+//    once, with its final values (the close and the bump folded in), so the
+//    loops skip it and may run split over a warp's lanes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +49,11 @@ namespace {
 
 constexpr int NEG = -1;
 constexpr int RING = 64;
+constexpr unsigned FULL = 0xffffffffu;
+// smem bodies: a request stream reaches shared memory in chunks of STAGE_K
+// requests through a ring of STAGE_D chunk slots (cuda_step.STAGE_CHUNK,
+// STAGE_DEPTH, which count the bytes)
+constexpr int STAGE_K = 16, STAGE_D = 4;
 
 // request fields (state_layout RQ_*), one [RQ_F] row per request
 constexpr int RQ_BANK = 0, RQ_SA = 1, RQ_ROW = 2, RQ_WR = 3, RQ_GAP = 4,
@@ -102,6 +125,104 @@ __device__ __forceinline__ void init_state(int* sa, int* ref, int nb, int ns,
   ch.ah0 = ch.ah1 = ch.ah2 = ch.ah3 = 0;
 }
 
+// The same initial state, laid out by one warp in shared memory: the plane,
+// `rings` zeroed ring words, then the refresh table, contiguous from `sa`,
+// 32 words at a time. Ends with __syncwarp(): every lane then reads words
+// other lanes stored.
+__device__ __forceinline__ void init_state_warp(int* sa, int rings, int nb,
+                                                int ns, int refresh_mode,
+                                                const int* t, Channel& ch,
+                                                int lane) {
+  const int ns_p1 = ns + 1;
+  const int plane = nb * ns_p1 * SA_F;
+  const int stagger = imax(t[T_REFI] / imax(nb, 1), 1);
+  const int total = plane + rings + (refresh_mode ? nb * REF_F : 0);
+  for (int k = lane; k < total; k += 32) {
+    int v = 0;
+    if (k < plane) {
+      const int f = k % SA_F, r = (k / SA_F) % ns_p1;
+      // SA_OPEN_ROW, and BK_DESIGNATED / BK_OPEN_SA on the bank-vector row
+      if (f == 0 || (r == ns && f == BK_OPEN_SA)) v = NEG;
+    } else if (k >= plane + rings) {
+      const int j = k - plane - rings;
+      if (j % REF_F == REF_NEXT_DUE) v = (j / REF_F) * stagger + t[T_REFI];
+    }
+    sa[k] = v;
+  }
+#pragma unroll
+  for (int k = 0; k < SC_F; ++k) ch.sc[k] = 0;
+  ch.sc[SC_COL_LAST] = -1000000;
+  ch.ah0 = ch.ah1 = ch.ah2 = ch.ah3 = 0;
+  __syncwarp();
+}
+
+// ---- request staging (smem bodies). A stream's requests sit in global
+// memory as [N][RQ_F] ints; its shared ring holds STAGE_D chunk slots of
+// STAGE_K requests, chunk q in slot q % STAGE_D. stage_chunk issues one
+// chunk's words as 4-byte cp.async copies spread over the warp's lanes;
+// a caller commits the copies of one event as one group and, before it
+// reads a chunk, waits with stage_wait<n>() and __syncwarp().
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `n` of this lane's most recent groups are in flight.
+template <int n>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// Issue chunk q of a stream of n requests at `src` into its slot of `ring`
+// (nothing past the stream's end).
+__device__ __forceinline__ void stage_chunk(int* ring, const int* src, int n,
+                                            int q, int lane) {
+  const int first = q * STAGE_K;
+  if (first >= n) return;
+  const int words = imin(STAGE_K, n - first) * RQ_F;
+  int* dst = ring + (q % STAGE_D) * STAGE_K * RQ_F;
+  const int* from = src + (size_t)first * RQ_F;
+  for (int k = lane; k < words; k += 32) cp_async4(dst + k, from + k);
+}
+
+// The dynamic shared memory a launch of `kernel` takes: above the default
+// 48 KB only after the attribute is raised. Returns a CUDA error code.
+template <typename K>
+int allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Request p of a staged stream: its slot's row.
+__device__ __forceinline__ const int* staged(const int* ring, int p) {
+  return ring + ((p / STAGE_K) % STAGE_D * STAGE_K + p % STAGE_K) * RQ_F;
+}
+
+// One request's fields in registers.
+struct Req {
+  int hb, s, w, gap;
+  bool is_wr, dep;
+};
+
+__device__ __forceinline__ Req load_req(const int* q) {
+  Req r;
+  r.hb = q[RQ_BANK];
+  r.s = q[RQ_SA];
+  r.w = q[RQ_ROW];
+  r.is_wr = q[RQ_WR] != 0;
+  r.gap = q[RQ_GAP];
+  r.dep = q[RQ_DEP] != 0;
+  return r;
+}
+
 // Refresh gating of one head's visibility (controller._refresh_fns
 // head_visibility): returns the gated visibility and fills the directive.
 // A pure function of the head bank's refresh row `rr`, `vis`, the head's
@@ -160,13 +281,17 @@ __device__ __forceinline__ int refresh_gate(const int* rr, int vis, int s,
 // The bank/subarray timing step (engine._step_math) of one request to bank
 // hb, visible at `vis`; updates the plane and the channel, returns the
 // request's completion cycle. `ref_pending` / `ref_target` are the served
-// head's refresh directive (closes the refreshed row(s)).
+// head's refresh directive (closes the refreshed row(s)). WARP: all 32
+// lanes of a warp call it with the same arguments and `lane` their own;
+// the O(ns) loops then run split over the lanes between two __syncwarp()s.
+// Otherwise one thread runs it all (lane 0).
+template <bool WARP>
 __device__ __forceinline__ int timing_step(int* sa, Channel& ch, int hb, int s,
                                            int w, bool is_wr, int vis,
                                            bool ref_pending, int ref_target,
                                            int policy, int refresh_mode,
                                            bool closed_row, int ns,
-                                           const int* t) {
+                                           const int* t, int lane) {
   const bool is_masa = policy == MASA;
   const bool sa_granular = refresh_mode == 2 || refresh_mode == 5;
   int* sc = ch.sc;
@@ -222,21 +347,13 @@ __device__ __forceinline__ int timing_step(int* sa, Channel& ch, int hb, int s,
   sc[SC_OPEN_COUNT] += (act_needed ? 1 : 0) - (pre_oth ? 1 : 0)
                        - (pre_own ? 1 : 0);
 
-  // other subarray's PRE (non-MASA); pre_oth implies so != s
-  if (pre_oth) {
-    oth[SA_OPEN_ROW] = NEG;
-    oth[SA_PRE_DONE] = t_pre_other + t[T_RP];
-  }
   // own subarray: PRE, then ACT, then the column command's recovery
-  own[SA_OPEN_ROW] = act_needed ? w : orow;
-  own[SA_PRE_DONE] = pre_own ? t_pre_own + t[T_RP] : own_pre;
-  own[SA_ACT_DONE] = act_needed ? t_act + t[T_RCD] : own_act;
+  int own_open = act_needed ? w : orow;
+  int pre_new = pre_own ? t_pre_own + t[T_RP] : own_pre;
   int ras = act_needed ? t_act + t[T_RAS] : own_ras;
   int wrr = act_needed ? 0 : own_wrr;
   if (is_wr) wrr = imax(wrr, data_end + t[T_WR]);
   else ras = imax(ras, t_col + t[T_RTP]);
-  own[SA_RAS_DONE] = ras;
-  own[SA_WRR_DONE] = wrr;
   const int last_act_new = act_needed ? t_act : last_act_bank;
   if (act_needed) {
     ch.ah0 = ch.ah1; ch.ah1 = ch.ah2; ch.ah2 = ch.ah3; ch.ah3 = t_act;
@@ -244,35 +361,48 @@ __device__ __forceinline__ int timing_step(int* sa, Channel& ch, int hb, int s,
 
   int open_sa_new = is_masa ? os : s;
 
-  if (ref_pending) {
-    // refresh needs a precharged target: close the refreshed subarray or
-    // every row of the bank
-    if (sa_granular) {
-      bk[ref_target * SA_F + SA_OPEN_ROW] = NEG;
-    } else {
-      for (int r = 0; r < ns; ++r) bk[r * SA_F + SA_OPEN_ROW] = NEG;
-    }
-  }
+  // refresh needs a precharged target: it closes the refreshed subarray or
+  // every row of the bank
+  const bool close_all = ref_pending && !sa_granular;
+  if (ref_pending && (!sa_granular || ref_target == s)) own_open = NEG;
 
+  // closed row: auto-precharge after the access, gated like an explicit PRE;
+  // under BASELINE / SALP-1 it occupies the bank's global structures, which
+  // bumps every row's precharge-done (the own row's folded in here)
+  bool bump_all = false;
+  int bump = 0;
   if (closed_row) {
-    // auto-precharge after the access, gated like an explicit PRE
     const int ras_ready = act_needed ? t_act + t[T_RAS] : own_ras;
     const int rtp_ready = is_wr ? 0 : t_col + t[T_RTP];
     const int wr_ready = is_wr ? data_end + t[T_WR] : (act_needed ? 0 : own_wrr);
     const int auto_pre = imax(imax(data_end, ras_ready), imax(rtp_ready, wr_ready));
-    own[SA_OPEN_ROW] = NEG;
-    own[SA_PRE_DONE] = imax(own[SA_PRE_DONE], auto_pre + t[T_RP]);
+    own_open = NEG;
+    pre_new = imax(pre_new, auto_pre + t[T_RP]);
     if (policy == BASELINE || policy == SALP1) {
-      // the auto-PRE occupies the bank's global structures
-      const int bump = policy == BASELINE ? auto_pre + t[T_RP] : auto_pre + 1;
-      for (int r = 0; r < ns; ++r) {
-        int* pd = bk + r * SA_F + SA_PRE_DONE;
-        *pd = imax(*pd, bump);
-      }
+      bump_all = true;
+      bump = policy == BASELINE ? auto_pre + t[T_RP] : auto_pre + 1;
+      pre_new = imax(pre_new, bump);
     }
     open_sa_new = NEG;
     sc[SC_OPEN_COUNT] -= act_needed ? 1 : 0;
   }
+
+  // every lane has read what this step reads of the plane (and, in the mix
+  // kernel, its keys' rows) before any lane stores
+  if (WARP) __syncwarp();
+
+  // other subarray's PRE (non-MASA); pre_oth implies so != s
+  if (pre_oth) {
+    oth[SA_OPEN_ROW] = NEG;
+    oth[SA_PRE_DONE] = t_pre_other + t[T_RP];
+  }
+  own[SA_OPEN_ROW] = own_open;
+  own[SA_PRE_DONE] = pre_new;
+  own[SA_ACT_DONE] = act_needed ? t_act + t[T_RCD] : own_act;
+  own[SA_RAS_DONE] = ras;
+  own[SA_WRR_DONE] = wrr;
+  if (ref_pending && sa_granular && ref_target != s)
+    bk[ref_target * SA_F + SA_OPEN_ROW] = NEG;
 
   // bank-vector row, rebuilt wholesale
   bv[BK_DESIGNATED] = s;
@@ -280,6 +410,19 @@ __device__ __forceinline__ int timing_step(int* sa, Channel& ch, int hb, int s,
   bv[BK_LAST_ACT] = last_act_new;
   bv[3] = 0;
   bv[4] = 0;
+
+  // every other row of the bank: the refresh close and the bump
+  if (close_all || bump_all) {
+    constexpr int stride = WARP ? 32 : 1;
+    if (WARP) __syncwarp();
+    for (int r = lane; r < ns; r += stride) {
+      if (r == s) continue;
+      int* row = bk + r * SA_F;
+      if (close_all) row[SA_OPEN_ROW] = NEG;
+      if (bump_all) row[SA_PRE_DONE] = imax(row[SA_PRE_DONE], bump);
+    }
+    if (WARP) __syncwarp();
+  }
 
   // channel scalars + counters
   sc[SC_COL_LAST] = t_col;

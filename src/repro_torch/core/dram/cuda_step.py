@@ -4,15 +4,18 @@ the card.
 The counterpart of ``repro.core.dram.pallas_step``:
 
 * ``csrc/lane_step.cu`` (its lane kernel, ``_simulate_lanes_pallas``) runs B
-  independent single-core traces, one CUDA thread per lane, each looping
-  over its N requests;
+  independent single-core traces, each looping over its N requests;
 * ``csrc/mix_step.cu`` (its mix kernel, ``_simulate_cores_pallas``) runs M
-  independent mixes of C cores sharing a channel, one CUDA thread per mix,
-  each looping over C * N scheduler-chosen requests.
+  independent mixes of C cores sharing a channel, each looping over C * N
+  scheduler-chosen requests.
 
 Both step through ``csrc/dram_step.cuh`` (refresh gating, the bank/subarray
 timing step, the refresh commit); only the counter pack and the per-core
-``vis_prev`` / ``max_comp`` leave the kernels.
+``vis_prev`` / ``max_comp`` leave the kernels. Each has two bodies:
+``smem``, one warp a chain (a lane or a mix) with the chain's state and
+its staged requests in shared memory, and ``global``, one thread a chain
+with its state in a scratch buffer. :func:`body` picks one by shape
+before the launch: ``smem`` whenever :func:`chain_bytes` fits a block.
 
 * :func:`simulate_lanes` and :func:`simulate_cores` are the wrappers the
   entry points call. On a CUDA tensor they launch their kernel (or raise);
@@ -23,7 +26,8 @@ timing step, the refresh commit); only the counter pack and the per-core
   and ``run_cores``), on any device: the CPU tests use them, and
   ``chip_smoke.py`` holds the kernels against them on the card.
 * ``LAUNCHES`` counts kernel launches, so a run can show that its path went
-  through the kernels.
+  through the kernels; ``BODIES`` counts the same launches by kernel and
+  body.
 
 Build: at first use :mod:`repro_torch.cuda_build` compiles each ``.cu``
 source for ``sm_90a`` into its own plain-C shared library (one ``nvcc`` per
@@ -61,6 +65,17 @@ TIMING_FIELDS = ("t_cl", "t_cwl", "t_rcd", "t_rp", "t_ras", "t_wr", "t_rtp",
 
 #: Kernel launches by kernel name (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"lane_step": 0, "mix_step": 0}
+#: The kernels' bodies, in the C entries' numbering.
+BODY_NAMES = ("global", "smem")
+#: The same launches by kernel and body (set to 0 with
+#: :func:`reset_launches`).
+BODIES: dict[str, dict[str, int]] = {
+    k: dict.fromkeys(BODY_NAMES, 0) for k in LAUNCHES}
+#: The smem bodies stage each request stream through a ring of STAGE_DEPTH
+#: chunks of STAGE_CHUNK requests (dram_step.cuh STAGE_D, STAGE_K).
+STAGE_CHUNK, STAGE_DEPTH = 16, 4
+#: Cores a mix the smem body keys: four a lane of its warp.
+SMEM_MAX_CORES = 128
 
 #: Human-readable refusal reason for command export.
 EMIT_COMMANDS_ERROR = (
@@ -79,6 +94,53 @@ def check_no_emit(config) -> None:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        for b in BODIES[k]:
+            BODIES[k][b] = 0
+
+
+def chain_bytes(n_banks: int, n_subarrays: int, refresh_mode: int,
+                cores: int = 1) -> int:
+    """Shared memory of one chain in the smem body: the ``[nb][ns + 1][5]``
+    plane, a completion ring and a request ring a core (a lane is one
+    core), and the ``[nb][5]`` refresh table when refreshing; int32 words.
+    The one count of these bytes: the C entries take it as they are."""
+    plane = n_banks * (n_subarrays + 1) * L.SA_F
+    stream = STAGE_DEPTH * STAGE_CHUNK * L.RQ_F
+    ref = n_banks * L.REF_F if refresh_mode else 0
+    return 4 * (plane + cores * (_engine._RING + stream) + ref)
+
+
+def body(n_banks: int, n_subarrays: int, refresh_mode: int,
+         cores: int = 1) -> str:
+    """The body a launch takes, by shape: ``smem`` when one chain's
+    :func:`chain_bytes` fit a block's shared memory (and a mix has at most
+    ``SMEM_MAX_CORES`` cores), else ``global``."""
+    fits = (chain_bytes(n_banks, n_subarrays, refresh_mode, cores)
+            <= cuda_build.MAX_SMEM_BYTES and cores <= SMEM_MAX_CORES)
+    return "smem" if fits else "global"
+
+
+def _pick(n_banks, n_subarrays, refresh_mode, cores, forced, warps):
+    """``(body number, chain bytes, chains a block)`` of a launch: the body
+    :func:`body` picks, or ``forced``, and one chain a block, or ``warps``
+    (card tests and timing only: 1 and 4 time alike at Fig. 4, PERF.md)."""
+    if forced is not None and forced not in BODY_NAMES:
+        raise ValueError(f"unknown body {forced!r}; the bodies are "
+                         f"{BODY_NAMES}")
+    nbytes = chain_bytes(n_banks, n_subarrays, refresh_mode, cores)
+    chosen = body(n_banks, n_subarrays, refresh_mode, cores)
+    if forced == "smem" and chosen != "smem":
+        raise ValueError(f"the smem body does not take {n_banks} x "
+                         f"{n_subarrays} with {cores} core(s): {nbytes} "
+                         f"bytes a chain")
+    name = forced or chosen
+    if warps is None:
+        warps = 1
+    elif name == "smem" and not (
+            1 <= warps <= 4 and warps * nbytes <= cuda_build.MAX_SMEM_BYTES):
+        raise ValueError(f"{warps} chains of {nbytes} bytes do not fit a "
+                         f"block")
+    return BODY_NAMES.index(name), nbytes, warps
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,12 +157,12 @@ def _library(name: str) -> ctypes.CDLL:
     lib = cuda_build.load(name, SOURCES[name])
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "lane_step":
-        lib.lane_step_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        lib.lane_step_launch.argtypes = [vp] * 7 + [ci] * 10 + [vp]
         lib.lane_step_launch.restype = ci
         lib.lane_scratch_ints.argtypes = [ci, ci, ci]
         lib.lane_scratch_ints.restype = ci
     else:
-        lib.mix_step_launch.argtypes = [vp] * 8 + [ci] * 9 + [vp]
+        lib.mix_step_launch.argtypes = [vp] * 8 + [ci] * 12 + [vp]
         lib.mix_step_launch.restype = ci
         lib.mix_scratch_ints.argtypes = [ci, ci, ci, ci]
         lib.mix_scratch_ints.restype = ci
@@ -167,15 +229,23 @@ def simulate_lanes(policy: int, n_banks: int, n_subarrays: int,
 
 
 def _launch(policy, n_banks, n_subarrays, t, refresh_mode, xs, mlp,
-            closed_row):
-    """One launch of the lane kernel on PyTorch's current stream."""
+            closed_row, *, _body=None, _warps=None):
+    """One launch of the lane kernel on PyTorch's current stream, in the
+    body :func:`body` picks (``_body`` / ``_warps`` force a body and the
+    chains a block: card tests and timing only)."""
+    which, nbytes, warps = _pick(n_banks, n_subarrays, refresh_mode, 1,
+                                 _body, _warps)
     lib = _library("lane_step")
     B, N = xs.shape[0], xs.shape[1]
     dev = xs.device
     with torch.cuda.device(dev):
         timing = timing_array(t, dev)
-        per_lane = lib.lane_scratch_ints(n_banks, n_subarrays, refresh_mode)
-        scratch = torch.empty((B, per_lane), dtype=torch.int32, device=dev)
+        scratch = None
+        if BODY_NAMES[which] == "global":
+            per_lane = lib.lane_scratch_ints(n_banks, n_subarrays,
+                                             refresh_mode)
+            scratch = torch.empty((B, per_lane), dtype=torch.int32,
+                                  device=dev)
         sc = torch.empty((B, L.SC_F), dtype=torch.int32, device=dev)
         vis = torch.empty((B,), dtype=torch.int32, device=dev)
         maxc = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -184,12 +254,14 @@ def _launch(policy, n_banks, n_subarrays, t, refresh_mode, xs, mlp,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lane_step_launch(
             xs.data_ptr(), mlp.data_ptr(), timing.data_ptr(),
-            scratch.data_ptr(), sc.data_ptr(), vis.data_ptr(),
-            maxc.data_ptr(), B, N, n_banks, n_subarrays, int(policy),
-            int(refresh_mode), int(bool(closed_row)), stream)
+            None if scratch is None else scratch.data_ptr(), sc.data_ptr(),
+            vis.data_ptr(), maxc.data_ptr(), B, N, n_banks, n_subarrays,
+            int(policy), int(refresh_mode), int(bool(closed_row)), which,
+            nbytes, warps, stream)
         if err != 0:
             raise RuntimeError(f"lane_step launch failed: CUDA error {err}")
         LAUNCHES["lane_step"] += 1
+        BODIES["lane_step"][BODY_NAMES[which]] += 1
     # timing and scratch may be freed now: the caching allocator reuses
     # their memory only for later work on this same stream
     return sc, vis, maxc
@@ -253,15 +325,23 @@ def simulate_cores(policy: int, scheduler: int, n_banks: int,
 
 
 def _launch_cores(policy, scheduler, n_banks, n_subarrays, t, refresh_mode,
-                  reqs, mlp, rank, closed_row):
-    """One launch of the mix kernel on PyTorch's current stream."""
-    lib = _library("mix_step")
+                  reqs, mlp, rank, closed_row, *, _body=None, _warps=None):
+    """One launch of the mix kernel on PyTorch's current stream, in the
+    body :func:`body` picks (``_body`` / ``_warps`` force a body and the
+    chains a block: card tests and timing only)."""
     M, C, N = reqs.shape[0], reqs.shape[1], reqs.shape[2]
+    which, nbytes, warps = _pick(n_banks, n_subarrays, refresh_mode, C,
+                                 _body, _warps)
+    lib = _library("mix_step")
     dev = reqs.device
     with torch.cuda.device(dev):
         timing = timing_array(t, dev)
-        per_mix = lib.mix_scratch_ints(n_banks, n_subarrays, C, refresh_mode)
-        scratch = torch.empty((M, per_mix), dtype=torch.int32, device=dev)
+        scratch = None
+        if BODY_NAMES[which] == "global":
+            per_mix = lib.mix_scratch_ints(n_banks, n_subarrays, C,
+                                           refresh_mode)
+            scratch = torch.empty((M, per_mix), dtype=torch.int32,
+                                  device=dev)
         sc = torch.empty((M, L.SC_F), dtype=torch.int32, device=dev)
         vis = torch.empty((M, C), dtype=torch.int32, device=dev)
         maxc = torch.empty((M, C), dtype=torch.int32, device=dev)
@@ -270,13 +350,14 @@ def _launch_cores(policy, scheduler, n_banks, n_subarrays, t, refresh_mode,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mix_step_launch(
             reqs.data_ptr(), mlp.data_ptr(), rank.data_ptr(),
-            timing.data_ptr(), scratch.data_ptr(), sc.data_ptr(),
-            vis.data_ptr(), maxc.data_ptr(), M, C, N, n_banks, n_subarrays,
-            int(policy), int(scheduler), int(refresh_mode),
-            int(bool(closed_row)), stream)
+            timing.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            sc.data_ptr(), vis.data_ptr(), maxc.data_ptr(), M, C, N, n_banks,
+            n_subarrays, int(policy), int(scheduler), int(refresh_mode),
+            int(bool(closed_row)), which, nbytes, warps, stream)
         if err != 0:
             raise RuntimeError(f"mix_step launch failed: CUDA error {err}")
         LAUNCHES["mix_step"] += 1
+        BODIES["mix_step"][BODY_NAMES[which]] += 1
     return sc, vis, maxc
 
 

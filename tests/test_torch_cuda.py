@@ -34,9 +34,16 @@ def card():
     return torch.device("cuda")
 
 
+def smem_ran(kernel, launches):
+    """Every launch of ``kernel`` since the last reset ran the smem body."""
+    assert cuda_step.LAUNCHES[kernel] == launches
+    assert cuda_step.BODIES[kernel] == {"global": 0, "smem": launches}
+
+
 @pytest.mark.parametrize("config", list(tc.CONFIGS))
 def test_kernel_equals_plain(card, config):
     cfg = P.SimConfig(n_banks=4, n_subarrays=16, **tc.CONFIGS[config])
+    cuda_step.reset_launches()
     for pol in P.Policy:
         stacked = P.stack_traces([tc.random_trace(s, n=200, nb=4, ns=16)
                                   for s in range(40, 48)])
@@ -51,9 +58,11 @@ def test_kernel_equals_plain(card, config):
         for f in COUNTERS:
             assert torch.equal(getattr(got, f), getattr(ref, f)), (pol, f)
         assert torch.equal(got_max, ref_max)
+    smem_ran("lane_step", len(P.Policy))
 
 
 def test_golden_cells_through_the_kernel(card):
+    cuda_step.reset_launches()
     for (config, policy), cells in tc.golden_groups().items():
         res = P.simulate_stacked(tc.golden_stacked(cells), P.Policy[policy],
                                  P.SimConfig(**tc.CONFIGS[config]),
@@ -61,13 +70,14 @@ def test_golden_cells_through_the_kernel(card):
         got = [{f: int(getattr(res, f)[b]) for f in COUNTERS}
                for b in range(len(cells))]
         assert got == [c["counters"] for c in cells], (config, policy)
+    smem_ran("lane_step", len(tc.golden_groups()))
 
 
 def test_one_launch_per_call_and_refusals(card):
     stacked = P.stack_traces([tc.random_trace(s) for s in range(4)])
     cuda_step.reset_launches()
     res = P.simulate_stacked(stacked, P.Policy.MASA, device=None)
-    assert cuda_step.LAUNCHES["lane_step"] == 1
+    smem_ran("lane_step", 1)
     assert res.n_act.is_cuda and res.n_act.dtype == torch.int32
     eff, nb, ns, xs, mlp = lane_inputs(stacked, P.Policy.MASA, P.SimConfig(),
                                        card)
@@ -94,6 +104,7 @@ def random_mix_inputs(config, policy, M, C, N, seed, device):
 
 @pytest.mark.parametrize("config", list(tc.CONFIGS))
 def test_mix_kernel_equals_plain(card, config):
+    cuda_step.reset_launches()
     for k, sched in enumerate(P.Scheduler):
         for pol in (P.Policy.BASELINE, P.Policy.MASA, P.Policy.IDEAL):
             cfg = P.SimConfig(n_banks=4, n_subarrays=16, scheduler=sched,
@@ -114,9 +125,11 @@ def test_mix_kernel_equals_plain(card, config):
                 assert torch.equal(getattr(got, f), getattr(ref, f)), \
                     (sched, pol, f)
             assert torch.equal(got_max, ref_max)
+    smem_ran("mix_step", 3 * len(P.Scheduler))
 
 
 def test_golden_multicore_cells_through_the_kernel(card):
+    cuda_step.reset_launches()
     for (config, sched, policy), cells in tc.golden_multicore_groups().items():
         res = P.simulate_multicore_batch(
             [tc.golden_mix(c["seed"]) for c in cells], P.Policy[policy],
@@ -125,6 +138,9 @@ def test_golden_multicore_cells_through_the_kernel(card):
                 [int(x) for x in r.core_cycles]) for r in res]
         assert got == [(c["counters"], c["core_cycles"]) for c in cells], \
             (config, sched, policy)
+    smem_ran("mix_step", cuda_step.LAUNCHES["mix_step"])
+    smem_ran("lane_step", cuda_step.LAUNCHES["lane_step"])
+    assert cuda_step.LAUNCHES["mix_step"] == len(tc.golden_multicore_groups())
 
 
 def test_one_mix_launch_per_call_and_refusals(card):
@@ -132,6 +148,7 @@ def test_one_mix_launch_per_call_and_refusals(card):
     cuda_step.reset_launches()
     res = P.simulate_multicore_batch(mixes, P.Policy.MASA, device=None)
     assert cuda_step.LAUNCHES == {"lane_step": 1, "mix_step": 1}
+    smem_ran("mix_step", 1)
     assert res[0].shared.n_act.is_cuda
     eff, sc_, nb, ns, reqs, mlp, rank = random_mix_inputs(
         P.SimConfig(), P.Policy.MASA, 2, 2, 16, 0, card)
@@ -143,6 +160,145 @@ def test_one_mix_launch_per_call_and_refusals(card):
         cuda_step.simulate_cores(eff, sc_, nb, ns, t, 0, reqs, mlp,
                                  rank.cpu())
     assert cuda_step.LAUNCHES["mix_step"] == 1
+
+
+# ------------------------------------------- the DRAM kernels' two bodies
+def lane_equals_plain(card, cfg, pol, seeds, n, body=None, warps=None):
+    """The lane kernel (``body`` forced, or as body() picks) == plain."""
+    nb, ns = cfg.n_banks, cfg.n_subarrays
+    stacked = P.stack_traces([tc.random_trace(s, n=n, nb=nb, ns=ns)
+                              for s in seeds])
+    eff, knb, kns, xs, mlp = lane_inputs(stacked, pol, cfg, card)
+    args = (eff, knb, kns, cfg.timing, cfg.refresh_mode, xs, mlp,
+            cfg.row_policy == "closed")
+    got = cuda_step._launch(*args, _body=body, _warps=warps)
+    ref = cuda_step.simulate_lanes_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), (pol, body)
+    return cuda_step.body(knb, kns, cfg.refresh_mode)
+
+
+def mix_equals_plain(card, cfg, pol, M, C, N, seed, body=None, warps=None,
+                     identical=False):
+    """The mix kernel (``body`` forced, or as body() picks) == plain; with
+    ``identical`` every core of a mix runs the same trace."""
+    if identical:
+        st = [P.stack_traces([tc.random_trace(seed + m, n=N,
+                                              nb=cfg.n_banks,
+                                              ns=cfg.n_subarrays)] * C)
+              for m in range(M)]
+        stacked = {k: np.stack([s[k] for s in st]) for k in st[0]}
+        ranks = np.tile(np.arange(C, dtype=np.int32), (M, 1))
+        args = mix_inputs(stacked, ranks, pol, cfg, card)
+    else:
+        args = random_mix_inputs(cfg, pol, M, C, N, seed, card)
+    eff, sched, nb, ns, reqs, mlp, rank = args
+    full = (eff, sched, nb, ns, cfg.timing, cfg.refresh_mode, reqs, mlp,
+            rank, cfg.row_policy == "closed")
+    got = cuda_step._launch_cores(*full, _body=body, _warps=warps)
+    ref = cuda_step.simulate_cores_plain(*full)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), (pol, body, C)
+    return cuda_step.body(nb, ns, cfg.refresh_mode, C)
+
+
+@pytest.mark.parametrize("body", ["smem", "global"])
+@pytest.mark.parametrize("config", list(tc.CONFIGS))
+def test_both_lane_bodies_equal_plain(card, config, body):
+    cfg = P.SimConfig(n_banks=4, n_subarrays=16, **tc.CONFIGS[config])
+    cuda_step.reset_launches()
+    for pol in P.Policy:
+        lane_equals_plain(card, cfg, pol, range(70, 75), 150, body=body)
+    assert cuda_step.BODIES["lane_step"][body] == len(P.Policy)
+
+
+@pytest.mark.parametrize("body", ["smem", "global"])
+@pytest.mark.parametrize("config", list(tc.CONFIGS))
+def test_both_mix_bodies_equal_plain(card, config, body):
+    cuda_step.reset_launches()
+    n = 0
+    for sched in P.Scheduler:
+        for pol in P.Policy:
+            cfg = P.SimConfig(n_banks=4, n_subarrays=16, scheduler=sched,
+                              **tc.CONFIGS[config])
+            mix_equals_plain(card, cfg, pol, 3, 3, 16, 80 + int(sched),
+                             body=body)
+            n += 1
+    assert cuda_step.BODIES["mix_step"][body] == n
+
+
+def test_over_budget_geometry_takes_the_global_body(card):
+    """16 x 1024 (a 328 KB plane) is over a block's shared memory: body()
+    sends it to the global body, and forcing smem is refused."""
+    cuda_step.reset_launches()
+    for config in ("default", "closed_refresh", "darp"):
+        cfg = P.SimConfig(n_banks=16, n_subarrays=1024, **tc.CONFIGS[config])
+        assert lane_equals_plain(card, cfg, P.Policy.SALP1, range(3), 60) \
+            == "global"
+        assert mix_equals_plain(card, cfg, P.Policy.BASELINE, 2, 2, 30, 5) \
+            == "global"
+    assert cuda_step.BODIES == {"lane_step": {"global": 3, "smem": 0},
+                                "mix_step": {"global": 3, "smem": 0}}
+    with pytest.raises(ValueError, match="does not take"):
+        lane_equals_plain(card, P.SimConfig(n_banks=16, n_subarrays=1024),
+                          P.Policy.MASA, range(2), 8, body="smem")
+
+
+@pytest.mark.parametrize("identical", [False, True])
+@pytest.mark.parametrize("sched", list(P.Scheduler))
+@pytest.mark.parametrize("C", [40, 4])
+def test_mix_cores_past_a_warp_and_ties(card, C, sched, identical):
+    """C = 40 keys two cores on lanes 0-7; identical traces make every key
+    tie, so the lowest core must win, as jnp.argmin's does."""
+    cfg = P.SimConfig(scheduler=sched)
+    cuda_step.reset_launches()
+    for pol in (P.Policy.BASELINE, P.Policy.MASA):
+        assert mix_equals_plain(card, cfg, pol, 3, C, 8 if C > 32 else 40,
+                                90, identical=identical) == "smem"
+    smem_ran("mix_step", 2)
+
+
+@pytest.mark.parametrize("config", ["closed", "closed_refresh", "sarp",
+                                    "darp", "refresh", "per_bank"])
+def test_ns64_warp_split_loops(card, config):
+    """At ns 64 the refresh close and the closed-row BASELINE / SALP-1 bump
+    run split over the warp's 32 lanes, two rows a lane."""
+    cfg = P.SimConfig(n_banks=2, n_subarrays=64, **tc.CONFIGS[config])
+    cuda_step.reset_launches()
+    for pol in (P.Policy.BASELINE, P.Policy.SALP1, P.Policy.SALP2,
+                P.Policy.MASA):
+        lane_equals_plain(card, cfg, pol, range(20, 26), 300)
+        mix_equals_plain(card, P.SimConfig(n_banks=2, n_subarrays=64,
+                                           scheduler=P.Scheduler.FRFCFS,
+                                           **tc.CONFIGS[config]),
+                         pol, 3, 4, 60, 31)
+    smem_ran("lane_step", 4)
+    smem_ran("mix_step", 4)
+
+
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 63, 64, 65, 101])
+def test_streams_not_a_multiple_of_the_chunk(card, n):
+    """N around and between multiples of the 16-request staging chunk."""
+    cfg = P.SimConfig(refresh=True)
+    cuda_step.reset_launches()
+    lane_equals_plain(card, cfg, P.Policy.MASA, range(4), n)
+    mix_equals_plain(card, P.SimConfig(refresh=True,
+                                       scheduler=P.Scheduler.FRFCFS),
+                     P.Policy.SALP2, 2, 3, n, 12)
+    smem_ran("lane_step", 1)
+    smem_ran("mix_step", 1)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 3, 4])
+def test_warps_a_block(card, warps):
+    """1-4 chains a block, with chain counts that leave a block part empty."""
+    cfg = P.SimConfig(scheduler=P.Scheduler.FRFCFS)
+    lane_equals_plain(card, cfg, P.Policy.MASA, range(7), 90, body="smem",
+                      warps=warps)
+    mix_equals_plain(card, cfg, P.Policy.MASA, 5, 4, 30, 3, body="smem",
+                     warps=warps)
 
 
 # ---------------------------------------------------------------- SSD scan
