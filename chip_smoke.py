@@ -48,9 +48,10 @@ on any mismatch:
                 (global, smem, smem, global), at the main paths' shapes and
                 at throughput shapes, with nvidia-smi's SM clock sampled
                 meanwhile: ms, us and cycles a step, req/s, beside the byte
-                bound and the chain bound (steps a chain x one step's
-                critical path as counted from the smem bodies' code); and
-                the smem lane kernel at 1 and 4 chains a block.
+                bound; a log line adds a chain estimate (steps a chain x
+                one step's critical path as counted by hand from the smem
+                bodies' code, at assumed latencies: not measured, and not
+                in the result line).
 11. ssd       — the SSD-scan kernel vs its plain version on the card, in
                 float32 (rtol = atol = 2e-4) and bfloat16 (2e-2), at
                 tests/test_kernels.py's sweep, mamba2-780m's serve shape,
@@ -139,9 +140,10 @@ PEAK_32BIT_OPS_PER_S = 67e12
 OPS_PER_STEP = 80
 OPS_PER_HEAD = 40
 
-#: One step's critical path in the smem bodies, counted from their code at
-#: the timed shapes (open row): dependent shared-memory reads, dependent
-#: integer ops and warp collectives, at the cycles below. Lane: the bank-
+#: One step's critical path in the smem bodies, counted by hand from their
+#: code at the timed shapes (open row): dependent shared-memory reads,
+#: dependent integer ops and warp collectives, at the assumed (not measured)
+#: cycles below; the chain estimate it gives is logged only. Lane: the bank-
 #: vector row, then the other subarray's row it names; about 25 ops (the
 #: visibility's 3, the row address's 3, the ACT max-chain's 8, the column
 #: command's 9, the completion's 2). Mix: the key's open row, the two rows
@@ -201,10 +203,12 @@ def check_smem(phase: str, *kernels: str) -> None:
                  f"run the smem body")
 
 
-def step_cycles(path: dict) -> int:
-    """Cycles of one step's critical path (``*_STEP_PATH``)."""
-    return (path["reads"] * SMEM_READ_CYCLES + path["ops"] * INT_OP_CYCLES
-            + path["collectives"] * COLLECTIVE_CYCLES)
+def chain_estimate_ms(steps: int, path: dict, mhz: float) -> float:
+    """``steps`` of a chain at one step's counted critical path
+    (``*_STEP_PATH``) and the sampled clock: an estimate, logged only."""
+    cycles = (path["reads"] * SMEM_READ_CYCLES + path["ops"] * INT_OP_CYCLES
+              + path["collectives"] * COLLECTIVE_CYCLES)
+    return steps * cycles / (mhz * 1e3)
 
 
 class SmClock:
@@ -246,13 +250,13 @@ def time_bodies(launch, reps: int, warmup: int = 2) -> tuple[float, float]:
     return (g1 + g2) / 2, (s1 + s2) / 2
 
 
-def lane_launch(eff, nb, ns, config, xs, mlp, body=None, warps=None):
+def lane_launch(eff, nb, ns, config, xs, mlp, body=None):
     """One lane-kernel launch in ``body`` (timing only)."""
     from repro_torch.core.dram import cuda_step
 
     return cuda_step._launch(eff, nb, ns, config.timing, config.refresh_mode,
                              xs, mlp, config.row_policy == "closed",
-                             _body=body, _warps=warps)
+                             _body=body)
 
 
 def mix_launch(args, config, body=None):
@@ -631,31 +635,23 @@ def phase_fig4():
         fail(f"fig4: kernel and plain differ on the card by up to {err}")
     log(f"[fig4] kernel == plain on the card (max abs err {err})")
 
-    # ---- kernel timing at the Fig. 4 shapes: both bodies in turns, and the
-    # smem body at 1 and 4 chains a block (1, 4, 4, 1)
+    # ---- kernel timing at the Fig. 4 shapes: both bodies in turns
     B, N = len(pr.PAPER_WORKLOADS), FIG4_N
-    global_ms, kernel_ms, warps_ms = [], [], {1: [], 4: []}
+    global_ms, kernel_ms = [], []
     with SmClock() as clock:
         for pol, args in inputs.items():
             g, k = time_bodies(lambda b, a=args: lane_launch(
                 *a[:3], config, *a[3:], body=b), reps=20)
             global_ms.append(g)
             kernel_ms.append(k)
-            for w in (1, 4, 4, 1):
-                warps_ms[w].append(time_ms(lambda a=args, w=w: lane_launch(
-                    *a[:3], config, *a[3:], body="smem", warps=w), reps=20))
     for pol, g, k, p in zip(inputs, global_ms, kernel_ms, plain_ms):
         log(f"[timing] fig4 {pol.name:8s} B={B} N={N}: smem {k:.4f} ms, "
             f"global {g:.4f} ms, plain {p:.1f} ms")
     n_pol = len(kernel_ms)
-    warps = {f"warps_{w}_ms": sum(v) / len(v) for w, v in warps_ms.items()}
-    log(f"[timing] fig4 smem body by chains a block: 1: "
-        f"{warps['warps_1_ms']:.4f} ms, 4: {warps['warps_4_ms']:.4f} ms "
-        f"(mean of 5 policies, in turns 1, 4, 4, 1)")
     return dict(launches=launches["lane_step"], max_abs_err=err,
                 ms=sum(kernel_ms) / n_pol, global_ms=sum(global_ms) / n_pol,
                 plain_ms=sum(plain_ms) / len(plain_ms), B=B, N=N,
-                clock_mhz=clock.mhz, **warps)
+                clock_mhz=clock.mhz)
 
 
 def phase_throughput(smi: str):
@@ -677,15 +673,14 @@ def phase_throughput(smi: str):
     b_ms, _ = bound(B, N)
     row = dict(B=B, N=N, body="smem", ms=k_ms, global_ms=g_ms, plain_ms=p_ms,
                bound_ms=b_ms, req_per_s=B * N / k_ms * 1e3,
-               chain_bound_ms=N * step_cycles(LANE_STEP_PATH)
-               / (clock.mhz * 1e3), clock_mhz=clock.mhz,
-               **per_step(k_ms, N, clock.mhz))
+               clock_mhz=clock.mhz, **per_step(k_ms, N, clock.mhz))
     log(f"[timing] throughput MASA B={B} N={N}: smem {k_ms:.4f} ms "
         f"({row['req_per_s']:.4e} req/s, {row['us_per_step']:.4f} us, "
         f"{row['cycles_per_step']:.0f} cycles a step at {clock.mhz:.0f} MHz), "
         f"global {g_ms:.4f} ms, plain {p_ms:.1f} ms "
         f"({B * N / p_ms * 1e3:.4e} req/s), byte bound {b_ms:.5f} ms, chain "
-        f"bound {row['chain_bound_ms']:.4f} ms; card {smi}")
+        f"estimate {chain_estimate_ms(N, LANE_STEP_PATH, clock.mhz):.4f} ms; "
+        f"card {smi}")
     return row
 
 
@@ -704,12 +699,28 @@ def mix_bound(M: int, C: int, N: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_multicore(smi: str):
-    import torch_cases as tc
+def mix_bench_args(pol, sched, n: int, seeds):
+    """``(mix kernel inputs on the card, config)`` of ``run_multicore``'s
+    four mixes of ``n`` requests a core, once per seed."""
     from repro_torch import interop
-    from repro_torch.core.dram import Policy, Scheduler, SimConfig, cuda_step
+    from repro_torch import paper_repro as pr
+    from repro_torch.core.dram import SimConfig
     from repro_torch.core.dram.engine import mix_inputs
     from repro_torch.core.dram.multicore import _prep_mix
+
+    prepped = [_prep_mix(pr.mix_traces(m, n, seed))
+               for seed in seeds for m in pr.MIXES]
+    stacked = {k: np.stack([p[0][k] for p in prepped])
+               for k in interop.STACKED_FIELDS}
+    ranks = np.stack([p[1] for p in prepped])
+    config = SimConfig(scheduler=sched)
+    return mix_inputs(stacked, ranks, pol, config,
+                      torch.device("cuda")), config
+
+
+def phase_multicore(smi: str):
+    import torch_cases as tc
+    from repro_torch.core.dram import Policy, Scheduler, cuda_step
     from repro_torch import paper_repro as pr
 
     # ---- the main path, counted
@@ -750,18 +761,8 @@ def phase_multicore(smi: str):
     log(pr.multicore_report(pr.multicore_summary(mc), pr.sched_summary(sc)))
 
     # ---- kernel vs plain at full size (MASA, FR-FCFS); plain timed once
-    def bench_args(pol, sched, n, seeds):
-        prepped = [_prep_mix(pr.mix_traces(m, n, seed))
-                   for seed in seeds for m in pr.MIXES]
-        stacked = {k: np.stack([p[0][k] for p in prepped])
-                   for k in interop.STACKED_FIELDS}
-        ranks = np.stack([p[1] for p in prepped])
-        config = SimConfig(scheduler=sched)
-        return mix_inputs(stacked, ranks, pol, config,
-                          torch.device("cuda")), config
-
-    args, config = bench_args(Policy.MASA, Scheduler.FRFCFS, pr.MULTICORE_N,
-                              [FIG4_SEED])
+    args, config = mix_bench_args(Policy.MASA, Scheduler.FRFCFS,
+                                  pr.MULTICORE_N, [FIG4_SEED])
     got = mix_kernel_result(args, config)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -784,7 +785,7 @@ def phase_multicore(smi: str):
     global_ms, kernel_ms = [], []
     with SmClock() as clock:
         for pol, sched in points:
-            a, cfg = bench_args(pol, sched, N, [FIG4_SEED])
+            a, cfg = mix_bench_args(pol, sched, N, [FIG4_SEED])
             g, k = time_bodies(lambda b, a=a, c=cfg: mix_launch(a, c, b),
                                reps=10)
             global_ms.append(g)
@@ -794,16 +795,17 @@ def phase_multicore(smi: str):
     ms = sum(kernel_ms) / len(kernel_ms)
     b_ms, b_by = mix_bound(M, C, N)
     steps = C * N
-    chain_ms = steps * step_cycles(MIX_STEP_PATH) / (clock.mhz * 1e3)
+    chain_ms = chain_estimate_ms(steps, MIX_STEP_PATH, clock.mhz)
     log(f"[timing] multicore per launch (mean of {len(points)} points): "
         f"smem {ms:.4f} ms, global {sum(global_ms) / len(global_ms):.4f} ms, "
         f"plain (MASA FR-FCFS) {plain_ms:.1f} ms, bound {b_ms:.5f} ms "
-        f"({b_by}), chain bound {chain_ms:.4f} ms; "
+        f"({b_by}), chain estimate {chain_ms:.4f} ms; "
         f"{M * C * N / ms * 1e3:.4e} req/s; card {smi}")
 
     # ---- throughput shape, both bodies in turns
     seeds = range(FIG4_SEED, FIG4_SEED + MIX_THROUGHPUT_SEEDS)
-    a, cfg = bench_args(Policy.MASA, Scheduler.FRFCFS, MIX_THROUGHPUT_N, seeds)
+    a, cfg = mix_bench_args(Policy.MASA, Scheduler.FRFCFS, MIX_THROUGHPUT_N,
+                            seeds)
     tM, tN = a[4].shape[0], a[4].shape[2]
     with SmClock() as t_clock:
         tg_ms, t_ms = time_bodies(lambda b: mix_launch(a, cfg, b), reps=3,
@@ -811,19 +813,18 @@ def phase_multicore(smi: str):
     tb_ms, _ = mix_bound(tM, C, tN)
     thr = dict(M=tM, C=C, N=tN, body="smem", ms=t_ms, global_ms=tg_ms,
                bound_ms=tb_ms, req_per_s=tM * C * tN / t_ms * 1e3,
-               chain_bound_ms=C * tN * step_cycles(MIX_STEP_PATH)
-               / (t_clock.mhz * 1e3), clock_mhz=t_clock.mhz,
-               **per_step(t_ms, C * tN, t_clock.mhz))
+               clock_mhz=t_clock.mhz, **per_step(t_ms, C * tN, t_clock.mhz))
     log(f"[timing] mix throughput MASA FR-FCFS M={tM} C={C} N={tN}: smem "
         f"{t_ms:.4f} ms ({thr['req_per_s']:.4e} req/s, "
         f"{thr['us_per_step']:.4f} us, {thr['cycles_per_step']:.0f} cycles a "
         f"step at {t_clock.mhz:.0f} MHz), global {tg_ms:.4f} ms, byte bound "
-        f"{tb_ms:.5f} ms, chain bound {thr['chain_bound_ms']:.4f} ms; "
+        f"{tb_ms:.5f} ms, chain estimate "
+        f"{chain_estimate_ms(C * tN, MIX_STEP_PATH, t_clock.mhz):.4f} ms; "
         f"card {smi}")
     return dict(launches=launches, max_abs_err=err, ms=ms,
                 global_ms=sum(global_ms) / len(global_ms), plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, M=M, C=C, N=N, body="smem",
-                chain_bound_ms=chain_ms, clock_mhz=clock.mhz,
+                clock_mhz=clock.mhz,
                 req_per_s=M * C * N / ms * 1e3,
                 **per_step(ms, steps, clock.mhz), throughput=thr)
 
@@ -1605,15 +1606,14 @@ def main() -> None:
     ktime = run_phase("kernel_time", phase_kernel_time, smi)
     b_ms, b_by = bound(fig4["B"], fig4["N"])
     fig4.update(per_step(fig4["ms"], fig4["N"], fig4["clock_mhz"]),
-                chain_bound_ms=fig4["N"] * step_cycles(LANE_STEP_PATH)
-                / (fig4["clock_mhz"] * 1e3),
                 req_per_s=fig4["B"] * fig4["N"] / fig4["ms"] * 1e3)
+    chain_ms = chain_estimate_ms(fig4["N"], LANE_STEP_PATH, fig4["clock_mhz"])
     log(f"[timing] fig4 per launch (mean of 5 policies): smem "
         f"{fig4['ms']:.4f} ms ({fig4['us_per_step']:.4f} us, "
         f"{fig4['cycles_per_step']:.0f} cycles a step at "
         f"{fig4['clock_mhz']:.0f} MHz), global {fig4['global_ms']:.4f} ms, "
         f"plain {fig4['plain_ms']:.1f} ms, bound {b_ms:.5f} ms ({b_by}), "
-        f"chain bound {fig4['chain_bound_ms']:.4f} ms; "
+        f"chain estimate {chain_ms:.4f} ms; "
         f"{fig4['req_per_s']:.4e} req/s; card {smi}")
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -1631,8 +1631,7 @@ def main() -> None:
         "ms": fig4["ms"], "plain_ms": fig4["plain_ms"], "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "body": "smem",
         **{k: fig4[k] for k in ("global_ms", "us_per_step", "cycles_per_step",
-                                "chain_bound_ms", "clock_mhz", "req_per_s",
-                                "warps_1_ms", "warps_4_ms")},
+                                "clock_mhz", "req_per_s")},
         "shape": f"B={fig4['B']} N={fig4['N']} (Fig. 4, mean of 5 policies; "
                  f"ms the smem body, global_ms the global body, in turns)",
         "throughput": thr}, {
@@ -1645,7 +1644,7 @@ def main() -> None:
         "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
         "library_ms": None, "body": "smem",
         **{k: mc[k] for k in ("global_ms", "us_per_step", "cycles_per_step",
-                              "chain_bound_ms", "clock_mhz", "req_per_s")},
+                              "clock_mhz", "req_per_s")},
         "shape": f"M={mc['M']} C={mc['C']} N={mc['N']} (run_multicore, "
                  f"mean of 7 points; plain_ms MASA FR-FCFS; ms the smem body, "
                  f"global_ms the global body, in turns)",

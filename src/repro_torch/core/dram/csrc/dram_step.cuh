@@ -11,8 +11,8 @@
 // lane's or one mix's) packed [nb][ns + 1][SA_F] bank/subarray plane (row ns
 // of each bank is the bank-vector row), completion ring(s) and [nb][REF_F]
 // refresh table live in one block of ints: the chain's slice of a global
-// scratch buffer in the "global" bodies (one thread a chain), the warp's
-// slice of dynamic shared memory in the "smem" bodies (one warp a chain);
+// scratch buffer in the "global" bodies (one thread a chain), the
+// block's dynamic shared memory in the "smem" bodies (one warp a chain);
 // cuda_step.body() picks the body by shape before the launch. The channel
 // scalars and the ACT history stay in registers (Channel).
 //
@@ -347,13 +347,26 @@ __device__ __forceinline__ int timing_step(int* sa, Channel& ch, int hb, int s,
   sc[SC_OPEN_COUNT] += (act_needed ? 1 : 0) - (pre_oth ? 1 : 0)
                        - (pre_own ? 1 : 0);
 
-  // own subarray: PRE, then ACT, then the column command's recovery
+  // every lane has read what this step reads of the plane (and, in the mix
+  // kernel, its keys' rows) before any lane stores
+  if (WARP) __syncwarp();
+
+  // other subarray's PRE (non-MASA); pre_oth implies so != s
+  if (pre_oth) {
+    oth[SA_OPEN_ROW] = NEG;
+    oth[SA_PRE_DONE] = t_pre_other + t[T_RP];
+  }
+  // own subarray: PRE, then ACT, then the column command's recovery (its
+  // open row and precharge-done are stored below, once final)
   int own_open = act_needed ? w : orow;
   int pre_new = pre_own ? t_pre_own + t[T_RP] : own_pre;
+  own[SA_ACT_DONE] = act_needed ? t_act + t[T_RCD] : own_act;
   int ras = act_needed ? t_act + t[T_RAS] : own_ras;
   int wrr = act_needed ? 0 : own_wrr;
   if (is_wr) wrr = imax(wrr, data_end + t[T_WR]);
   else ras = imax(ras, t_col + t[T_RTP]);
+  own[SA_RAS_DONE] = ras;
+  own[SA_WRR_DONE] = wrr;
   const int last_act_new = act_needed ? t_act : last_act_bank;
   if (act_needed) {
     ch.ah0 = ch.ah1; ch.ah1 = ch.ah2; ch.ah2 = ch.ah3; ch.ah3 = t_act;
@@ -387,20 +400,8 @@ __device__ __forceinline__ int timing_step(int* sa, Channel& ch, int hb, int s,
     sc[SC_OPEN_COUNT] -= act_needed ? 1 : 0;
   }
 
-  // every lane has read what this step reads of the plane (and, in the mix
-  // kernel, its keys' rows) before any lane stores
-  if (WARP) __syncwarp();
-
-  // other subarray's PRE (non-MASA); pre_oth implies so != s
-  if (pre_oth) {
-    oth[SA_OPEN_ROW] = NEG;
-    oth[SA_PRE_DONE] = t_pre_other + t[T_RP];
-  }
   own[SA_OPEN_ROW] = own_open;
   own[SA_PRE_DONE] = pre_new;
-  own[SA_ACT_DONE] = act_needed ? t_act + t[T_RCD] : own_act;
-  own[SA_RAS_DONE] = ras;
-  own[SA_WRR_DONE] = wrr;
   if (ref_pending && sa_granular && ref_target != s)
     bk[ref_target * SA_F + SA_OPEN_ROW] = NEG;
 

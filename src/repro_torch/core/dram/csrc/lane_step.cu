@@ -19,13 +19,13 @@
 //    indexed by data (the packed [nb][ns + 1][5] bank/subarray plane, the
 //    64-entry completion ring, the [nb][5] refresh table) and its request
 //    stream, staged in chunks by cp.async (dram_step.cuh stage_chunk), live
-//    in the warp's slice of dynamic shared memory, so a step's dependent
+//    in its block's dynamic shared memory, so a step's dependent
 //    reads (the bank-vector row, then the other subarray's row it names)
 //    are shared-memory reads and no global load sits on the chain. All 32
 //    lanes run the step uniformly; they split the O(ns) loops of the
 //    refresh close and the closed-row bump. The next request is read a step
-//    ahead, and the last completion stays in a register. One to four warps
-//    a block, as the wrapper asks.
+//    ahead, and the last completion stays in a register. One warp a block:
+//    a chain is latency-bound, so the chains spread over the SMs.
 //  * global (lane_step_global): one thread a lane, the same state in a
 //    per-lane slice of a scratch buffer the wrapper allocates, in blocks of
 //    32 threads; for geometries whose state does not fit a block's shared
@@ -102,8 +102,8 @@ __global__ void lane_step_global(const int* __restrict__ xs,
   max_out[lane] = max_comp;
 }
 
-// One warp a lane; the warp's `chain_ints` ints of dynamic shared memory
-// hold the plane, the ring, the refresh table and the request ring.
+// One warp a lane, one lane a block; the block's dynamic shared memory
+// holds the plane, the ring, the refresh table and the request ring.
 __global__ void lane_step_smem(const int* __restrict__ xs,
                                const int* __restrict__ mlp_in,
                                const int* __restrict__ timing,
@@ -111,18 +111,15 @@ __global__ void lane_step_smem(const int* __restrict__ xs,
                                int* __restrict__ vis_out,
                                int* __restrict__ max_out,
                                int B, int N, int nb, int ns, int policy,
-                               int refresh_mode, int closed_row,
-                               int chain_ints) {
+                               int refresh_mode, int closed_row) {
   extern __shared__ int smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int chain = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (chain >= B) return;                        // the whole warp
+  const int lane = threadIdx.x, chain = blockIdx.x;
 
   int t[T_F];
 #pragma unroll
   for (int k = 0; k < T_F; ++k) t[k] = timing[k];
 
-  int* sa = smem + (size_t)warp * chain_ints;    // [nb][ns + 1][SA_F]
+  int* sa = smem;                                // [nb][ns + 1][SA_F]
   int* ring = sa + nb * (ns + 1) * SA_F;         // [RING]
   int* ref = ring + RING;                        // [nb][REF_F]
   int* stage = ref + (refresh_mode ? nb * REF_F : 0);  // [STAGE_D][STAGE_K][RQ_F]
@@ -190,8 +187,8 @@ __global__ void lane_step_smem(const int* __restrict__ xs,
 // xs [B, N, RQ_F], mlp [B], timing [T_F], sc_out [B, SC_F], vis_out [B],
 // max_out [B]; scratch [B, lane_scratch_ints()] for the global body (body
 // 0), unused by the smem body (body 1), which takes `chain_bytes` of shared
-// memory a lane (cuda_step.chain_bytes) and `warps` lanes a block. Launches
-// on `stream` and returns the CUDA error code (0 on success).
+// memory a lane (cuda_step.chain_bytes). Launches on `stream` and returns
+// the CUDA error code (0 on success).
 extern "C" int lane_scratch_ints(int nb, int ns, int refresh_mode) {
   return nb * (ns + 1) * SA_F + RING + (refresh_mode ? nb * REF_F : 0);
 }
@@ -201,7 +198,7 @@ extern "C" int lane_step_launch(const void* xs, const void* mlp,
                                 void* sc_out, void* vis_out, void* max_out,
                                 int B, int N, int nb, int ns, int policy,
                                 int refresh_mode, int closed_row, int body,
-                                int chain_bytes, int warps, void* stream) {
+                                int chain_bytes, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (body == 0) {
     const int threads = 32;
@@ -212,14 +209,12 @@ extern "C" int lane_step_launch(const void* xs, const void* mlp,
         refresh_mode, closed_row);
     return (int)cudaGetLastError();
   }
-  if (body != 1 || warps < 1 || warps > 4 || chain_bytes % 4)
-    return (int)cudaErrorInvalidValue;
-  const int smem = warps * chain_bytes;
-  const int err = allow_smem(lane_step_smem, smem);
+  if (body != 1) return (int)cudaErrorInvalidValue;
+  const int err = allow_smem(lane_step_smem, chain_bytes);
   if (err) return err;
-  lane_step_smem<<<(B + warps - 1) / warps, 32 * warps, smem, st>>>(
+  lane_step_smem<<<B, 32, chain_bytes, st>>>(
       (const int*)xs, (const int*)mlp, (const int*)timing, (int*)sc_out,
       (int*)vis_out, (int*)max_out, B, N, nb, ns, policy, refresh_mode,
-      closed_row, chain_bytes / 4);
+      closed_row);
   return (int)cudaGetLastError();
 }

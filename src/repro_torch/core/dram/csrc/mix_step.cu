@@ -25,14 +25,14 @@
 //    lane holds its cores' rows (ptr, vis_prev, max_comp), last completion,
 //    head and next request in registers; the mix's plane, [C][64] rings,
 //    [nb][5] refresh table and each core's request ring, staged in chunks
-//    by cp.async (dram_step.cuh stage_chunk), live in the warp's slice of
+//    by cp.async (dram_step.cuh stage_chunk), live in its block's
 //    dynamic shared memory. A step keys the heads in parallel, takes the
 //    argmin with __reduce_min_sync and __ballot_sync, hands the served
 //    head's fields and refresh directive to every lane by __shfl_sync, and
 //    all lanes then run the served step uniformly (each carries the channel
 //    scalars, so the next keys read the bus from a register). The served
-//    core's owner lane writes its ring slot and moves its head on. One to
-//    four warps a block, as the wrapper asks.
+//    core's owner lane writes its ring slot and moves its head on. One warp
+//    a block: a mix is latency-bound, so the mixes spread over the SMs.
 //  * global (mix_step_global): one thread a mix, the same state in a
 //    per-mix slice of a scratch buffer the wrapper allocates, in blocks of
 //    32 threads; for geometries whose state does not fit a block's shared
@@ -222,10 +222,10 @@ struct Core {
   Req head, nxt;
 };
 
-// One warp a mix; lane c keys cores c, c + 32, ... (CPL slots a lane, so
-// C <= 32 * CPL). The warp's `chain_ints` ints of dynamic shared memory
-// hold the plane, the [C][RING] rings, the refresh table and the [C]
-// request rings.
+// One warp a mix, one mix a block; lane c keys cores c, c + 32, ... (CPL
+// slots a lane, so C <= 32 * CPL). The block's dynamic shared memory holds
+// the plane, the [C][RING] rings, the refresh table and the [C] request
+// rings.
 template <int CPL>
 __global__ void mix_step_smem(const int* __restrict__ reqs,
                               const int* __restrict__ mlp_in,
@@ -236,11 +236,9 @@ __global__ void mix_step_smem(const int* __restrict__ reqs,
                               int* __restrict__ max_out,
                               int M, int C, int N, int nb, int ns,
                               int policy, int scheduler, int refresh_mode,
-                              int closed_row, int chain_ints) {
+                              int closed_row) {
   extern __shared__ int smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (m >= M) return;                            // the whole warp
+  const int lane = threadIdx.x, m = blockIdx.x;
 
   int t[T_F];
 #pragma unroll
@@ -248,7 +246,7 @@ __global__ void mix_step_smem(const int* __restrict__ reqs,
 
   const int ns_p1 = ns + 1;
   constexpr int per_stream = STAGE_D * STAGE_K * RQ_F;
-  int* sa = smem + (size_t)warp * chain_ints;    // [nb][ns + 1][SA_F]
+  int* sa = smem;                                // [nb][ns + 1][SA_F]
   int* rings = sa + nb * ns_p1 * SA_F;           // [C][RING]
   int* ref = rings + C * RING;                   // [nb][REF_F]
   int* stage = ref + (refresh_mode ? nb * REF_F : 0);  // [C][per_stream]
@@ -414,15 +412,13 @@ int launch_smem(const void* reqs, const void* mlp, const void* rank,
                 const void* timing, void* sc_out, void* vis_out,
                 void* max_out, int M, int C, int N, int nb, int ns,
                 int policy, int scheduler, int refresh_mode, int closed_row,
-                int chain_bytes, int warps, cudaStream_t st) {
-  const int smem = warps * chain_bytes;
-  const int err = allow_smem(mix_step_smem<CPL>, smem);
+                int chain_bytes, cudaStream_t st) {
+  const int err = allow_smem(mix_step_smem<CPL>, chain_bytes);
   if (err) return err;
-  mix_step_smem<CPL><<<(M + warps - 1) / warps, 32 * warps, smem, st>>>(
+  mix_step_smem<CPL><<<M, 32, chain_bytes, st>>>(
       (const int*)reqs, (const int*)mlp, (const int*)rank,
       (const int*)timing, (int*)sc_out, (int*)vis_out, (int*)max_out, M, C,
-      N, nb, ns, policy, scheduler, refresh_mode, closed_row,
-      chain_bytes / 4);
+      N, nb, ns, policy, scheduler, refresh_mode, closed_row);
   return (int)cudaGetLastError();
 }
 
@@ -433,8 +429,8 @@ int launch_smem(const void* reqs, const void* mlp, const void* rank,
 // sc_out [M, SC_F], vis_out [M, C], max_out [M, C]; scratch
 // [M, mix_scratch_ints()] for the global body (body 0), unused by the smem
 // body (body 1, C <= 128), which takes `chain_bytes` of shared memory a mix
-// (cuda_step.chain_bytes) and `warps` mixes a block. Launches on `stream`
-// and returns the CUDA error code (0 on success).
+// (cuda_step.chain_bytes). Launches on `stream` and returns the CUDA error
+// code (0 on success).
 extern "C" int mix_scratch_ints(int nb, int ns, int C, int refresh_mode) {
   return nb * (ns + 1) * SA_F + C * (RING + CORE_F)
          + (refresh_mode ? nb * REF_F : 0);
@@ -446,7 +442,7 @@ extern "C" int mix_step_launch(const void* reqs, const void* mlp,
                                void* max_out, int M, int C, int N, int nb,
                                int ns, int policy, int scheduler,
                                int refresh_mode, int closed_row, int body,
-                               int chain_bytes, int warps, void* stream) {
+                               int chain_bytes, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (body == 0) {
     const int threads = 32;
@@ -458,13 +454,12 @@ extern "C" int mix_step_launch(const void* reqs, const void* mlp,
         closed_row);
     return (int)cudaGetLastError();
   }
-  if (body != 1 || warps < 1 || warps > 4 || chain_bytes % 4 || C > 128)
-    return (int)cudaErrorInvalidValue;
+  if (body != 1 || C > 128) return (int)cudaErrorInvalidValue;
   if (C <= 32)
     return launch_smem<1>(reqs, mlp, rank, timing, sc_out, vis_out, max_out,
                           M, C, N, nb, ns, policy, scheduler, refresh_mode,
-                          closed_row, chain_bytes, warps, st);
+                          closed_row, chain_bytes, st);
   return launch_smem<4>(reqs, mlp, rank, timing, sc_out, vis_out, max_out, M,
                         C, N, nb, ns, policy, scheduler, refresh_mode,
-                        closed_row, chain_bytes, warps, st);
+                        closed_row, chain_bytes, st);
 }

@@ -120,10 +120,9 @@ def body(n_banks: int, n_subarrays: int, refresh_mode: int,
     return "smem" if fits else "global"
 
 
-def _pick(n_banks, n_subarrays, refresh_mode, cores, forced, warps):
-    """``(body number, chain bytes, chains a block)`` of a launch: the body
-    :func:`body` picks, or ``forced``, and one chain a block, or ``warps``
-    (card tests and timing only: 1 and 4 time alike at Fig. 4, PERF.md)."""
+def _pick(n_banks, n_subarrays, refresh_mode, cores, forced):
+    """``(body number, chain bytes)`` of a launch: the body :func:`body`
+    picks, or ``forced`` (card tests and timing only)."""
     if forced is not None and forced not in BODY_NAMES:
         raise ValueError(f"unknown body {forced!r}; the bodies are "
                          f"{BODY_NAMES}")
@@ -133,14 +132,7 @@ def _pick(n_banks, n_subarrays, refresh_mode, cores, forced, warps):
         raise ValueError(f"the smem body does not take {n_banks} x "
                          f"{n_subarrays} with {cores} core(s): {nbytes} "
                          f"bytes a chain")
-    name = forced or chosen
-    if warps is None:
-        warps = 1
-    elif name == "smem" and not (
-            1 <= warps <= 4 and warps * nbytes <= cuda_build.MAX_SMEM_BYTES):
-        raise ValueError(f"{warps} chains of {nbytes} bytes do not fit a "
-                         f"block")
-    return BODY_NAMES.index(name), nbytes, warps
+    return BODY_NAMES.index(forced or chosen), nbytes
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,12 +149,12 @@ def _library(name: str) -> ctypes.CDLL:
     lib = cuda_build.load(name, SOURCES[name])
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "lane_step":
-        lib.lane_step_launch.argtypes = [vp] * 7 + [ci] * 10 + [vp]
+        lib.lane_step_launch.argtypes = [vp] * 7 + [ci] * 9 + [vp]
         lib.lane_step_launch.restype = ci
         lib.lane_scratch_ints.argtypes = [ci, ci, ci]
         lib.lane_scratch_ints.restype = ci
     else:
-        lib.mix_step_launch.argtypes = [vp] * 8 + [ci] * 12 + [vp]
+        lib.mix_step_launch.argtypes = [vp] * 8 + [ci] * 11 + [vp]
         lib.mix_step_launch.restype = ci
         lib.mix_scratch_ints.argtypes = [ci, ci, ci, ci]
         lib.mix_scratch_ints.restype = ci
@@ -229,12 +221,11 @@ def simulate_lanes(policy: int, n_banks: int, n_subarrays: int,
 
 
 def _launch(policy, n_banks, n_subarrays, t, refresh_mode, xs, mlp,
-            closed_row, *, _body=None, _warps=None):
+            closed_row, *, _body=None):
     """One launch of the lane kernel on PyTorch's current stream, in the
-    body :func:`body` picks (``_body`` / ``_warps`` force a body and the
-    chains a block: card tests and timing only)."""
-    which, nbytes, warps = _pick(n_banks, n_subarrays, refresh_mode, 1,
-                                 _body, _warps)
+    body :func:`body` picks (``_body`` forces one: card tests and timing
+    only)."""
+    which, nbytes = _pick(n_banks, n_subarrays, refresh_mode, 1, _body)
     lib = _library("lane_step")
     B, N = xs.shape[0], xs.shape[1]
     dev = xs.device
@@ -257,7 +248,7 @@ def _launch(policy, n_banks, n_subarrays, t, refresh_mode, xs, mlp,
             None if scratch is None else scratch.data_ptr(), sc.data_ptr(),
             vis.data_ptr(), maxc.data_ptr(), B, N, n_banks, n_subarrays,
             int(policy), int(refresh_mode), int(bool(closed_row)), which,
-            nbytes, warps, stream)
+            nbytes, stream)
         if err != 0:
             raise RuntimeError(f"lane_step launch failed: CUDA error {err}")
         LAUNCHES["lane_step"] += 1
@@ -325,13 +316,12 @@ def simulate_cores(policy: int, scheduler: int, n_banks: int,
 
 
 def _launch_cores(policy, scheduler, n_banks, n_subarrays, t, refresh_mode,
-                  reqs, mlp, rank, closed_row, *, _body=None, _warps=None):
+                  reqs, mlp, rank, closed_row, *, _body=None):
     """One launch of the mix kernel on PyTorch's current stream, in the
-    body :func:`body` picks (``_body`` / ``_warps`` force a body and the
-    chains a block: card tests and timing only)."""
+    body :func:`body` picks (``_body`` forces one: card tests and timing
+    only)."""
     M, C, N = reqs.shape[0], reqs.shape[1], reqs.shape[2]
-    which, nbytes, warps = _pick(n_banks, n_subarrays, refresh_mode, C,
-                                 _body, _warps)
+    which, nbytes = _pick(n_banks, n_subarrays, refresh_mode, C, _body)
     lib = _library("mix_step")
     dev = reqs.device
     with torch.cuda.device(dev):
@@ -353,7 +343,7 @@ def _launch_cores(policy, scheduler, n_banks, n_subarrays, t, refresh_mode,
             timing.data_ptr(), None if scratch is None else scratch.data_ptr(),
             sc.data_ptr(), vis.data_ptr(), maxc.data_ptr(), M, C, N, n_banks,
             n_subarrays, int(policy), int(scheduler), int(refresh_mode),
-            int(bool(closed_row)), which, nbytes, warps, stream)
+            int(bool(closed_row)), which, nbytes, stream)
         if err != 0:
             raise RuntimeError(f"mix_step launch failed: CUDA error {err}")
         LAUNCHES["mix_step"] += 1

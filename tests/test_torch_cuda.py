@@ -163,7 +163,7 @@ def test_one_mix_launch_per_call_and_refusals(card):
 
 
 # ------------------------------------------- the DRAM kernels' two bodies
-def lane_equals_plain(card, cfg, pol, seeds, n, body=None, warps=None):
+def lane_equals_plain(card, cfg, pol, seeds, n, body=None):
     """The lane kernel (``body`` forced, or as body() picks) == plain."""
     nb, ns = cfg.n_banks, cfg.n_subarrays
     stacked = P.stack_traces([tc.random_trace(s, n=n, nb=nb, ns=ns)
@@ -171,7 +171,7 @@ def lane_equals_plain(card, cfg, pol, seeds, n, body=None, warps=None):
     eff, knb, kns, xs, mlp = lane_inputs(stacked, pol, cfg, card)
     args = (eff, knb, kns, cfg.timing, cfg.refresh_mode, xs, mlp,
             cfg.row_policy == "closed")
-    got = cuda_step._launch(*args, _body=body, _warps=warps)
+    got = cuda_step._launch(*args, _body=body)
     ref = cuda_step.simulate_lanes_plain(*args)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
@@ -179,7 +179,7 @@ def lane_equals_plain(card, cfg, pol, seeds, n, body=None, warps=None):
     return cuda_step.body(knb, kns, cfg.refresh_mode)
 
 
-def mix_equals_plain(card, cfg, pol, M, C, N, seed, body=None, warps=None,
+def mix_equals_plain(card, cfg, pol, M, C, N, seed, body=None,
                      identical=False):
     """The mix kernel (``body`` forced, or as body() picks) == plain; with
     ``identical`` every core of a mix runs the same trace."""
@@ -196,7 +196,7 @@ def mix_equals_plain(card, cfg, pol, M, C, N, seed, body=None, warps=None,
     eff, sched, nb, ns, reqs, mlp, rank = args
     full = (eff, sched, nb, ns, cfg.timing, cfg.refresh_mode, reqs, mlp,
             rank, cfg.row_policy == "closed")
-    got = cuda_step._launch_cores(*full, _body=body, _warps=warps)
+    got = cuda_step._launch_cores(*full, _body=body)
     ref = cuda_step.simulate_cores_plain(*full)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
@@ -289,16 +289,6 @@ def test_streams_not_a_multiple_of_the_chunk(card, n):
                      P.Policy.SALP2, 2, 3, n, 12)
     smem_ran("lane_step", 1)
     smem_ran("mix_step", 1)
-
-
-@pytest.mark.parametrize("warps", [1, 2, 3, 4])
-def test_warps_a_block(card, warps):
-    """1-4 chains a block, with chain counts that leave a block part empty."""
-    cfg = P.SimConfig(scheduler=P.Scheduler.FRFCFS)
-    lane_equals_plain(card, cfg, P.Policy.MASA, range(7), 90, body="smem",
-                      warps=warps)
-    mix_equals_plain(card, cfg, P.Policy.MASA, 5, 4, 30, 3, body="smem",
-                     warps=warps)
 
 
 # ---------------------------------------------------------------- SSD scan

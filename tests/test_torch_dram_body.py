@@ -63,16 +63,31 @@ def test_mix_cores_the_smem_body_keys(cores, want):
     assert cuda_step.body(8, 8, 0, cores) == want
 
 
-@pytest.mark.parametrize("warps", [1, 2, 4])
-def test_chains_a_block(warps):
-    """One chain a block unless forced; a forced count must fit a block."""
-    assert cuda_step._pick(8, 8, 0, 1, None, None)[2] == 1
-    assert cuda_step._pick(8, 8, 0, 1, "smem", warps)[2] == warps
-    big = cuda_step.chain_bytes(512, 1, 1, 50)
-    assert warps * big > cuda_build.MAX_SMEM_BYTES >= big or warps == 1
-    if warps > 1:
-        with pytest.raises(ValueError, match="do not fit a block"):
-            cuda_step._pick(512, 1, 1, 50, "smem", warps)
+@pytest.mark.parametrize("entry", ["lane_step_launch", "lane_scratch_ints",
+                                   "mix_step_launch", "mix_scratch_ints"])
+def test_c_entries_match_their_declarations(monkeypatch, entry):
+    """The ctypes argument types the wrapper declares are the C entry's
+    parameters, one for one, read from the source."""
+    import ctypes
+    import types
+
+    kernel = entry.split("_")[0] + "_step"
+    src = cuda_step.SOURCES[kernel].read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1)
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in params.split(",")]
+    assert all("*" in p or p.split()[0] == "int" for p in params.split(","))
+
+    class Library:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(cuda_build, "load", lambda name, src: Library())
+    lib = cuda_step._library.__wrapped__(kernel)
+    assert getattr(lib, entry).argtypes == want
+    assert getattr(lib, entry).restype is ctypes.c_int
 
 
 def test_staging_constants_match_the_header():
@@ -115,34 +130,39 @@ def test_cpu_calls_leave_the_counts_alone():
 
 
 @pytest.mark.parametrize("kernel", ["lane", "mix"])
-@pytest.mark.parametrize("forced,warps,match", [
-    ("shared", None, "unknown body"),
-    ("SMEM", None, "unknown body"),
-    ("smem", 5, "do not fit a block"),
-    ("smem", 0, "do not fit a block"),
+@pytest.mark.parametrize("forced,over_budget,match", [
+    ("shared", False, "unknown body"),
+    ("SMEM", False, "unknown body"),
+    ("Global", True, "unknown body"),
+    ("smem", True, "does not take 16 x 1024"),
 ])
-def test_forced_body_refusals(kernel, forced, warps, match):
-    """The private keyword refuses an unknown body or a warp count that
-    cannot launch, before any library is loaded."""
+def test_forced_body_refusals(kernel, forced, over_budget, match):
+    """The private keyword refuses an unknown body, or the smem body where
+    a chain does not fit a block, before any library is loaded."""
     if kernel == "lane":
-        call = lambda: cuda_step._launch(*_lane_args(), _body=forced,  # noqa
-                                         _warps=warps)
+        args = list(_lane_args())
+        if over_budget:
+            args[1:3] = 16, 1024
+        call = lambda: cuda_step._launch(*args, _body=forced)  # noqa: E731
     else:
-        call = lambda: cuda_step._launch_cores(*_mix_args(),  # noqa
-                                               _body=forced, _warps=warps)
+        args = list(_mix_args())
+        if over_budget:
+            args[2:4] = 16, 1024
+        call = lambda: cuda_step._launch_cores(*args,  # noqa: E731
+                                               _body=forced)
     with pytest.raises(ValueError, match=match):
         call()
 
 
 def test_forcing_smem_over_budget_is_refused():
     with pytest.raises(ValueError, match="does not take 16 x 1024"):
-        cuda_step._pick(16, 1024, 0, 1, "smem", None)
+        cuda_step._pick(16, 1024, 0, 1, "smem")
     with pytest.raises(ValueError, match="does not take 8 x 8 with 200"):
-        cuda_step._pick(8, 8, 0, 200, "smem", None)
-    # global takes every shape; a body's default warps a block
-    assert cuda_step._pick(16, 1024, 0, 1, "global", None)[0] == 0
-    which, nbytes, warps = cuda_step._pick(8, 8, 0, 1, None, None)
-    assert (cuda_step.BODY_NAMES[which], nbytes, warps) == ("smem", 3232, 1)
+        cuda_step._pick(8, 8, 0, 200, "smem")
+    # global takes every shape; unforced, the body body() picks
+    assert cuda_step._pick(16, 1024, 0, 1, "global")[0] == 0
+    which, nbytes = cuda_step._pick(8, 8, 0, 1, None)
+    assert (cuda_step.BODY_NAMES[which], nbytes) == ("smem", 3232)
 
 
 @pytest.mark.parametrize("name", ["dram_step.cuh", "lane_step.cu",
