@@ -55,8 +55,11 @@ on any mismatch:
 11. ssd       — the SSD-scan kernel vs its plain version on the card, in
                 float32 (rtol = atol = 2e-4) and bfloat16 (2e-2), at
                 tests/test_kernels.py's sweep, mamba2-780m's serve shape,
-                jamba's SSM shape and chunk 256 with ds 128; the decay-bound
-                property and no NaN at a huge dt.
+                jamba's SSM shape, chunk 256 with ds 128 and the kernel's
+                edges (torch_cases.SSD_EDGE: hd 4 to 128, one chunk, batch *
+                head 1, ds up to 512), and on bases that are not 16-byte
+                aligned; one launch a call; the decay-bound property and no
+                NaN at a huge dt.
 12. serve     — main path three: ``repro_torch.launch.serve``'s path with
                 the fixture's arguments (mamba2-780m at full width, fp32,
                 4 requests x 256 prompt tokens x 16 new, MASA). Weights equal
@@ -73,7 +76,9 @@ on any mismatch:
                 SSD-scan and matmul kernels' device time (reported, not
                 checked: the trace may hold no device activity there).
 15. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
-                version at the serve shape and at L = 2048, beside the bound.
+                version at the serve shape and at L = 2048, beside the bound
+                (C B^T counted once a batch element and chunk: B and C are
+                shared by the heads).
 16. kernels   — the masa_gemm (both orders, through ops and its fallback),
                 moe_gemm, paged_attention and flash_attention kernels vs
                 their plain versions on the card, in float32 (rtol = atol =
@@ -84,13 +89,19 @@ on any mismatch:
                 table entries through ops; GQA through ops.flash_attention
                 (one launch, on the unexpanded kv heads [B * Hkv, S, hd]);
                 flash in bf16 on bases that are not 16-byte aligned (the
-                simt body, k/v of BH / g rows).
+                simt body, k/v of BH / g rows). Paged also on both bodies
+                forced (serial; split at clusters of 1, 2, 4 and 8) at the
+                sweep and at its edges (torch_cases.PAGED_EDGE: G 1 and 8,
+                lengths 0, 1, around a split's boundary and full, n_pages 1,
+                a repeated page), each one launch on the body asked for.
                 Each wrapper raises on a non-contiguous input, a wrong dtype
-                or a refused shape, before any launch. Every masa, moe and
-                flash case ran the body its wrapper picks by shape
+                or a refused shape, before any launch. Every masa, moe,
+                paged and flash case ran the body its wrapper picks by shape
                 (``body()``: wgmma for bf16 with rows of whole 16-byte
                 units, moe's bt % 64 == 0 and flash's hd 64, 96 or 128;
-                simt otherwise), counted in ``BODIES``.
+                simt otherwise; paged: split for G 1, 2, 4, 8 and rows of 1
+                to 32 whole 16-byte units, serial otherwise), counted in
+                ``BODIES``.
 17. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
@@ -109,7 +120,9 @@ on any mismatch:
                 body; each prints its body and TFLOP/s. Flash is also timed
                 through ops.flash_attention on the 8 unexpanded kv heads
                 (one launch, held to the kernel on the expanded heads),
-                beside SDPA with enable_gqa.
+                beside SDPA with enable_gqa. Paged fails unless both dtypes
+                ran the split body; its serial body (the form before the
+                split one) is timed in turns with it.
 
 Each phase prints its seconds. The last lines are nvidia-smi's name and
 power limit, the per-kernel JSON record (all seven kernels; lane_step and
@@ -834,15 +847,21 @@ def phase_ssd():
     from repro_torch.kernels import ssd_scan
     from repro_torch.kernels.ssd_scan import kernel as K
 
-    shapes = tc.SSD_CARD_SHAPES
+    shapes = tc.SSD_CARD_SHAPES + tc.SSD_EDGE
     err = {}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         tol = tc.TOLS[dname]
-        for shape in shapes:
+        cases = [(shape, False) for shape in shapes] + [(tc.SSD_SERVE, True)]
+        for shape, unaligned in cases:
             H, chunk = shape[2], shape[5]
             args = tc.ssd_kernel_inputs(shape, dtype, "cuda")
+            if unaligned:   # bases one element past an allocation's
+                args = [tc.shifted(t) for t in args]
+            K.reset_launches()
             y_k, h_k = K.ssd_scan_kernel(*args, chunk=chunk, n_heads=H)
+            if K.LAUNCHES["ssd_scan"] != 1:
+                fail(f"ssd: {shape} launched {K.LAUNCHES}")
             y_p, h_p = K.ssd_scan_plain(*args, chunk=chunk, n_heads=H)
             torch.cuda.synchronize()
             if y_k.dtype != dtype or h_k.dtype != torch.float32:
@@ -851,11 +870,12 @@ def phase_ssd():
                     float((h_k - h_p).abs().max()))
             ok = (torch.allclose(y_k.float(), y_p.float(), rtol=tol, atol=tol)
                   and torch.allclose(h_k, h_p, rtol=tol, atol=tol))
-            log(f"[ssd] {dname:8s} B,L,H,hd,ds,chunk={shape}: max abs err "
-                f"{e:.3e} (tol {tol})")
+            where = " unaligned" if unaligned else ""
+            log(f"[ssd] {dname:8s} B,L,H,hd,ds,chunk={shape}{where}: max abs "
+                f"err {e:.3e} (tol {tol})")
             if not ok:
-                fail(f"ssd: kernel != plain for {shape} in {dname}")
-            err[(dname, shape)] = e
+                fail(f"ssd: kernel != plain for {shape}{where} in {dname}")
+            err[(dname, shape, unaligned)] = e
     # tests/test_kernels.py's decay-bound property, through ops.ssd_scan
     L, hd, ds = 32, 16, 8
     for B, H, dts in ((1, 1, 0.1), (2, 3, 0.7), (3, 4, 2.0)):
@@ -874,8 +894,9 @@ def phase_ssd():
     if not (torch.isfinite(y).all() and torch.isfinite(h).all()):
         fail("ssd: NaN or inf at a huge dt")
     log(f"[ssd] kernel == plain on the card for {len(shapes)} shapes x 2 "
-        f"dtypes; decay bound holds; no NaN at dt x 400")
-    return err[("float32", tc.SSD_SERVE)]
+        f"dtypes and the serve shape unaligned; decay bound holds; no NaN at "
+        f"dt x 400")
+    return err[("float32", tc.SSD_SERVE, False)]
 
 
 def phase_serve(smi: str):
@@ -951,13 +972,15 @@ def phase_profile(model, fixture):
 def ssd_bound(shape):
     """(bound_ms, bound_by) of one SSD-scan launch in float32: bytes of xr,
     l, b, c read once and y, hT written once; operations of the lower
-    triangle of C B^T and of its product with xr, C @ S and the state
-    update, per (head, chunk)."""
+    triangle of C B^T once a (batch element, chunk), since B and C are
+    shared by its heads, and, per (head, chunk), of that triangle's product
+    with xr, C @ S and the state update."""
     B, L, H, hd, ds, Q = shape
     nbytes = 4 * (2 * B * H * L * hd + B * H * L + 2 * B * L * ds
                   + B * H * ds * hd)
     tri = Q * (Q + 1) // 2
-    flops = B * H * (L // Q) * (2 * tri * ds + 2 * tri * hd + 4 * Q * ds * hd)
+    flops = B * (L // Q) * (2 * tri * ds + H * (2 * tri * hd
+                                                + 4 * Q * ds * hd))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -1047,7 +1070,8 @@ def phase_kernels():
 
     err = {k: {} for k in ("masa_gemm", "moe_gemm", "paged_attention",
                            "flash_attention")}
-    bodies = {"masa_gemm": {}, "moe_gemm": {}, "flash_attention": {}}
+    bodies = {"masa_gemm": {}, "moe_gemm": {}, "paged_attention": {},
+              "flash_attention": {}}
     n = 0
 
     def record(kernel, dname, e):
@@ -1107,13 +1131,32 @@ def phase_kernels():
                 record("moe_gemm", dname, kernel_err(
                     f"moe_gemm {(E, C, D, F, bt)}", got,
                     EK.grouped_matmul_plain(x, w, ids, bt=bt), dname))
-        for shape in tc.PAGED_SHAPES:
-            q, kp, vp, table, lens = tc.paged_inputs(*shape, seed=3)
+        paged_cases = (
+            [(f"{shape}", tc.paged_inputs(*shape, seed=3))
+             for shape in tc.PAGED_SHAPES]
+            + [(f"edge {case[0]} lens {case[1]} page {case[2]}",
+                tc.paged_edge_inputs(*case)) for case in tc.PAGED_EDGE])
+        for name, (q, kp, vp, table, lens) in paged_cases:
             args = card_inputs((q, kp, vp), dtype) + [
                 torch.from_numpy(t).cuda() for t in (table, lens)]
+            want = PK.paged_attention_plain(*args)
+            PK.reset_launches()
+            got = paged_attention(*args)
+            ran("paged_attention", PK, PK.body(*args[:3]),
+                f"{name} {dname}")
             record("paged_attention", dname, kernel_err(
-                f"paged_attention {shape}", paged_attention(*args),
-                PK.paged_attention_plain(*args), dname))
+                f"paged_attention {name}", got, want, dname))
+            # both bodies forced, the split one at every cluster size
+            for which, n_split in (("serial", None), ("split", 1),
+                                   ("split", 2), ("split", 4), ("split", 8)):
+                PK.reset_launches()
+                got = PK._launch(*args, which, n_split)
+                if PK.BODIES != {b: int(b == which) for b in PK.BODIES}:
+                    fail(f"kernels: paged_attention {name} {which} "
+                         f"{n_split} ran {PK.BODIES}")
+                record("paged_attention", dname, kernel_err(
+                    f"paged_attention {name} {which} x{n_split}", got, want,
+                    dname))
         # seq_lens 0, 1, a partial page and full; out-of-range table
         # entries, clamped by ops as in the reference
         q, kp, vp, table, _ = tc.paged_inputs(4, 2, 4, 64, 16, 16, 4, seed=5)
@@ -1123,9 +1166,11 @@ def phase_kernels():
             torch.from_numpy(table).cuda(),
             torch.tensor([0, 1, 21, 64], dtype=torch.int32, device="cuda")]
         clamped = args[3].clamp(0, 15).to(torch.int32)
+        PK.reset_launches()
+        got = paged_attention(*args)
+        ran("paged_attention", PK, "split", f"clamped table {dname}")
         record("paged_attention", dname, kernel_err(
-            "paged_attention lengths 0/1/21/64, clamped table",
-            paged_attention(*args),
+            "paged_attention lengths 0/1/21/64, clamped table", got,
             PK.paged_attention_plain(*args[:3], clamped, args[4]), dname))
         for bh, s, hd, bq, bk in tc.FLASH_SHAPES + ((2, 128, 96, 128, 128),
                                                     (1, 100, 64, 100, 50)):
@@ -1216,8 +1261,14 @@ def phase_kernels():
          lambda: PK.paged_attention_kernel(
              q.transpose(2, 3).contiguous().transpose(2, 3), kp, kp, tab,
              lens)),
-        ("paged_attention G=256 hd=256 (shared memory)", ValueError,
+        ("paged_attention G=256 hd=256 (the serial body's shared memory)",
+         ValueError,
          lambda: PK.paged_attention_kernel(big, pages, pages, one, one[0])),
+        ("paged_attention split body forced at G=3", ValueError,
+         lambda: PK._launch(q[:, :, :3].contiguous(), kp, kp, tab, lens,
+                            "split")),
+        ("paged_attention 3 splits", ValueError,
+         lambda: PK._launch(q, kp, kp, tab, lens, "split", 3)),
         ("flash_attention hd=48", ValueError,
          lambda: FK.flash_attention_kernel(f48, f48, f48)),
         ("flash_attention float16", TypeError,
@@ -1430,6 +1481,7 @@ def phase_kernel_time(smi: str):
             torch.int32).reshape(B, npg)
         lens = torch.full((B,), s["seq"], dtype=torch.int32, device="cuda")
         kv_bytes = 2 * es * B * npg * page * KVH * hd
+        PK.reset_launches()
         row = timing_row(
             "paged_attention",
             lambda: PK.paged_attention_kernel(q, kp, vp, table, lens),
@@ -1437,7 +1489,20 @@ def phase_kernel_time(smi: str):
             4 * B * KVH * G * s["seq"] * hd,
             kv_bytes + es * 2 * q.numel() + 4 * (table.numel() + B), dname,
             reps=20)
-        row["kv_bytes"] = kv_bytes
+        if not PK.BODIES["split"] or PK.BODIES["serial"]:
+            fail(f"kernel_time: paged_attention {dname} ran bodies "
+                 f"{PK.BODIES}, expected only split")
+        # the serial body (the kernel before the split one), in turns
+        serial = lambda: PK._launch(q, kp, vp, table, lens, "serial")
+        split = lambda: PK.paged_attention_kernel(q, kp, vp, table, lens)
+        turns = [time_ms(f, 20, 1) for f in (serial, split, split, serial)]
+        row.update(kv_bytes=kv_bytes, body="split",
+                   splits=PK.splits(B, KVH, npg * page),
+                   split_ms=(turns[1] + turns[2]) / 2,
+                   serial_ms=(turns[0] + turns[3]) / 2)
+        log(f"[timing] paged_attention {dname}: split body ({row['splits']} "
+            f"block(s) a pair) {row['split_ms']:.4f} ms, serial body "
+            f"{row['serial_ms']:.4f} ms, in turns")
         out["paged_attention"][dname] = row
         del q, kp, vp
         # ---- moe: jamba's expert FFN up-projection, capacity layout
@@ -1520,7 +1585,10 @@ LAYER_KERNELS = (
      "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention/kernel.py:67",
      "B=32 KVH=8 G=4 hd=128 page=16 seq=2048 private pages P=4096 "
-     "(jamba-v0.1-52b decode step)"),
+     "(jamba-v0.1-52b decode step); the split body (kernel.splits blocks "
+     "a sequence x kv head in one cluster, four warps a block streaming "
+     "K/V rows through cp.async rings, the online softmax in registers); "
+     "serial_ms the serial body, in turns"),
     ("moe_gemm", "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
      "src/repro/kernels/moe_gemm/kernel.py:28",
      "E=16 C=384 D=4096 F=14336 bt=128 (jamba-v0.1-52b MoE up-projection "

@@ -10,12 +10,13 @@ the model's layout), ``ref.py`` (the dense or brute-force oracle) and
                      (accumulator tile in registers, K innermost) and
                      weight-stationary (a panel of B resident in shared
                      memory across the walk over M)
-  ssd_scan        -- Mamba-2 SSD chunked scan; the chunk state stays in
-                     shared memory across the chunks of one batch*head
+  ssd_scan        -- Mamba-2 SSD chunked scan; blocks take a head's state
+                     columns, which stay in registers across its chunks
   moe_gemm        -- grouped expert GEMM; each token block's expert id
                      designates the weight panel it multiplies
   paged_attention -- decode attention over a paged KV cache through a
-                     block table, online softmax over the pages
+                     block table, online softmax over the pages, each
+                     sequence split over a thread-block cluster
   flash_attention -- fused attention forward; the S x S scores never reach
                      device memory, and GQA's kv head is indexed, not
                      expanded

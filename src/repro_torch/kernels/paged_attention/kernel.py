@@ -7,18 +7,22 @@ The counterpart of ``repro.kernels.paged_attention.kernel``
   q [B, KVH, G, hd]   k_pages, v_pages [P, page, KVH, hd]
   block_table [B, n_pages] int32   seq_lens [B] int32   ->   [B, KVH, G, hd]
 
-``csrc/paged_attention.cu`` runs one block per (kv head, sequence): it walks
-the sequence's pages in table order with the fp32 online softmax of the G
-query rows, scoring slots at or beyond ``seq_lens[b]`` -1e30 before the max
-(the source's header says what bounds it). It trusts the table:
-``ops.paged_attention`` clamps it first.
+``csrc/paged_attention.cu`` scores slots at or beyond ``seq_lens[b]``
+-1e30 before the max, with the fp32 online softmax of the G query rows (the
+source's header says what bounds it and how each body works). It has two
+bodies, which :func:`body` picks by shape before the launch: ``split`` cuts
+each (sequence, kv head) over a thread-block cluster of :func:`splits`
+blocks, whose warps stream the rows through cp.async rings and merge their
+partial softmaxes in shared memory; ``serial`` walks the sequence in one
+block. It trusts the table: ``ops.paged_attention`` clamps it first.
 
 * :func:`paged_attention_kernel` is the wrapper: on a CUDA tensor it
   launches the kernel (or raises), on a CPU tensor it runs
   :func:`paged_attention_plain`.
 * :func:`paged_attention_plain` is the plain PyTorch version, on any
   device: the online softmax over pages.
-* ``LAUNCHES["paged_attention"]`` counts kernel launches.
+* ``LAUNCHES["paged_attention"]`` counts kernel launches; ``BODIES`` counts
+  the same launches by body.
 
 The library is built at first use by :mod:`repro_torch.cuda_build`.
 """
@@ -38,26 +42,72 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"paged_attention": CSRC / "paged_attention.cu"}
 #: Kernel launches (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"paged_attention": 0}
+#: The same launches by body (set to 0 with :func:`reset_launches`).
+BODIES: dict[str, int] = {"split": 0, "serial": 0}
+#: Query heads a kv head the split body takes (its registers hold them).
+SPLIT_GROUPS = (1, 2, 4, 8)
+#: Cluster sizes the split body takes, and the blocks it aims for: about
+#: one for each of the H100's 132 SMs (PERF.md: at jamba's 256 sequence x
+#: kv-head pairs one split is fastest, at 32 pairs four).
+SPLIT_COUNTS = (1, 2, 4, 8)
+FILL_BLOCKS = 128
+#: Live slots a split takes at least: below this, fewer splits.
+MIN_SPLIT_SLOTS = 64
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _NEG_INF = -1e30
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BODIES):
+        for k in counts:
+            counts[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("paged_attention", SOURCES["paged_attention"])
+    return declare(cuda_build.load("paged_attention",
+                                   SOURCES["paged_attention"]))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signatures of its ``paged_attention_launch`` and
+    ``paged_attention_smem_bytes``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention_launch.argtypes = ([vp] * 6 + [ci] * 6
-                                           + [ctypes.c_float, ci, vp])
+                                           + [ctypes.c_float] + [ci] * 3
+                                           + [vp])
     lib.paged_attention_launch.restype = ci
-    lib.paged_attention_smem_bytes.argtypes = [ci, ci]
+    lib.paged_attention_smem_bytes.argtypes = [ci] * 4
     lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def body(q: torch.Tensor, k_pages: torch.Tensor,
+         v_pages: torch.Tensor) -> str:
+    """The body a launch takes, by shape: ``split`` for G in
+    :data:`SPLIT_GROUPS`, rows of hd elements that are 1 to 32 whole
+    16-byte units (a power of two) and 16-byte aligned bases of q and the
+    pages; ``serial`` otherwise."""
+    g, hd = q.shape[2], q.shape[3]
+    units, rest = divmod(hd * q.element_size(), 16)
+    ok = (g in SPLIT_GROUPS and not rest and 1 <= units <= 32
+          and units & (units - 1) == 0
+          and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)))
+    return "split" if ok else "serial"
+
+
+def splits(bsz: int, kvh: int, n_slots: int) -> int:
+    """Blocks (one cluster) the split body cuts a (sequence, kv head)
+    into: the fewest of :data:`SPLIT_COUNTS` that give
+    :data:`FILL_BLOCKS` blocks, with at least :data:`MIN_SPLIT_SLOTS`
+    slots a split."""
+    s = SPLIT_COUNTS[0]
+    for n in SPLIT_COUNTS[1:]:
+        if bsz * kvh * s >= FILL_BLOCKS or n_slots < n * MIN_SPLIT_SLOTS:
+            break
+        s = n
+    return s
 
 
 def _check(q, k_pages, v_pages, block_table, seq_lens) -> None:
@@ -90,8 +140,12 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     return _launch(*args)
 
 
-def _launch(q, k_pages, v_pages, block_table, seq_lens):
-    """One launch of the kernel on PyTorch's current stream."""
+def _launch(q, k_pages, v_pages, block_table, seq_lens, which=None,
+            n_split=None):
+    """One launch of the kernel on PyTorch's current stream, on the body
+    :func:`body` picks and :func:`splits` blocks a cluster (or ``which``
+    and ``n_split`` where the shape allows them: the card tests and the
+    timings set them)."""
     if q.dtype not in _DTYPES or not q.dtype == k_pages.dtype == v_pages.dtype:
         raise TypeError(f"paged_attention kernel takes q and the pages all "
                         f"float32 or all bfloat16; got {q.dtype}, "
@@ -104,8 +158,18 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens):
         raise ValueError("paged_attention kernel takes contiguous tensors")
     bsz, kvh, g, hd = q.shape
     page, n_pages = k_pages.shape[1], block_table.shape[1]
+    picked = body(q, k_pages, v_pages)
+    which = picked if which is None else which
+    if which not in BODIES or (which == "split" and picked != which):
+        raise ValueError(f"paged_attention: body {which!r} does not take "
+                         f"G={g}, hd={hd} in {q.dtype}")
+    n_split = splits(bsz, kvh, n_pages * page) if n_split is None else n_split
+    if which == "split" and n_split not in SPLIT_COUNTS:
+        raise ValueError(f"paged_attention: {n_split} splits, not one of "
+                         f"{SPLIT_COUNTS}")
+    bf16 = int(q.dtype == torch.bfloat16)
     lib = _library()
-    need = lib.paged_attention_smem_bytes(g, hd)
+    need = lib.paged_attention_smem_bytes(g, hd, bf16, int(which == "split"))
     if need < 0 or need > cuda_build.MAX_SMEM_BYTES:
         raise ValueError(f"paged_attention kernel does not take G={g}, "
                          f"hd={hd}: it needs {need} bytes of shared memory, "
@@ -116,10 +180,11 @@ def _launch(q, k_pages, v_pages, block_table, seq_lens):
     with torch.cuda.device(q.device):
         err = lib.paged_attention_launch(
             *(t.data_ptr() for t in args), out.data_ptr(), bsz, kvh, g, hd,
-            page, n_pages, hd ** -0.5, int(q.dtype == torch.bfloat16),
+            page, n_pages, hd ** -0.5, bf16, int(which == "split"), n_split,
             dispatch.stream(q.device))
     dispatch.check("paged_attention", err)
     LAUNCHES["paged_attention"] += 1
+    BODIES[which] += 1
     return out
 
 

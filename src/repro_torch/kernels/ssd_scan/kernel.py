@@ -1,10 +1,11 @@
 """The CUDA SSD-scan kernel, its wrapper and its plain version.
 
 The counterpart of ``repro.kernels.ssd_scan.kernel`` (``ssd_scan_kernel``,
-body ``_ssd_body``): ``csrc/ssd_scan.cu`` runs one block per batch*head,
-loops over the chunks in order and keeps the fp32 ``[ds, hd]`` state in
-shared memory (the source's header says what bounds it and how it is laid
-out). The layout is the kernel's::
+body ``_ssd_body``): ``csrc/ssd_scan.cu`` runs one block per batch*head and
+tile of :func:`column_tile` state columns, walks the chunks in order in
+sub-chunks of 16 steps with the next ones staged ahead, and keeps its fp32
+``[ds, TD]`` slice of the state in registers (the source's header says
+what bounds it and how it is laid out). The layout is the kernel's::
 
   xr [BH, L, hd]   l [BH, L]   b, c [B, L, ds]   ->   y [BH, L, hd], hT [BH, ds, hd]
 
@@ -39,6 +40,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"ssd_scan": CSRC / "ssd_scan.cu"}
 #: Kernel launches (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"ssd_scan": 0}
+#: State columns a block takes at most (the kernel takes 4, 8, 16, 32).
+MAX_TILE = 32
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -50,13 +53,23 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("ssd_scan", SOURCES["ssd_scan"])
+    return declare(cuda_build.load("ssd_scan", SOURCES["ssd_scan"]))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signatures of its ``ssd_scan_launch`` and
+    ``ssd_scan_smem_bytes``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_launch.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+    lib.ssd_scan_launch.argtypes = [vp] * 6 + [ci] * 8 + [vp]
     lib.ssd_scan_launch.restype = ci
-    lib.ssd_scan_smem_bytes.argtypes = [ci, ci, ci]
+    lib.ssd_scan_smem_bytes.argtypes = [ci] * 5
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def column_tile(hd: int) -> int:
+    """State columns a block takes: 16, or hd where it is smaller."""
+    return min(MAX_TILE, hd)
 
 
 def _check(xr, l, b, c, chunk: int, n_heads: int) -> None:
@@ -89,7 +102,8 @@ def ssd_scan_kernel(xr: torch.Tensor, l: torch.Tensor, b: torch.Tensor,
 
 
 def _launch(xr, l, b, c, chunk: int, n_heads: int):
-    """One launch of the kernel on PyTorch's current stream."""
+    """One launch of the kernel on PyTorch's current stream, with
+    :func:`column_tile` state columns a block."""
     bh, L, hd = xr.shape
     ds = b.shape[-1]
     if xr.dtype not in _DTYPES or not xr.dtype == b.dtype == c.dtype:
@@ -100,15 +114,16 @@ def _launch(xr, l, b, c, chunk: int, n_heads: int):
         raise TypeError(f"ssd_scan kernel takes float32 l, got {l.dtype}")
     if not all(t.is_contiguous() for t in (xr, l, b, c)):
         raise ValueError("ssd_scan kernel takes contiguous tensors")
+    td, bf16 = column_tile(hd), int(xr.dtype == torch.bfloat16)
     lib = _library()
-    need = lib.ssd_scan_smem_bytes(chunk, hd, ds)
+    need = lib.ssd_scan_smem_bytes(chunk, hd, ds, td, bf16)
     limit = cuda_build.MAX_SMEM_BYTES
     if need < 0 or need > limit:
         raise ValueError(
             f"ssd_scan kernel does not take chunk={chunk}, hd={hd}, ds={ds}: "
             f"it needs chunk a multiple of 16, hd a power of two from 4 to "
-            f"128, ds a multiple of 4, and at most {limit} bytes of "
-            f"shared memory (this shape: {need})")
+            f"128, ds a multiple of 4 up to 512, and at most {limit} bytes "
+            f"of shared memory (this shape: {need})")
     dev = xr.device
     with torch.cuda.device(dev):
         y = torch.empty_like(xr)
@@ -118,7 +133,7 @@ def _launch(xr, l, b, c, chunk: int, n_heads: int):
         err = lib.ssd_scan_launch(
             xr.data_ptr(), l.data_ptr(), b.data_ptr(), c.data_ptr(),
             y.data_ptr(), hT.data_ptr(), bh, L, hd, ds, chunk, n_heads,
-            int(xr.dtype == torch.bfloat16), dispatch.stream(dev))
+            bf16, td, dispatch.stream(dev))
         dispatch.check("ssd_scan", err)
         LAUNCHES["ssd_scan"] += 1
     return y, hT

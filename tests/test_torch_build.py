@@ -6,7 +6,8 @@ every file in its own ``csrc/`` directory, the headers they include by a
 quoted path, and the flags, so an edit to ``dram_step.cuh`` rebuilds the
 lane and mix kernels and not the SSD scan, and an edit to
 ``kernels/csrc/hopper_gemm.cuh`` rebuilds masa_gemm, moe_gemm and
-flash_attention.
+flash_attention, and one to ``kernels/csrc/async_cluster.cuh`` the SSD scan
+and paged attention.
 The wrappers' shared steps (``kernels.dispatch``: ``runs_plain``,
 ``check``) are held here too.
 """
@@ -82,6 +83,28 @@ def test_shared_header_edit_renames_the_gemm_libraries(tmp_path):
     assert after["moe_gemm"] != before["moe_gemm"]
     assert after["flash_attention"] != before["flash_attention"]
     assert after["ssd_scan"] == before["ssd_scan"]
+
+
+def test_async_cluster_header_edit_renames_ssd_and_paged(tmp_path):
+    """async_cluster.cuh (cp.async and cluster helpers) is hashed into the
+    SSD scan's and paged attention's names, and no other kernel's."""
+    copy = tmp_path / "kernels"
+    shutil.copytree(Path(kernels.__file__).parent, copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+
+    def names():
+        return {n: cuda_build.library_path(n, copy / n / "csrc" / f"{n}.cu")
+                for n in kernels.SOURCES}
+
+    before = names()
+    header = (copy / "csrc" / "async_cluster.cuh").resolve()
+    for n in ("ssd_scan", "paged_attention"):
+        assert cuda_build.sources_of(copy / n / "csrc") == [
+            (copy / n / "csrc" / f"{n}.cu").resolve(), header]
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = names()
+    assert {n for n in before if after[n] != before[n]} == {
+        "ssd_scan", "paged_attention"}
 
 
 def test_build_without_nvcc_raises():

@@ -292,20 +292,42 @@ def test_streams_not_a_multiple_of_the_chunk(card, n):
 
 
 # ---------------------------------------------------------------- SSD scan
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", tc.SSD_CARD_SHAPES)
-def test_ssd_kernel_equals_plain(card, shape, dtype):
+def ssd_equals_plain(args, shape, dtype):
+    """One launch on ``args`` equals the plain version within the dtype's
+    tolerance."""
     from repro_torch.kernels.ssd_scan import kernel as K
 
     H, chunk = shape[2], shape[5]
-    args = tc.ssd_kernel_inputs(shape, getattr(torch, dtype), card)
+    K.reset_launches()
     y_k, h_k = K.ssd_scan_kernel(*args, chunk=chunk, n_heads=H)
     y_p, h_p = K.ssd_scan_plain(*args, chunk=chunk, n_heads=H)
     torch.cuda.synchronize()
+    assert K.LAUNCHES["ssd_scan"] == 1
     tol = tc.TOLS[dtype]
     assert y_k.dtype == args[0].dtype and h_k.dtype == torch.float32
     torch.testing.assert_close(y_k.float(), y_p.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(h_k, h_p, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", tc.SSD_CARD_SHAPES + tc.SSD_EDGE)
+def test_ssd_kernel_equals_plain(card, shape, dtype):
+    """Every column tile (hd 4, 8, 16 and 32 up take tiles of 4, 8, 16
+    and 32) and ds of 1 to 4 float4s a lane."""
+    ssd_equals_plain(tc.ssd_kernel_inputs(shape, getattr(torch, dtype), card),
+                     shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 64, 2, 32, 16, 32), tc.SSD_SERVE])
+def test_ssd_unaligned_bases(card, shape, dtype):
+    """Bases one element past an allocation's: the kernel stages them in
+    the largest unit they allow (4-byte cp.async in float32, 2-byte plain
+    copies in bfloat16) and still equals the plain version."""
+    args = [tc.shifted(t) for t in
+            tc.ssd_kernel_inputs(shape, getattr(torch, dtype), card)]
+    assert all(t.data_ptr() % 16 for t in args)
+    ssd_equals_plain(args, shape, dtype)
 
 
 def test_ssd_launches_and_refusals(card):
@@ -339,11 +361,12 @@ def test_ssd_launches_and_refusals(card):
     (64, 64, 128, True), (256, 64, 128, True), (32, 64, 16, True),
     (16, 16, 8, True), (256, 128, 256, True), (8, 16, 8, False),
     (64, 48, 16, False), (64, 256, 16, False), (64, 64, 6, False),
-    (256, 128, 512, False)])
+    (256, 128, 512, True), (64, 64, 1024, False)])
 def test_kernel_shape_limits(card, chunk, hd, ds, fits):
     """Every (chunk, ds, hd) the configs and tests use fits the kernel's
     shared memory and agrees with the plain version; shapes it cannot take
-    are refused before a launch."""
+    (chunk not a multiple of 16, hd not a power of two up to 128, ds not a
+    multiple of 4 up to 512) are refused before a launch."""
     from repro_torch.kernels.ssd_scan import kernel as K
 
     args = tc.ssd_kernel_inputs((1, chunk, 2, hd, ds, chunk), torch.float32,
@@ -509,7 +532,47 @@ def test_paged_kernel_equals_plain(card, shape, dtype):
     got = paged_attention(*args)
     torch.cuda.synchronize()
     assert K.LAUNCHES["paged_attention"] == 1
+    assert K.BODIES == {"split": 1, "serial": 0}
     assert_kernel_close(got, K.paged_attention_plain(*args), dtype)
+
+
+def paged_body_equals_plain(args, dtype, which, n_split):
+    """One launch on body ``which`` with ``n_split`` blocks a cluster equals
+    the plain version."""
+    from repro_torch.kernels.paged_attention import kernel as K
+
+    K.reset_launches()
+    got = K._launch(*args, which, n_split)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_attention"] == 1
+    assert K.BODIES == {b: int(b == which) for b in K.BODIES}
+    assert_kernel_close(got, K.paged_attention_plain(*args), dtype)
+
+
+BODY_SPLITS = [("serial", None), ("split", 1), ("split", 2), ("split", 4),
+               ("split", 8)]
+
+
+@pytest.mark.parametrize("which,n_split", BODY_SPLITS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", tc.PAGED_SHAPES)
+def test_paged_bodies_equal_plain(card, shape, dtype, which, n_split):
+    """Both bodies, the split one at every cluster size, at the sweep."""
+    paged_body_equals_plain(paged_case(shape, dtype, card), dtype, which,
+                            n_split)
+
+
+@pytest.mark.parametrize("which,n_split", BODY_SPLITS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(tc.PAGED_EDGE)))
+def test_paged_edges_equal_plain(card, case, dtype, which, n_split):
+    """G 1 and 8, lengths 0, 1, around a split's boundary and full,
+    n_pages 1 and a repeated page (torch_cases.PAGED_EDGE), on both
+    bodies and every cluster size: a split with no slot adds nothing."""
+    q, kp, vp, table, lens = tc.paged_edge_inputs(*tc.PAGED_EDGE[case])
+    args = card_tensors((q, kp, vp), getattr(torch, dtype), card) + [
+        torch.from_numpy(table).to(card), torch.from_numpy(lens).to(card)]
+    paged_body_equals_plain(args, dtype, which, n_split)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -113,3 +113,88 @@ def test_checks():
         paged_attention(q.to("meta"), kp.to("meta"), kp.to("meta"),
                         table.to("meta"), lens.to("meta"))
     assert K.LAUNCHES == {"paged_attention": 0}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", range(len(tc.PAGED_EDGE)))
+def test_edge_cases_match_jax(case, dtype):
+    """The CUDA kernel's edges (torch_cases.PAGED_EDGE): G 1 and 8, lengths
+    0, 1 and around half the slots, n_pages 1, a table that repeats a
+    page; the port's ops against the JAX package's interpret-mode kernel
+    and its ref."""
+    j, t = both(*tc.paged_edge_inputs(*tc.PAGED_EDGE[case]), dtype)
+    got = paged_attention(*t)
+    tol = tc.TOLS[dtype]
+    close(got, r_paged(*j), tol)
+    close(paged_attention_ref(*t), r_ref(*j), tol)
+
+
+def _empty(shape, dtype=torch.bfloat16):
+    return torch.empty(1, dtype=dtype).expand(shape)
+
+
+@pytest.mark.parametrize("g,hd,dtype,want", [
+    (4, 128, torch.bfloat16, "split"), (4, 128, torch.float32, "split"),
+    (1, 64, torch.bfloat16, "split"), (8, 64, torch.float32, "split"),
+    (2, 8, torch.bfloat16, "split"), (8, 256, torch.bfloat16, "split"),
+    (3, 128, torch.bfloat16, "serial"), (16, 64, torch.float32, "serial"),
+    (4, 96, torch.bfloat16, "serial"), (4, 256, torch.float32, "serial"),
+    (4, 4, torch.bfloat16, "serial"), (256, 256, torch.float32, "serial")])
+def test_body_by_shape(g, hd, dtype, want):
+    """The split body takes G 1, 2, 4 or 8 and rows of 1 to 32 whole
+    16-byte units, a power of two (bf16 hd 8 to 256, fp32 hd 4 to 128);
+    every other shape takes the serial body."""
+    q = _empty((2, 2, g, hd), dtype)
+    pages = _empty((4, 16, 2, hd), dtype)
+    assert K.body(q, pages, pages) == want
+
+
+def test_split_body_needs_aligned_bases():
+    q = torch.zeros((2, 2, 4, 64))
+    pages = torch.zeros((4, 16, 2, 64))
+    shifted = torch.zeros(pages.numel() + 1)[1:].view(pages.shape)
+    assert K.body(q, pages, pages) == "split"
+    assert shifted.data_ptr() % 16 and K.body(q, shifted, pages) == "serial"
+
+
+@pytest.mark.parametrize("bsz,kvh,slots,want", [
+    (32, 8, 2048, 1),   # jamba: 256 pairs fill the card
+    (4, 8, 2048, 4),    # 32 pairs: four blocks a pair
+    (1, 1, 2048, 8),    # one pair: the largest cluster
+    (4, 2, 128, 2),     # kernel_bench: 8 pairs, 128 slots
+    (2, 1, 64, 1),      # at least 64 slots a split
+    (300, 1, 4096, 1)])
+def test_splits(bsz, kvh, slots, want):
+    """A pair takes the fewest splits of 1, 2, 4, 8 that give about one
+    block an SM (FILL_BLOCKS), with at least MIN_SPLIT_SLOTS slots each."""
+    got = K.splits(bsz, kvh, slots)
+    assert got == want and got in K.SPLIT_COUNTS
+    assert slots >= got * K.MIN_SPLIT_SLOTS or got == 1
+
+
+def test_forced_bodies_are_refused_before_a_launch():
+    """``_launch``'s forced body and split count (the card tests' and the
+    timings') are checked before the library is loaded."""
+    q, kp, vp, table, lens = (torch.from_numpy(a) for a in
+                              tc.paged_inputs(2, 2, 3, 64, 8, 16, 4))
+    with pytest.raises(ValueError, match="body 'split' does not take G=3"):
+        K._launch(q, kp, vp, table, lens, which="split")
+    with pytest.raises(ValueError, match="not one of"):
+        K._launch(q[:, :, :2].contiguous(), kp, vp, table, lens,
+                  which="split", n_split=3)
+    with pytest.raises(ValueError, match="body 'fast'"):
+        K._launch(q, kp, vp, table, lens, which="fast")
+    assert K.LAUNCHES == {"paged_attention": 0}
+
+
+@pytest.mark.parametrize("entry", ["paged_attention_launch",
+                                   "paged_attention_smem_bytes"])
+def test_c_entries_match_their_declarations(entry):
+    """The ctypes types ``kernel.declare`` gives each C entry are its
+    parameters and result, one for one, read from
+    csrc/paged_attention.cu."""
+    ret, args = tc.c_entry_types(K.SOURCES["paged_attention"].read_text(),
+                                 entry)
+    got = tc.declared(K, ["paged_attention_launch",
+                          "paged_attention_smem_bytes"])[entry]
+    assert got[0] is ret and got[1] == args

@@ -143,3 +143,40 @@ def test_wrapper_refusals():
     with pytest.raises(ValueError, match="runs on cuda"):
         K.ssd_scan_kernel(*(a.to("meta") for a in (xr, l, b, c)), chunk=16,
                           n_heads=2)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,L,H,hd,ds,chunk", tc.SSD_EDGE)
+def test_edge_shapes_match_jax(B, L, H, hd, ds, chunk, dtype):
+    """The CUDA kernel's edge shapes (torch_cases.SSD_EDGE): the port's
+    ops and plain version against the JAX package's interpret-mode kernel
+    and ssd_chunked."""
+    inp = tc.ssd_inputs(B, L, H, hd, ds, seed=5)
+    j, t = both(inp, dtype)
+    tol = tc.TOLS[dtype]
+    y_k, h_k = ssd_scan(*t, chunk=chunk)
+    assert y_k.shape == (B, L, H, hd) and h_k.shape == (B, H, ds, hd)
+    y_rk, h_rk = r_ssd_scan(*j, chunk=chunk)
+    y_rm, h_rm = r_ssd_chunked(*j, chunk)
+    for got, want in ((y_k, y_rk), (h_k, h_rk), (y_k, y_rm), (h_k, h_rm)):
+        close(got, want, tol)
+
+
+@pytest.mark.parametrize("hd,tile,blocks", [(4, 4, 1), (8, 8, 1), (16, 16, 1),
+                                            (32, 32, 1), (64, 32, 2),
+                                            (128, 32, 4)])
+def test_column_tile(hd, tile, blocks):
+    """A block takes 32 state columns, or hd where it is smaller: a tile the
+    kernel takes (4, 8, 16, 32) that divides hd. mamba2-780m's hd 64 gives
+    2 blocks a head, 96 at the serve shape's 48 heads."""
+    assert K.column_tile(hd) == tile and hd // tile == blocks
+    assert tile in (4, 8, 16, 32) and hd % tile == 0
+
+
+@pytest.mark.parametrize("entry", ["ssd_scan_launch", "ssd_scan_smem_bytes"])
+def test_c_entries_match_their_declarations(entry):
+    """The ctypes types ``kernel.declare`` gives each C entry are its
+    parameters and result, one for one, read from csrc/ssd_scan.cu."""
+    ret, args = tc.c_entry_types(K.SOURCES["ssd_scan"].read_text(), entry)
+    got = tc.declared(K, ["ssd_scan_launch", "ssd_scan_smem_bytes"])[entry]
+    assert got[0] is ret and got[1] == args

@@ -44,6 +44,14 @@ TOLS = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_SERVE = (1, 256, 48, 64, 128, 64)
 SSD_CARD_SHAPES = SSD_SHAPES + (SSD_SERVE, (2, 512, 128, 64, 16, 32),
                                 (1, 512, 8, 64, 128, 256))
+#: The SSD kernel's edges (B, L, H, hd, ds, chunk): hd 4, 8 and 16 below the
+#: 32-column tile (one block a head), hd 128 (four tiles a head), one chunk
+#: (L = chunk), batch * head 1, chunk 256 with ds 128 in one chunk, ds of
+#: 2 and 4 float4s a lane (256, 512) and ds 12 (three float4s).
+SSD_EDGE = ((1, 32, 1, 4, 8, 16), (2, 48, 2, 8, 8, 16), (1, 32, 2, 16, 12, 16),
+            (2, 64, 2, 128, 16, 64), (1, 64, 3, 32, 16, 64),
+            (1, 256, 1, 64, 128, 256), (1, 64, 2, 32, 256, 64),
+            (1, 32, 2, 16, 512, 16))
 
 #: tests/test_kernels.py's masa_gemm sweep: (M, K, N).
 MASA_SHAPES = ((128, 128, 128), (256, 384, 512), (512, 128, 256),
@@ -61,6 +69,14 @@ MOE_SHAPES = ((4, 256, 64, 256, 128, 128), (8, 128, 128, 384, 128, 128),
 #: n_pages).
 PAGED_SHAPES = ((2, 1, 4, 64, 8, 16, 4), (3, 2, 4, 64, 16, 32, 4),
                 (1, 4, 1, 128, 8, 64, 2), (4, 2, 8, 64, 32, 16, 8))
+#: The paged kernel's edges: ((B, KVH, G, hd, P, page, n_pages), seq_lens,
+#: the one page every table entry names or None). G 1 and 8; lengths 0, 1,
+#: one short of half the slots, on it, one past it and full (two splits
+#: meet there); n_pages 1; a table that repeats one page.
+PAGED_EDGE = (((6, 2, 1, 128, 16, 16, 8), (0, 1, 63, 64, 65, 128), None),
+              ((6, 1, 8, 64, 16, 16, 8), (0, 1, 63, 64, 65, 128), None),
+              ((3, 2, 4, 64, 4, 16, 1), (0, 1, 16), None),
+              ((2, 2, 4, 128, 8, 16, 4), (64, 40), 3))
 #: tests/test_flash_attention.py's sweep: (BH, S, hd, bq, bk).
 FLASH_SHAPES = ((2, 256, 64, 128, 128), (4, 512, 64, 128, 128),
                 (1, 256, 128, 128, 64), (3, 384, 64, 128, 128))
@@ -113,6 +129,41 @@ def paged_inputs(B: int, KVH: int, G: int, hd: int, P: int, page: int,
     table = rng.integers(0, P, (B, n_pages)).astype(np.int32)
     lens = rng.integers(1, n_pages * page + 1, (B,)).astype(np.int32)
     return q, kp, vp, table, lens
+
+
+def paged_edge_inputs(shape, lens, page_id=None, seed: int = 4):
+    """``paged_inputs`` of ``shape`` with ``seq_lens`` set to ``lens`` and,
+    if ``page_id`` is given, every table entry set to it."""
+    q, kp, vp, table, _ = paged_inputs(*shape, seed=seed)
+    if page_id is not None:
+        table = np.full_like(table, page_id)
+    return q, kp, vp, table, np.asarray(lens, np.int32)
+
+
+def c_entry_types(src: str, entry: str):
+    """(restype, argtypes) that ctypes needs for the C entry ``entry`` of
+    the CUDA source text ``src``: a pointer is c_void_p, an int c_int, a
+    float c_float; the result int or long long."""
+    import ctypes
+    import re
+
+    ret, params = re.search(
+        rf'extern "C" (int|long long) {entry}\(([^)]*)\)', src).groups()
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    args = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
+            for p in params.split(",")]
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong}[ret], args
+
+
+def declared(module, entries):
+    """``module.declare`` applied to a stand-in library with ``entries``:
+    {entry: (restype, argtypes)} as the wrapper declares them."""
+    import types
+
+    lib = module.declare(types.SimpleNamespace(
+        **{e: types.SimpleNamespace() for e in entries}))
+    return {e: (getattr(lib, e).restype, getattr(lib, e).argtypes)
+            for e in entries}
 
 
 def flash_inputs(bh: int, s: int, hd: int, seed: int = 0):
