@@ -91,7 +91,7 @@ on any mismatch:
                 flash in bf16 on bases that are not 16-byte aligned (the
                 simt body, k/v of BH / g rows). Paged also on both bodies
                 forced (serial; split at clusters of 1, 2, 4 and 8) at the
-                sweep and at its edges (torch_cases.PAGED_EDGE: G 1 and 8,
+                sweep and at its edges (torch_cases.PAGED_EDGE: G 1, 3, 7, 8,
                 lengths 0, 1, around a split's boundary and full, n_pages 1,
                 a repeated page), each one launch on the body asked for.
                 Each wrapper raises on a non-contiguous input, a wrong dtype
@@ -99,7 +99,7 @@ on any mismatch:
                 paged and flash case ran the body its wrapper picks by shape
                 (``body()``: wgmma for bf16 with rows of whole 16-byte
                 units, moe's bt % 64 == 0 and flash's hd 64, 96 or 128;
-                simt otherwise; paged: split for G 1, 2, 4, 8 and rows of 1
+                simt otherwise; paged: split for G 1 to 8 and rows of 1
                 to 32 whole 16-byte units, serial otherwise), counted in
                 ``BODIES``.
 17. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
@@ -971,16 +971,17 @@ def phase_profile(model, fixture):
 
 def ssd_bound(shape):
     """(bound_ms, bound_by) of one SSD-scan launch in float32: bytes of xr,
-    l, b, c read once and y, hT written once; operations of the lower
-    triangle of C B^T once a (batch element, chunk), since B and C are
-    shared by its heads, and, per (head, chunk), of that triangle's product
-    with xr, C @ S and the state update."""
-    B, L, H, hd, ds, Q = shape
+    l, b, c read once and y, hT written once; operations of the per-step
+    recurrence, S_t = a_t S_{t-1} + B_t xr_t^T and y_t = C_t S_t, one FMA a
+    state element for each, a head and step (4 L H ds hd FLOP a batch
+    element). That is the least work of the function: a chunked walk does
+    the same two products once a step and adds the masked C B^T of its
+    chunks on top (16-step sub-chunks, as the kernel walks, add 3.5% at
+    the serve shape), so the chunk length does not enter the bound."""
+    B, L, H, hd, ds, _ = shape
     nbytes = 4 * (2 * B * H * L * hd + B * H * L + 2 * B * L * ds
                   + B * H * ds * hd)
-    tri = Q * (Q + 1) // 2
-    flops = B * (L // Q) * (2 * tri * ds + H * (2 * tri * hd
-                                                + 4 * Q * ds * hd))
+    flops = 4 * B * L * H * ds * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -1264,9 +1265,9 @@ def phase_kernels():
         ("paged_attention G=256 hd=256 (the serial body's shared memory)",
          ValueError,
          lambda: PK.paged_attention_kernel(big, pages, pages, one, one[0])),
-        ("paged_attention split body forced at G=3", ValueError,
-         lambda: PK._launch(q[:, :, :3].contiguous(), kp, kp, tab, lens,
-                            "split")),
+        ("paged_attention split body forced at G=9", ValueError,
+         lambda: PK._launch(q.repeat(1, 1, 3, 1)[:, :, :9].contiguous(), kp,
+                            kp, tab, lens, "split")),
         ("paged_attention 3 splits", ValueError,
          lambda: PK._launch(q, kp, kp, tab, lens, "split", 3)),
         ("flash_attention hd=48", ValueError,

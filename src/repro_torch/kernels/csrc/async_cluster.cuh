@@ -5,9 +5,10 @@
 // memory by cp.async (2 bytes, for a bf16 tensor whose base is not 4-byte
 // aligned, by a plain load and store); a thread commits its copies as one
 // group and waits with wait_async<n>() until at most n of its groups are in
-// flight. The cluster helpers read a peer block's shared memory (mapa +
-// ld.shared::cluster) and synchronise every thread of the cluster, with
-// release/acquire ordering of shared-memory writes at cluster scope.
+// flight. The cluster helpers read and write a peer block's shared memory
+// (mapa + ld/st.shared::cluster) and synchronise every thread of the
+// cluster, with release/acquire ordering of shared-memory writes at
+// cluster scope.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -79,6 +80,12 @@ __device__ __forceinline__ float load_peer(unsigned addr) {
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr)
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ void store_peer(unsigned addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y)
+               : "memory");
 }
 
 // Every thread of every block of the cluster arrives, then waits.

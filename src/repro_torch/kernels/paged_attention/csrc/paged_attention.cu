@@ -19,8 +19,8 @@
 // operations-per-byte balance. Two bodies, chosen by shape before the
 // launch (kernel.body):
 //
-// * split (G 1, 2, 4 or 8; rows of 1 to 32 whole 16-byte units; 16-byte
-//   aligned bases). Each (sequence, kv head) is cut into S contiguous
+// * split (G 1 to 8; rows of 1 to 32 whole 16-byte units; 16-byte aligned
+//   bases). Each (sequence, kv head) is cut into S contiguous
 //   ranges of its live slots (all slots for length 0, else the first
 //   seq_lens[b]: later slots would weigh exp(-1e30 - m) = 0), one block of
 //   four warps a range, the S blocks one thread-block cluster. A warp owns
@@ -30,12 +30,13 @@
 //   into a ring of three tiles, two ahead of the one it computes, and reads
 //   back only what it copied, so no barrier stands between the warps while
 //   they stream. The block table is read once a page. q's G rows live in
-//   registers; a row's G dot products reduce by LPR-lane shuffles; each
-//   warp keeps its own online softmax in registers (one max a tile across
-//   its rows), and P V accumulates in registers. At the end the row groups
-//   merge by shuffles, the warps through shared memory, and the cluster's
-//   S partial (m, l, acc) through distributed shared memory, each block
-//   writing 1 / S of out: one launch, no scratch buffer.
+//   registers, G rounded up to 1, 2, 4 or 8 (the spare rows zero, carried
+//   and never written); a row's G dot products reduce by LPR-lane shuffles;
+//   each warp keeps its own online softmax in registers (one max a tile
+//   across its rows), and P V accumulates in registers. At the end the row
+//   groups merge by shuffles, the warps through shared memory, and the
+//   cluster's S partial (m, l, acc) through distributed shared memory, each
+//   block writing 1 / S of out: one launch, no scratch buffer.
 // * serial (any other shape): one block per (kv head, sequence) walks the
 //   sequence's slots kRows at a time, loading each step's rows into shared
 //   memory and keeping the G rows' running max, sum and accumulator there.
@@ -106,13 +107,14 @@ __host__ __device__ inline SplitSmem split_layout(int g, int hd) {
   return m;
 }
 
+// G query rows in registers, of which the first gq are q's.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ table,
                    const int* __restrict__ seq_lens, T* __restrict__ out,
-                   int kvh, int hd, int page, int n_pages, float scale,
-                   int lpr_log) {
+                   int kvh, int gq, int hd, int page, int n_pages,
+                   float scale, int lpr_log) {
   constexpr int kEpl = 16 / (int)sizeof(T);   // elements a lane a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw;
@@ -173,10 +175,14 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   issue(1);
 
   float qf[G][kEpl], acc[G][kEpl], m[G], l[G];
-  const T* qh = q + ((size_t)b * kvh + h) * G * hd + seg * kEpl;
+  const T* qh = q + ((size_t)b * kvh + h) * gq * hd + seg * kEpl;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    unpack(*reinterpret_cast<const uint4*>(qh + (size_t)g * hd), qf[g], qh);
+    if (g < gq)
+      unpack(*reinterpret_cast<const uint4*>(qh + (size_t)g * hd), qf[g], qh);
+    else
+#pragma unroll
+      for (int e = 0; e < kEpl; ++e) qf[g][e] = 0.f;
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -298,10 +304,10 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   ac::cluster_sync();   // every block's (m, l, acc) of its range
 
   // the cluster's blocks -> out: this block writes entries rank, rank + S,
-  // ... of [G, hd]
+  // ... of [gq, hd]
   const int hd_log = __ffs(hd) - 1;
-  T* o = out + ((size_t)b * kvh + h) * G * hd;
-  for (int x = (int)rank + n_split * tid; x < G * hd;
+  T* o = out + ((size_t)b * kvh + h) * gq * hd;
+  for (int x = (int)rank + n_split * tid; x < gq * hd;
        x += n_split * kThreads) {
     const int g = x >> hd_log;
     float pm[kMaxSplits], mx = kNegInf;
@@ -448,8 +454,8 @@ int launch_serial(const void* q, const void* kp, const void* vp,
 template <typename T, int G>
 int launch_split(const void* q, const void* kp, const void* vp,
                  const int* bt, const int* sl, void* out, int bsz, int kvh,
-                 int hd, int page, int n_pages, float scale, int splits,
-                 int lpr_log, size_t smem, cudaStream_t stream) {
+                 int g, int hd, int page, int n_pages, float scale,
+                 int splits, int lpr_log, size_t smem, cudaStream_t stream) {
   auto kernel = paged_split_kernel<T, G>;
   int err = ac::allow_smem(kernel, smem);
   if (err) return err;
@@ -457,27 +463,34 @@ int launch_split(const void* q, const void* kp, const void* vp,
       kernel, dim3(splits, kvh, bsz), dim3(kThreads), smem,
       dim3(splits, 1, 1), stream, static_cast<const T*>(q),
       static_cast<const T*>(kp), static_cast<const T*>(vp), bt, sl,
-      static_cast<T*>(out), kvh, hd, page, n_pages, scale, lpr_log);
+      static_cast<T*>(out), kvh, g, hd, page, n_pages, scale, lpr_log);
 }
+
+// The query rows the split body holds for g: g rounded up to 1, 2, 4, 8.
+int split_group(int g) { return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8; }
 
 template <typename T>
 int by_g(int g, const void* q, const void* kp, const void* vp, const int* bt,
          const int* sl, void* out, int bsz, int kvh, int hd, int page,
          int n_pages, float scale, int splits, int lpr_log, size_t smem,
          cudaStream_t st) {
-  switch (g) {
+  switch (split_group(g)) {
     case 1:
-      return launch_split<T, 1>(q, kp, vp, bt, sl, out, bsz, kvh, hd, page,
-                                n_pages, scale, splits, lpr_log, smem, st);
+      return launch_split<T, 1>(q, kp, vp, bt, sl, out, bsz, kvh, g, hd,
+                                page, n_pages, scale, splits, lpr_log, smem,
+                                st);
     case 2:
-      return launch_split<T, 2>(q, kp, vp, bt, sl, out, bsz, kvh, hd, page,
-                                n_pages, scale, splits, lpr_log, smem, st);
+      return launch_split<T, 2>(q, kp, vp, bt, sl, out, bsz, kvh, g, hd,
+                                page, n_pages, scale, splits, lpr_log, smem,
+                                st);
     case 4:
-      return launch_split<T, 4>(q, kp, vp, bt, sl, out, bsz, kvh, hd, page,
-                                n_pages, scale, splits, lpr_log, smem, st);
+      return launch_split<T, 4>(q, kp, vp, bt, sl, out, bsz, kvh, g, hd,
+                                page, n_pages, scale, splits, lpr_log, smem,
+                                st);
     default:
-      return launch_split<T, 8>(q, kp, vp, bt, sl, out, bsz, kvh, hd, page,
-                                n_pages, scale, splits, lpr_log, smem, st);
+      return launch_split<T, 8>(q, kp, vp, bt, sl, out, bsz, kvh, g, hd,
+                                page, n_pages, scale, splits, lpr_log, smem,
+                                st);
   }
 }
 
@@ -493,7 +506,7 @@ int lanes_log(int hd, int es) {
 }
 
 bool split_takes(int g, int hd, int es) {
-  return (g == 1 || g == 2 || g == 4 || g == 8) && lanes_log(hd, es) >= 0;
+  return g >= 1 && g <= 8 && lanes_log(hd, es) >= 0;
 }
 
 }  // namespace
@@ -505,7 +518,9 @@ extern "C" long long paged_attention_smem_bytes(int g, int hd, int bf16,
                                                 int split) {
   if (g < 1 || hd < 1) return -1;
   if (split)
-    return split_takes(g, hd, bf16 ? 2 : 4) ? split_layout(g, hd).total : -1;
+    return split_takes(g, hd, bf16 ? 2 : 4)
+               ? split_layout(split_group(g), hd).total
+               : -1;
   return (long long)serial_layout(g, hd).total * sizeof(float);
 }
 

@@ -44,8 +44,9 @@ SOURCES = {"paged_attention": CSRC / "paged_attention.cu"}
 LAUNCHES: dict[str, int] = {"paged_attention": 0}
 #: The same launches by body (set to 0 with :func:`reset_launches`).
 BODIES: dict[str, int] = {"split": 0, "serial": 0}
-#: Query heads a kv head the split body takes (its registers hold them).
-SPLIT_GROUPS = (1, 2, 4, 8)
+#: Query heads a kv head the split body takes at most (its registers hold
+#: them, rounded up to 1, 2, 4 or 8).
+MAX_SPLIT_GROUP = 8
 #: Cluster sizes the split body takes, and the blocks it aims for: about
 #: one for each of the H100's 132 SMs (PERF.md: at jamba's 256 sequence x
 #: kv-head pairs one split is fastest, at 32 pairs four).
@@ -85,13 +86,13 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def body(q: torch.Tensor, k_pages: torch.Tensor,
          v_pages: torch.Tensor) -> str:
-    """The body a launch takes, by shape: ``split`` for G in
-    :data:`SPLIT_GROUPS`, rows of hd elements that are 1 to 32 whole
+    """The body a launch takes, by shape: ``split`` for G from 1 to
+    :data:`MAX_SPLIT_GROUP`, rows of hd elements that are 1 to 32 whole
     16-byte units (a power of two) and 16-byte aligned bases of q and the
     pages; ``serial`` otherwise."""
     g, hd = q.shape[2], q.shape[3]
     units, rest = divmod(hd * q.element_size(), 16)
-    ok = (g in SPLIT_GROUPS and not rest and 1 <= units <= 32
+    ok = (1 <= g <= MAX_SPLIT_GROUP and not rest and 1 <= units <= 32
           and units & (units - 1) == 0
           and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)))
     return "split" if ok else "serial"

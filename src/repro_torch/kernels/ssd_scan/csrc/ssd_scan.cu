@@ -11,17 +11,23 @@
 // and writes hT = S after the last chunk. B and C are shared by the heads
 // of one batch element (bh / n_heads).
 //
-// What bounds it: fp32 arithmetic (about 0.46 GFLOP at mamba2-780m's serve
-// shape, L 256, 48 heads of 64, ds 128, chunk 64, against 8 MB of traffic:
-// 6.8 us at the fp32 peak, 2.4 us at the HBM rate); in practice the
-// latency of one block's walk and the SM's one shared-memory pipe. The
-// design:
+// What bounds it: fp32 arithmetic (0.40 GFLOP of the per-step recurrence
+// at mamba2-780m's serve shape, L 256, 48 heads of 64, ds 128, chunk 64,
+// against 8 MB of traffic: 6.0 us at the fp32 peak, 2.4 us at the HBM
+// rate); in practice the latency of one block's walk and the SM's one
+// shared-memory pipe. The design:
 //  * Columns spread over the card. Column d of y and of S reads only
-//    column d of xr, so the grid is (batch*head, hd / TD): one block of
-//    eight warps for TD state columns (TD 16, or hd where it is smaller), 192
-//    blocks at the serve shape where one block a head gave 48. The blocks
-//    need nothing from each other, and each recomputes the sub-chunk's C B^T
-//    (a thread-block cluster sharing it measured slower: PERF.md).
+//    column d of xr, so the grid is (batch*head, hd / TD): one block for TD
+//    state columns (TD = min(32, hd)) of TD / 4 column warps and four C B^T
+//    warps, 12 warps at TD 32, 96 blocks at the serve shape where one block
+//    a head gave 48. The blocks need nothing from each other, and each
+//    recomputes the sub-chunk's C B^T. Built with -DSSD_CB_CLUSTER=n (2 or
+//    4), the hd / TD blocks of a head run as clusters of n that share it
+//    instead: each block's 4 / n C B^T warps sum 16 / n of its rows and
+//    store them into every block of the cluster, one cluster barrier a
+//    sub-chunk, the decayed C B^T in two buffers. That form is a study,
+//    timed by tests/check_torch_ssd_paged.py (17-20% slower at TD 32 on
+//    the H100: PERF.md); the port builds n = 1.
 //  * Sub-chunks of 16 steps. A block walks each chunk as Q / 16 sub-chunks
 //    of kQ = 16 steps, the state carried between them: the same recurrence,
 //    exact in real arithmetic (the decays factor as exp(cum_i - cum_j) =
@@ -30,16 +36,16 @@
 //  * Staged ahead. Sub-chunk k + 2's C, B, xr tile and l are copied by
 //    cp.async (16-byte units where the bases allow) into a ring of three
 //    stages while sub-chunk k computes; no integer division per element.
-//  * The state in registers, lanes over its rows. Lane l of warp w holds
-//    S[s][2w, 2w + 1] for the s of its float4s of ds (s / 4 = l + 32 q),
-//    so the state update is 8 FMAs a float4 of B, thread-private, and
-//    C @ S and C B^T are per-lane partial products over the lane's s (every
-//    shared load a float4 of contiguous C or B that feeds 8 FMAs), summed
-//    across the warp by a transposed shuffle reduction that leaves each
-//    lane one of the 32 sums (31 shuffles, not 32 x 5). Every warp sums
-//    C @ S for its two columns and rows 2w, 2w + 1 of C B^T, so the eight
-//    warps of a block carry equal work. Each warp scans the 16 log decays
-//    itself; two barriers a sub-chunk.
+//  * The state in registers, lanes over its rows. Lane l of column warp w
+//    holds S[s][4w .. 4w + 3] for the s of its float4s of ds (s / 4 = l +
+//    32 q), so the state update is 16 FMAs a float4 of B, thread-private,
+//    and C @ S and C B^T are per-lane partial products over the lane's s
+//    (every shared load a float4 of contiguous C or B that feeds 16 FMAs),
+//    summed across the warp by a transposed shuffle reduction that leaves
+//    each lane two of the 64 sums (62 shuffles, not 64 x 5). A column warp
+//    sums C @ S for its four columns (16 rows x 4), a C B^T warp four rows
+//    of C B^T (4 x 16): equal work, side by side. Each warp scans the 16
+//    log decays itself; two barriers a sub-chunk.
 //  * Only the lower triangle is exponentiated: for j > i, exp(cum_i -
 //    cum_j) can overflow, and inf * 0 would be NaN, so those entries are
 //    set to 0 without the product.
@@ -59,9 +65,19 @@ constexpr int kGStride = kQ + 4;   // C B^T rows, 16-byte aligned
 constexpr int kMaxHd = 128;
 constexpr int kMaxTile = 32;       // state columns a block: 4 a warp
 constexpr int kMaxDs = 512;        // 4 float4s of ds a lane
-// Threads of a block with td state columns: td / 4 column warps and four
-// C B^T warps of four rows.
-__host__ __device__ constexpr int threads(int td) { return 32 * (td / 4 + 4); }
+#ifndef SSD_CB_CLUSTER
+#define SSD_CB_CLUSTER 1
+#endif
+constexpr int kCluster = SSD_CB_CLUSTER;   // blocks that share C B^T
+static_assert(kCluster == 1 || kCluster == 2 || kCluster == 4,
+              "SSD_CB_CLUSTER is 1, 2 or 4");
+constexpr int kCbWarps = 4 / kCluster;     // C B^T warps a block
+constexpr int kGBufs = kCluster > 1 ? 2 : 1;
+// Threads of a block with td state columns: td / 4 column warps and the
+// C B^T warps, four rows each.
+__host__ __device__ constexpr int threads(int td) {
+  return 32 * (td / 4 + kCbWarps);
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -117,7 +133,7 @@ __device__ __forceinline__ void warp_sum64(float (&v)[64], int lane) {
 // Shared-memory layout, in bytes; every piece 16-byte aligned. A stage
 // holds one sub-chunk's C and B rows [kQ][ds] and xr tile [kQ][TD] in the
 // inputs' type and its l [kQ] in fp32; G is the decayed C B^T,
-// [kQ][kGStride]; W the xr tile times exp(total - cum_j), [kQ][TD].
+// [kGBufs][kQ][kGStride]; W the xr tile times exp(total - cum_j), [kQ][TD].
 struct Smem {
   int c, b, x, l, stage, g, w, total;
 };
@@ -132,14 +148,14 @@ __host__ __device__ inline Smem layout(int td, int ds, int es) {
   m.l = m.x + align16(kQ * td * es);
   m.stage = m.l + kQ * 4;
   m.g = kStages * m.stage;
-  m.w = m.g + kQ * kGStride * 4;
+  m.w = m.g + kGBufs * kQ * kGStride * 4;
   m.total = m.w + align16(kQ * td * 4);
   return m;
 }
 
 // TD state columns (4, 8, 16 or 32) a block; M float4s of ds a lane (1, 2,
-// 4). Warps 0 .. TD / 4 - 1 own four state columns each, the last four
-// warps four rows each of C B^T.
+// 4). Warps 0 .. TD / 4 - 1 own four state columns each, the last
+// kCbWarps four rows each of C B^T (of the cluster's 16 rows).
 template <typename T, int TD, int M>
 __global__ void __launch_bounds__(threads(kMaxTile))
 ssd_scan_kernel(const T* __restrict__ xr, const float* __restrict__ l,
@@ -160,7 +176,12 @@ ssd_scan_kernel(const T* __restrict__ xr, const float* __restrict__ l,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_sub = L / kQ;
   const bool cols = warp < kColWarps;
-  const int rw = warp - kColWarps;   // a C B^T warp's rows 4 rw .. + 3
+  // a C B^T warp's rows 4 rw .. + 3
+  int rw = warp - kColWarps;
+  if constexpr (kCluster > 1) {
+    rw += kCbWarps * (int)ac::cluster_rank();
+    ac::cluster_sync();   // every block of the cluster runs before a store
+  }
 
   const unsigned char* c_b =
       reinterpret_cast<const unsigned char*>(c + (size_t)bi * L * ds);
@@ -215,6 +236,9 @@ ssd_scan_kernel(const T* __restrict__ xr, const float* __restrict__ l,
     ac::wait_async<1>();
     __syncthreads();   // stage k landed; sub-chunk k - 1 read G and W
     stage_in(k + 2);
+    // with a cluster, G alternates: a peer stores sub-chunk k + 1's rows
+    // while this block may still read sub-chunk k's
+    float* Gk = G + (k % kGBufs) * kQ * kGStride;
     const unsigned char* s = smem + (k % kStages) * m.stage;
     const T* Cs = reinterpret_cast<const T*>(s + m.c);
     const T* Bs = reinterpret_cast<const T*>(s + m.b);
@@ -281,18 +305,29 @@ ssd_scan_kernel(const T* __restrict__ xr, const float* __restrict__ l,
         }
       }
       warp_sum64(v, lane);
-      *reinterpret_cast<float2*>(G + gi * kGStride + gj) =
+      const float2 g2 =
           make_float2(gj <= gi ? v[0] * expf(cum_g - cum_j0) : 0.f,
                       gj + 1 <= gi ? v[1] * expf(cum_g - cum_j1) : 0.f);
+      float* gp = Gk + gi * kGStride + gj;
+      if constexpr (kCluster == 1) {
+        *reinterpret_cast<float2*>(gp) = g2;
+      } else {
+#pragma unroll
+        for (int r = 0; r < kCluster; ++r)
+          ac::store_peer(ac::peer_addr(gp, r), g2);
+      }
     }
-    __syncthreads();   // G and W written
+    if constexpr (kCluster == 1)
+      __syncthreads();   // G and W written
+    else
+      ac::cluster_sync();   // G of every block of the cluster, and W
 
     // ---- phase B: y += masked (C B^T) @ xr, written once; S updated
     if (cols) {
 #pragma unroll
       for (int j = 0; j < kQ; j += 4) {
         const float4 g =
-            *reinterpret_cast<const float4*>(G + yi * kGStride + j);
+            *reinterpret_cast<const float4*>(Gk + yi * kGStride + j);
         const float gv[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
@@ -365,6 +400,13 @@ int launch(const void* xr, const void* l, const void* b, const void* c,
   auto kernel = ssd_scan_kernel<T, TD, M>;
   int err = ac::allow_smem(kernel, smem);
   if (err) return err;
+  if constexpr (kCluster > 1)
+    return ac::launch_cluster(
+        kernel, dim3(bh, hd / TD), dim3(threads(TD)), smem,
+        dim3(1, kCluster, 1), stream, static_cast<const T*>(xr),
+        static_cast<const float*>(l), static_cast<const T*>(b),
+        static_cast<const T*>(c), static_cast<T*>(y),
+        static_cast<float*>(hT), L, hd, ds, n_heads, unit, l_unit);
   kernel<<<dim3(bh, hd / TD), threads(TD), smem, stream>>>(
       static_cast<const T*>(xr), static_cast<const float*>(l),
       static_cast<const T*>(b), static_cast<const T*>(c), static_cast<T*>(y),
@@ -409,12 +451,14 @@ int by_tile(int td, const void* xr, const void* l, const void* b,
 // Dynamic shared memory of one launch at (chunk, hd, ds) with td state
 // columns a block, in bytes, or -1 for a shape the kernel does not take:
 // chunk a multiple of 16, hd a power of two from 4 to 128 and a multiple of
-// td (4, 8, 16 or 32), ds a multiple of 4 up to 512.
+// td (4, 8, 16 or 32), ds a multiple of 4 up to 512 (and, built with
+// SSD_CB_CLUSTER n, hd / td a multiple of n).
 extern "C" long long ssd_scan_smem_bytes(int q, int hd, int ds, int td,
                                          int bf16) {
   if (q < 16 || q % 16 != 0 || ds < 4 || ds % 4 != 0 || ds > kMaxDs ||
       hd < 4 || hd > kMaxHd || (hd & (hd - 1)) != 0 ||
-      (td != 4 && td != 8 && td != 16 && td != kMaxTile) || hd % td != 0)
+      (td != 4 && td != 8 && td != 16 && td != kMaxTile) || hd % td != 0 ||
+      (hd / td) % kCluster != 0)
     return -1;
   return (long long)layout(td, ds, bf16 ? 2 : 4).total;
 }

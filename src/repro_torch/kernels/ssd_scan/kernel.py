@@ -68,7 +68,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def column_tile(hd: int) -> int:
-    """State columns a block takes: 16, or hd where it is smaller."""
+    """State columns a block takes: 32, or hd where it is smaller."""
     return min(MAX_TILE, hd)
 
 

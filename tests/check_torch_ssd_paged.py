@@ -15,7 +15,10 @@ with ``chip_smoke.time_ms`` in turns (other, this, this, other):
 
 * the SSD scan in float32 at mamba2-780m's serve shape (B 1, L 256, 48
   heads of 64, ds 128, chunk 64) and at L 2048, with this tree's kernel
-  also at 16 state columns a block against its 32 (through its C entry);
+  also at 16 state columns a block against its 32 (through its C entry),
+  and built with ``-DSSD_CB_CLUSTER=2`` and ``=4`` (the blocks of a head
+  in clusters that share C B^T) at 32 and 16 columns where hd / columns
+  allows the cluster;
 * paged attention at jamba-v0.1-52b's decode step (``PAGED_JAMBA``) in
   bfloat16 and float32, with this tree's serial body and its split body at
   clusters of 1, 2, 4 and 8, and the same at batch 4 (32 sequence x kv-head
@@ -49,31 +52,44 @@ ENTRIES = {"ssd_scan": "ssd_scan_launch",
 KINDS = {"int": ctypes.c_int, "float": ctypes.c_float}
 
 
+CLUSTERS = (2, 4)
+
+
+def nvcc(src: Path, lib: Path, *flags: str) -> subprocess.Popen:
+    """Start building ``src`` into ``lib`` with the port's nvcc flags."""
+    return subprocess.Popen(
+        [compat.nvcc_path(), *cuda_build.NVCC_FLAGS, *flags, "-o", str(lib),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def finish(label: str, proc: subprocess.Popen) -> None:
+    log, _ = proc.communicate()
+    if proc.returncode:
+        sys.exit(f"nvcc failed on {label}:\n{log}")
+
+
 class Other:
     """The SSD-scan and paged-attention kernels of another checkout, called
     by parameter name."""
 
     def __init__(self, root: Path):
-        OUT.mkdir(parents=True, exist_ok=True)
-        procs, self.fns, self.params = {}, {}, {}
+        self.procs, self.fns, self.params, self.types = {}, {}, {}, {}
         for name in ENTRIES:
             src = root / "src/repro_torch/kernels" / name / "csrc" / f"{name}.cu"
             params = re.search(rf'extern "C" int {ENTRIES[name]}\(([^)]*)\)',
                                src.read_text()).group(1).split(",")
             self.params[name] = [p.split()[-1].lstrip("*") for p in params]
-            argtypes = [ctypes.c_void_p if "*" in p else KINDS[p.split()[0]]
-                        for p in params]
-            procs[name] = (subprocess.Popen(
-                [compat.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
-                 str(OUT / f"{name}.so"), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                argtypes)
-        for name, (proc, argtypes) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode:
-                sys.exit(f"nvcc failed on the other {name}:\n{log}")
+            self.types[name] = [ctypes.c_void_p if "*" in p
+                                else KINDS[p.split()[0]] for p in params]
+            self.procs[name] = nvcc(src, OUT / f"{name}.so")
+
+    def load(self) -> None:
+        """Wait for the builds and bind their C entries."""
+        for name, proc in self.procs.items():
+            finish(f"the other {name}", proc)
             fn = getattr(ctypes.CDLL(str(OUT / f"{name}.so")), ENTRIES[name])
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fn.argtypes, fn.restype = self.types[name], ctypes.c_int
             self.fns[name] = fn
 
     def call(self, name: str, **values) -> None:
@@ -130,14 +146,15 @@ def show(label: str, row: dict) -> None:
           + " ms", flush=True)
 
 
-def ssd_at_tile(xr, l, b, c, chunk: int, n_heads: int, td: int):
-    """One launch of this tree's SSD kernel with ``td`` state columns a
-    block (the wrapper takes ``kernel.column_tile``'s), float32."""
+def ssd_at_tile(lib, xr, l, b, c, chunk: int, n_heads: int, td: int):
+    """One launch of an SSD library of this tree (``SK._library()`` or a
+    cluster build) with ``td`` state columns a block (the wrapper takes
+    ``kernel.column_tile``'s), float32."""
     bh, L, hd = xr.shape
     ds = b.shape[-1]
     y = torch.empty_like(xr)
     hT = torch.empty((bh, ds, hd), dtype=torch.float32, device=xr.device)
-    err = SK._library().ssd_scan_launch(
+    err = lib.ssd_scan_launch(
         xr.data_ptr(), l.data_ptr(), b.data_ptr(), c.data_ptr(),
         y.data_ptr(), hT.data_ptr(), bh, L, hd, ds, chunk, n_heads, 0, td,
         torch.cuda.current_stream().cuda_stream)
@@ -146,20 +163,29 @@ def ssd_at_tile(xr, l, b, c, chunk: int, n_heads: int, td: int):
     return y, hT
 
 
-def ssd(other: Other) -> dict:
+def ssd(other: Other, clustered: dict) -> dict:
     out = {}
     for name, shape in (("serve", tc.SSD_SERVE), ("long", cs.SSD_LONG)):
-        H, chunk = shape[2], shape[5]
+        H, hd, chunk = shape[2], shape[3], shape[5]
         args = tc.ssd_kernel_inputs(shape, torch.float32, "cuda", seed=1)
         mine = lambda: SK.ssd_scan_kernel(*args, chunk=chunk, n_heads=H)
+        lib = SK._library()
         same(f"ssd {name}", other.ssd(*args, chunk, H), mine(), "float32")
-        same(f"ssd {name} at 16 columns", ssd_at_tile(*args, chunk, H, 16),
-             mine(), "float32")
+        same(f"ssd {name} at 16 columns",
+             ssd_at_tile(lib, *args, chunk, H, 16), mine(), "float32")
         row = in_turns({"other": lambda: other.ssd(*args, chunk, H),
                         "this": mine}, 20)
-        row.update(in_turns(
-            {f"this_td{td}": lambda td=td: ssd_at_tile(*args, chunk, H, td)
-             for td in (16, 32)}, 20))
+        variants = {f"this_td{td}": lambda td=td: ssd_at_tile(
+            lib, *args, chunk, H, td) for td in (16, 32)}
+        for n, clib in clustered.items():
+            for td in (16, 32):
+                if (hd // td) % n == 0:
+                    run = lambda clib=clib, td=td: ssd_at_tile(
+                        clib, *args, chunk, H, td)
+                    same(f"ssd {name} cluster {n} at {td} columns", run(),
+                         mine(), "float32")
+                    variants[f"cluster{n}_td{td}"] = run
+        row.update(in_turns(variants, 20))
         row["bound"] = cs.ssd_bound(shape)[0]
         show(f"ssd_scan {name} {shape} float32", row)
         out[name] = row
@@ -208,9 +234,18 @@ def main() -> None:
     if reason:
         sys.exit(reason)
     torch.backends.cuda.matmul.allow_tf32 = False
+    OUT.mkdir(parents=True, exist_ok=True)
     other = Other(opts.root)
+    builds = {n: nvcc(SK.SOURCES["ssd_scan"], OUT / f"ssd_cluster{n}.so",
+                      f"-DSSD_CB_CLUSTER={n}") for n in CLUSTERS}
     kernels.build()
-    record = {"ssd_scan": ssd(other), "paged_attention": paged(other)}
+    other.load()
+    clustered = {}
+    for n, proc in builds.items():
+        finish(f"ssd_scan at clusters of {n}", proc)
+        clustered[n] = SK.declare(ctypes.CDLL(str(OUT / f"ssd_cluster{n}.so")))
+    record = {"ssd_scan": ssd(other, clustered),
+              "paged_attention": paged(other)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

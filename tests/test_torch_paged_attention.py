@@ -118,8 +118,8 @@ def test_checks():
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", range(len(tc.PAGED_EDGE)))
 def test_edge_cases_match_jax(case, dtype):
-    """The CUDA kernel's edges (torch_cases.PAGED_EDGE): G 1 and 8, lengths
-    0, 1 and around half the slots, n_pages 1, a table that repeats a
+    """The CUDA kernel's edges (torch_cases.PAGED_EDGE): G 1, 3, 7 and 8,
+    lengths 0, 1 and around half the slots, n_pages 1, a table that repeats a
     page; the port's ops against the JAX package's interpret-mode kernel
     and its ref."""
     j, t = both(*tc.paged_edge_inputs(*tc.PAGED_EDGE[case]), dtype)
@@ -137,11 +137,12 @@ def _empty(shape, dtype=torch.bfloat16):
     (4, 128, torch.bfloat16, "split"), (4, 128, torch.float32, "split"),
     (1, 64, torch.bfloat16, "split"), (8, 64, torch.float32, "split"),
     (2, 8, torch.bfloat16, "split"), (8, 256, torch.bfloat16, "split"),
-    (3, 128, torch.bfloat16, "serial"), (16, 64, torch.float32, "serial"),
+    (3, 128, torch.bfloat16, "split"), (7, 64, torch.float32, "split"),
+    (9, 64, torch.bfloat16, "serial"), (16, 64, torch.float32, "serial"),
     (4, 96, torch.bfloat16, "serial"), (4, 256, torch.float32, "serial"),
     (4, 4, torch.bfloat16, "serial"), (256, 256, torch.float32, "serial")])
 def test_body_by_shape(g, hd, dtype, want):
-    """The split body takes G 1, 2, 4 or 8 and rows of 1 to 32 whole
+    """The split body takes G from 1 to 8 and rows of 1 to 32 whole
     16-byte units, a power of two (bf16 hd 8 to 256, fp32 hd 4 to 128);
     every other shape takes the serial body."""
     q = _empty((2, 2, g, hd), dtype)
@@ -176,8 +177,8 @@ def test_forced_bodies_are_refused_before_a_launch():
     """``_launch``'s forced body and split count (the card tests' and the
     timings') are checked before the library is loaded."""
     q, kp, vp, table, lens = (torch.from_numpy(a) for a in
-                              tc.paged_inputs(2, 2, 3, 64, 8, 16, 4))
-    with pytest.raises(ValueError, match="body 'split' does not take G=3"):
+                              tc.paged_inputs(2, 2, 9, 64, 8, 16, 4))
+    with pytest.raises(ValueError, match="body 'split' does not take G=9"):
         K._launch(q, kp, vp, table, lens, which="split")
     with pytest.raises(ValueError, match="not one of"):
         K._launch(q[:, :, :2].contiguous(), kp, vp, table, lens,

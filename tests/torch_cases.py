@@ -70,13 +70,16 @@ MOE_SHAPES = ((4, 256, 64, 256, 128, 128), (8, 128, 128, 384, 128, 128),
 PAGED_SHAPES = ((2, 1, 4, 64, 8, 16, 4), (3, 2, 4, 64, 16, 32, 4),
                 (1, 4, 1, 128, 8, 64, 2), (4, 2, 8, 64, 32, 16, 8))
 #: The paged kernel's edges: ((B, KVH, G, hd, P, page, n_pages), seq_lens,
-#: the one page every table entry names or None). G 1 and 8; lengths 0, 1,
-#: one short of half the slots, on it, one past it and full (two splits
-#: meet there); n_pages 1; a table that repeats one page.
+#: the one page every table entry names or None). G 1 and 8, and 3 and 7
+#: (the split body rounds them up to 4 and 8); lengths 0, 1, one short of
+#: half the slots, on it, one past it and full (two splits meet there);
+#: n_pages 1; a table that repeats one page.
 PAGED_EDGE = (((6, 2, 1, 128, 16, 16, 8), (0, 1, 63, 64, 65, 128), None),
               ((6, 1, 8, 64, 16, 16, 8), (0, 1, 63, 64, 65, 128), None),
               ((3, 2, 4, 64, 4, 16, 1), (0, 1, 16), None),
-              ((2, 2, 4, 128, 8, 16, 4), (64, 40), 3))
+              ((2, 2, 4, 128, 8, 16, 4), (64, 40), 3),
+              ((3, 2, 3, 64, 8, 16, 4), (0, 17, 64), None),
+              ((2, 1, 7, 128, 8, 16, 4), (5, 64), None))
 #: tests/test_flash_attention.py's sweep: (BH, S, hd, bq, bk).
 FLASH_SHAPES = ((2, 256, 64, 128, 128), (4, 512, 64, 128, 128),
                 (1, 256, 128, 128, 64), (3, 384, 64, 128, 128))
