@@ -75,11 +75,32 @@ on any mismatch:
                 16 decode steps: the card's busy and idle share, and the
                 SSD-scan and matmul kernels' device time (reported, not
                 checked: the trace may hold no device activity there).
-15. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
+15. serve_smollm — main path five: smollm-135m whole (30 layers, 9 query
+                heads on 3 kv heads, tied embeddings), fp32, through
+                ``launch.serve``'s path with the arguments of
+                ``tests/data/torch_serve_smollm_135m.json`` (made by the JAX
+                package; 4 requests x 128 prompt tokens x 16 new, MASA):
+                ``EngineStats`` equal the fixture's, tokens equal up to a
+                near tie, teacher-forced top-8 logits within rtol = atol =
+                1e-3, and no kernel launched (attention is plain PyTorch, as
+                the reference's is plain JAX); a profile of one request.
+16. serve_moonshot — main path six: moonshot-v1-16b-a3b at full width cut
+                to 2 of its 48 layers (16 heads of 128, 64 experts top-6 and
+                2 shared, F 1408), the same checks against
+                ``tests/data/torch_serve_moonshot_16b_l2.json``; exactly
+                2 layers x 3 products (up, gate, down) moe_gemm launches a
+                prefill and a decode call, each on the simt body, and no
+                other kernel; a profile of one request.
+17. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
+                capacity 16 and 8, D 2048, F 1408; the up and the down
+                product), fp32: kernel vs plain within 2e-4, then CUDA-event
+                times of the kernel, its plain version and ``torch.bmm`` on
+                the same capacity buffer, beside the bound.
+18. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound
                 (C B^T counted once a batch element and chunk: B and C are
                 shared by the heads).
-16. kernels   — the masa_gemm (both orders, through ops and its fallback),
+19. kernels   — the masa_gemm (both orders, through ops and its fallback),
                 moe_gemm, paged_attention and flash_attention kernels vs
                 their plain versions on the card, in float32 (rtol = atol =
                 2e-4) and bfloat16 (2e-2), at tests/test_kernels.py's and
@@ -102,12 +123,12 @@ on any mismatch:
                 simt otherwise; paged: split for G 1 to 8 and rows of 1
                 to 32 whole 16-byte units, serial otherwise), counted in
                 ``BODIES``.
-17. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
+20. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
                 (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
                 paged_attention 2, flash_attention 1); no DRAM-kernel launch.
-18. kernel_time — the four kernels at jamba-v0.1-52b's full width
+21. kernel_time — the four kernels at jamba-v0.1-52b's full width
                 (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
                 kernel vs plain within the tolerances above, then CUDA-event
                 times of the kernel, its plain version and the one PyTorch
@@ -127,7 +148,9 @@ on any mismatch:
 Each phase prints its seconds. The last lines are nvidia-smi's name and
 power limit, the per-kernel JSON record (all seven kernels; lane_step and
 mix_step also give their body, µs and cycles a step, chain bound and the
-global body's time), and ``{"ok": true, "device": {...}}``.
+global body's time; moe_gemm its launches by path, moonshot's serve run
+and its times at moonshot's shapes), and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -181,6 +204,15 @@ PEAK_FP32_FLOPS = 67e12
 SSD_LONG = (1, 2048, 48, 64, 128, 64)
 #: SSD-scan launches of the serve path: one per layer per admitted request.
 SERVE_SSD_LAUNCHES = 4 * 48
+#: The attention and MoE serve phases: smollm-135m whole and
+#: moonshot-v1-16b-a3b at full width cut to 2 layers, each against its JAX
+#: fixture (tests/make_torch_serve_fixture.py).
+SERVE_ARCHS = ("smollm-135m", "moonshot-v1-16b-a3b")
+#: moonshot's grouped expert GEMMs as its serve path runs them: E experts,
+#: capacity C (16 for a 128-token prefill, 8 for a decode step), D and F;
+#: "up" (also "gate") multiplies [E*C, D] by [E, D, F], "down" [E*C, F]
+#: by [E, F, D].
+MOE_MOONSHOT = dict(E=64, D=2048, F=1408, capacities=(16, 8))
 #: Cycles a second that the timing's sleep kernel counts: the H100's
 #: highest SM clock (1980 MHz) rounded up.
 SLEEP_CYCLES_PER_S = 2e9
@@ -899,25 +931,45 @@ def phase_ssd():
     return err[("float32", tc.SSD_SERVE, False)]
 
 
-def phase_serve(smi: str):
+def serve_counted(fixture: dict, phase: str):
+    """``check_torch_serve.serve`` on the card with every kernel's count
+    set to 0 just before it: (result, model, wall s, kernel launches,
+    moe_gemm launches by body, DRAM-kernel launches)."""
     import check_torch_serve as cs
-    import torch_cases as tc
+    from repro_torch import kernels
     from repro_torch.core.dram import cuda_step
-    from repro_torch.kernels.ssd_scan import kernel as K
+    from repro_torch.kernels.moe_gemm import kernel as EK
 
-    fixture = tc.serve_fixture()
-    # ---- the main path, counted
+    kernels.reset_launches()
     cuda_step.reset_launches()
-    K.reset_launches()
     t0 = time.perf_counter()
     try:
         res = cs.serve(fixture, "cuda")
     except cs.CheckFailed as e:
-        fail(f"serve: {e}")
+        fail(f"{phase}: {e}")
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    dram = dict(cuda_step.LAUNCHES)
-    model = res.pop("model")
+    return (res, res.pop("model"), wall, kernels.launches(), dict(EK.BODIES),
+            dict(cuda_step.LAUNCHES))
+
+
+def log_serve(tag: str, res: dict, smi: str) -> None:
+    import check_torch_serve as cs
+
+    log(f"{tag} EngineStats {res['stats']} == fixture; tokens equal the "
+        f"fixture's at {res['tokens_compared']} steps; near-tie steps (gap "
+        f"< {cs.NEAR_TIE}): {res['near_ties']}")
+    log(f"{tag} prefill {res['prefill_calls']} calls, {res['prefill_s']:.4f}s"
+        f" ({res['prefill_tok_s']:.1f} tok/s); decode {res['decode_calls']} "
+        f"calls, {res['decode_s']:.4f}s ({res['decode_tok_s']:.2f} tok/s); "
+        f"card {smi}")
+
+
+def phase_serve(smi: str):
+    import torch_cases as tc
+
+    fixture = tc.serve_fixture()
+    # ---- the main path, counted
+    res, model, wall, launches, _, dram = serve_counted(fixture, "serve")
     log(f"[serve] launch.serve --arch mamba2-780m (full width, fp32) with "
         f"the fixture's arguments on the card: {wall:.2f}s incl. weights "
         f"({res['build_s']:.2f}s) and checks; engine {res['wall_s']:.3f}s; "
@@ -925,48 +977,117 @@ def phase_serve(smi: str):
     if launches["ssd_scan"] != SERVE_SSD_LAUNCHES:
         fail(f"serve: expected {SERVE_SSD_LAUNCHES} ssd_scan launches, "
              f"counted {launches['ssd_scan']}")
-    log(f"[serve] EngineStats {res['stats']} == fixture; tokens equal the "
-        f"fixture's at {res['tokens_compared']} steps; near-tie steps (gap "
-        f"< {cs.NEAR_TIE}): {res['near_ties']}")
-    log(f"[serve] prefill {res['prefill_calls']} calls, {res['prefill_s']:.4f}s"
-        f" ({res['prefill_tok_s']:.1f} tok/s); decode {res['decode_calls']} "
-        f"calls, {res['decode_s']:.4f}s ({res['decode_tok_s']:.2f} tok/s); "
-        f"card {smi}")
+    log_serve("[serve]", res, smi)
     res.update(launches=launches["ssd_scan"], wall_with_checks_s=wall)
     return res, model, fixture
 
 
-def phase_logits(model, fixture):
+def phase_logits(model, fixture, tag: str = "[logits]"):
     import check_torch_serve as cs
 
     try:
         tf = cs.teacher_forced(model, fixture)
     except cs.CheckFailed as e:
-        fail(f"logits: {e}")
-    log(f"[logits] teacher-forced: {tf['steps']} steps' top-8 logits within "
+        fail(f"logits {fixture['args']['arch']}: {e}")
+    log(f"{tag} teacher-forced: {tf['steps']} steps' top-8 logits within "
         f"rtol = atol = {cs.LOGIT_TOL}; max abs err {tf['max_abs_err']:.3e}, "
         f"max err / limit {tf['max_err_over_limit']:.3f}; top-1 equal at "
         f"{tf['top1_same']} of {tf['steps']} steps")
     return tf
 
 
-def phase_profile(model, fixture):
+def phase_profile(model, fixture, smi: str, tag: str = "[profile]"):
     import check_torch_serve as cs
 
     prof = cs.profile(model, fixture)
     if prof is None:
-        log("[profile] the trace holds no device activity: busy share not "
-            "measured")
+        log(f"{tag} the trace holds no device activity: busy share not "
+            f"measured")
         return None
     for name, p in prof.items():
-        log(f"[profile] {name}: wall {p['wall_ms']:.2f} ms under the "
+        log(f"{tag} {name}: wall {p['wall_ms']:.2f} ms under the "
             f"profiler, card busy {p['device_ms']:.2f} ms in "
             f"{p['device_ops']} kernels and copies (idle share "
             f"{p['idle_share']:.3f}); ssd_scan {p['ssd_scan_ms']:.2f} ms, "
-            f"matmul (GEMM, GEMV) {p['matmul_ms']:.2f} ms")
+            f"moe_gemm {p['moe_gemm_ms']:.2f} ms, other matmul (GEMM, GEMV) "
+            f"{p['matmul_ms']:.2f} ms; card {smi}")
         for n, t, c in p["top"]:
-            log(f"[profile]   {t:9.3f} ms  x{c:<5d} {n}")
+            log(f"{tag}   {t:9.3f} ms  x{c:<5d} {n}")
     return prof
+
+
+def phase_serve_model(arch: str, smi: str):
+    """Main paths five and six: ``arch`` served at full width through
+    ``check_torch_serve.serve`` (the launcher's path with the fixture's
+    arguments), checked as the mamba2 serve phase is, then its
+    teacher-forced logits and a profile. Every kernel's count is 0 just
+    before the serve and read just after: smollm's path launches no kernel
+    (attention is plain PyTorch, as in the reference), moonshot's exactly
+    one grouped GEMM a MoE layer and product (up, gate, down) for each
+    prefill and decode call, all on the simt body (fp32)."""
+    import torch_cases as tc
+
+    tag = f"[serve {arch}]"
+    fixture = tc.serve_fixture(arch)
+    # ---- the main path, counted
+    res, model, wall, launches, bodies, dram = serve_counted(
+        fixture, f"serve {arch}")
+    cfg = model.cfg
+    products = 3 if cfg.mlp_glu else 2
+    moe_layers = sum(spec.ffn == "moe" for spec in cfg.layer_specs())
+    want = dict.fromkeys(launches, 0)
+    want["moe_gemm"] = moe_layers * products * (res["prefill_calls"]
+                                                + res["decode_calls"])
+    log(f"{tag} full width ({cfg.n_layers} layers, fp32) with the fixture's "
+        f"arguments on the card: {wall:.2f}s incl. weights "
+        f"({res['build_s']:.2f}s) and checks; engine {res['wall_s']:.3f}s; "
+        f"launches {launches} (moe_gemm by body {bodies}), DRAM kernels "
+        f"{dram}; card {smi}")
+    if launches != want or any(dram.values()):
+        fail(f"serve {arch}: expected launches {want} and no DRAM kernel, "
+             f"counted {launches}, {dram}")
+    if bodies != {"wgmma": 0, "simt": want["moe_gemm"]}:
+        fail(f"serve {arch}: moe_gemm ran bodies {bodies}, expected "
+             f"{want['moe_gemm']} on simt (fp32)")
+    log_serve(tag, res, smi)
+    res.update(launches=launches["moe_gemm"], wall_with_checks_s=wall,
+               logits=phase_logits(model, fixture, tag),
+               profile=phase_profile(model, fixture, smi, tag))
+    return res
+
+
+def phase_moe_time(smi: str):
+    """The grouped GEMM at moonshot's serve shapes (``MOE_MOONSHOT``), fp32
+    as the serve path runs it: kernel vs plain within 2e-4, then CUDA-event
+    times of the kernel, its plain version and ``torch.bmm`` on the same
+    capacity buffer, beside the bound. Every launch on the simt body."""
+    from repro_torch.kernels.moe_gemm import capacity_block_eids
+    from repro_torch.kernels.moe_gemm import kernel as EK
+
+    gen = torch.Generator(device="cuda").manual_seed(KERNEL_TIME_SEED)
+    E, D, F = MOE_MOONSHOT["E"], MOE_MOONSHOT["D"], MOE_MOONSHOT["F"]
+    out = {}
+    for C in MOE_MOONSHOT["capacities"]:
+        eids = capacity_block_eids(E, C, C, device="cuda")
+        T = E * C
+        for prod, (k_in, k_out) in (("up", (D, F)), ("down", (F, D))):
+            x = torch.randn((T, k_in), generator=gen, device="cuda")
+            w = torch.randn((E, k_in, k_out), generator=gen,
+                            device="cuda") * k_in ** -0.5
+            flops = 2 * T * k_in * k_out
+            EK.reset_launches()
+            row = timing_row(
+                f"moe_gemm moonshot {prod} C={C}",
+                lambda: EK.grouped_matmul_kernel(x, w, eids, bt=C),
+                lambda: EK.grouped_matmul_plain(x, w, eids, bt=C),
+                lambda: torch.bmm(x.view(E, C, k_in), w), flops,
+                4 * (T * k_in + E * k_in * k_out + T * k_out)
+                + 4 * eids.numel(), "float32", reps=20)
+            out[f"{prod}_c{C}"] = with_body(
+                row, EK, f"moe_gemm moonshot {prod} C={C}", "float32", flops)
+            del x, w
+    log(f"[timing] moe_gemm at moonshot's serve shapes, card {smi}")
+    return out
 
 
 def ssd_bound(shape):
@@ -1667,8 +1788,12 @@ def main() -> None:
     ssd_err = run_phase("ssd", phase_ssd)
     serve, model, fixture = run_phase("serve", phase_serve, smi)
     tf = run_phase("logits", phase_logits, model, fixture)
-    prof = run_phase("profile", phase_profile, model, fixture)
+    prof = run_phase("profile", phase_profile, model, fixture, smi)
     del model
+    served = {arch: run_phase(f"serve_{arch.split('-')[0]}",
+                              phase_serve_model, arch, smi)
+              for arch in SERVE_ARCHS}
+    moe_t = run_phase("moe_time", phase_moe_time, smi)
     ssd_t = run_phase("ssd_time", phase_ssd_time, smi)
     sweep = run_phase("kernels", phase_kernels)
     bench = run_phase("kernel_bench", phase_kernel_bench)
@@ -1734,6 +1859,16 @@ def main() -> None:
             "decode_tok_s", "near_ties", "tokens_compared")},
         "logits": tf, "profile": prof}]}
     record["kernels"] += layer_records(sweep, bench, ktime)
+    moe = next(k for k in record["kernels"] if k["name"] == "moe_gemm")
+    moe["launches_by_path"] = {"kernel_bench": moe["launches"],
+                               "serve_moonshot": served[SERVE_ARCHS[1]][
+                                   "launches"]}
+    moe["launches"] = sum(moe["launches_by_path"].values())
+    moe["moonshot_float32"] = moe_t
+    moe["serve_moonshot"] = {k: served[SERVE_ARCHS[1]][k] for k in (
+        "stats", "build_s", "wall_s", "prefill_s", "decode_s",
+        "prefill_tok_s", "decode_tok_s", "near_ties", "tokens_compared",
+        "logits", "profile")}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

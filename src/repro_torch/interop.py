@@ -21,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dram.engine import SimConfig
 from repro_torch.core.dram.schedulers import Scheduler
 from repro_torch.core.dram.timing import DramTiming
-from repro_torch.models.builder import check_supported, init_params
+from repro_torch.models.builder import init_params
 
 #: Fields of stack_traces output that become [B, N] / [B] int32 tensors
 #: (``[M, C, N]`` / ``[M, C]`` for mixes).
@@ -73,10 +73,10 @@ def flatten(tree: dict, prefix: str = "") -> dict:
 
 def numpy_reference_params(cfg: ModelConfig, seed: int) -> dict:
     """A parameter tree in the reference's layout, shapes and dtypes
-    (float32 numpy arrays, ``[n_repeats, ...]`` under ``dec``), drawn from
-    ``np.random.default_rng(seed)`` at the scales of the reference's
-    initialisers. The same on every machine with the same numpy."""
-    check_supported(cfg)
+    (float32 numpy arrays, ``[n_repeats, ...]`` under ``dec`` and ``enc``),
+    drawn from ``np.random.default_rng(seed)`` at the scales of the
+    reference's initialisers. The same on every machine with the same
+    numpy."""
     tree = init_params(cfg, np.random.default_rng(seed), device="cpu")
 
     def to_numpy(t):
@@ -85,14 +85,15 @@ def numpy_reference_params(cfg: ModelConfig, seed: int) -> dict:
     return to_numpy(tree)
 
 
-def params_from_reference(cfg: ModelConfig, tree: dict
+def params_from_reference(cfg: ModelConfig, tree: dict, pad_heads: int = 0
                           ) -> dict[str, torch.Tensor]:
     """The port's ``state_dict`` for ``cfg`` from the JAX package's
     parameter pytree as numpy (``jax.tree.map(np.asarray, params)``). Leaf
-    names, shapes and dtypes must match the port's model exactly. The
-    tensors share the arrays' memory; ``build_model`` copies them."""
-    check_supported(cfg)
-    want = flatten(init_params(cfg, torch.Generator(), device="meta"))
+    names, shapes and dtypes must match the port's model (built with the
+    same ``pad_heads``) exactly. The tensors share the arrays' memory;
+    ``build_model`` copies them."""
+    want = flatten(init_params(cfg, torch.Generator(), device="meta",
+                               pad_heads=pad_heads))
     got = flatten(tree)
     if set(got) != set(want):
         raise ValueError(f"parameter names differ: missing "

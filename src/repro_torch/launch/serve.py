@@ -1,12 +1,15 @@
 """Serving launcher: continuous batching with the SALP-aware scheduler.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --reduced --device cpu
 
 The port of ``repro.launch.serve``, with the same flags plus ``--device``
 (default: the card; with no card only ``--device cpu`` runs). Runs the
-ServingEngine on a reduced model or the full config, reporting throughput
-and the SALP cost-model statistics (scheduled vs FIFO page-access cost).
+ServingEngine on a reduced model or the full config of any decoder-only
+text architecture (encoder-decoder and modality configs need inputs the
+engine's prefill batch does not carry, as in the reference), reporting
+throughput and the SALP cost-model statistics (scheduled vs FIFO
+page-access cost).
 The weights are ``repro_torch.interop.numpy_reference_params(cfg, seed)``
 (fp32), which any machine draws alike; the prompts and shared-prefix links
 are the reference launcher's draw from ``np.random.default_rng(seed)``.
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch import interop
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dram.policies import Policy
 from repro_torch.models import build_model
 from repro_torch.serve.engine import ServingEngine
@@ -49,6 +53,12 @@ def build(args: argparse.Namespace) -> ServingEngine:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(128)
+    return engine_for(cfg, args)
+
+
+def engine_for(cfg: ModelConfig, args: argparse.Namespace) -> ServingEngine:
+    """The engine :func:`build` makes, for ``cfg`` in place of the
+    ``--arch`` / ``--reduced`` config (a depth-cut config, say)."""
     params = interop.params_from_reference(
         cfg, interop.numpy_reference_params(cfg, args.seed))
     model = build_model(cfg, params, dtype=torch.float32, device=args.device)

@@ -1,0 +1,120 @@
+"""Mixture-of-Experts FFN with sort-based (grouped-GEMM) dispatch.
+
+The counterpart of ``repro.models.moe``. Tokens are routed top-k, sorted
+by expert id, scattered into per-expert capacity buffers ``[E, C, D]``,
+multiplied by their expert's weights and combined with the router
+weights; slots past an expert's capacity are dropped.
+
+Where the reference computes the three expert products as
+``einsum("ecd,edf->ecf")`` (the grouped GEMM its Pallas kernel replaces),
+the port runs each through
+:func:`repro_torch.kernels.moe_gemm.ops.grouped_matmul` on the capacity
+buffer flattened to ``[E*C, D]``, one token block per expert (``bt = C``,
+``block_eids = arange(E)``): on a CPU tensor its plain version, on the card
+the CUDA kernel. Shared experts stay plain matmuls, as in the reference.
+The top k comes from a stable descending sort, so ties go to the lower
+expert id as ``jax.lax.top_k`` breaks them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.kernels.moe_gemm.ops import (capacity_block_eids,
+                                              grouped_matmul)
+from repro_torch.models.layers import ACTS, Gen, Params, trunc_normal
+
+
+def init_moe(gen: Gen, d: int, cfg: MoEConfig, glu: bool,
+             device=None) -> Params:
+    e, f = cfg.n_experts, cfg.d_ff_expert
+    p = {"router": trunc_normal(gen, (d, e), 1.0, device=device),
+         "up": trunc_normal(gen, (e, d, f), 1.0, device=device),
+         "down": trunc_normal(gen, (e, f, d), 1.0, device=device)}
+    if glu:
+        p["gate"] = trunc_normal(gen, (e, d, f), 1.0, device=device)
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared_up"] = trunc_normal(gen, (d, fs), 1.0, device=device)
+        p["shared_down"] = trunc_normal(gen, (fs, d), 1.0, device=device)
+        if glu:
+            p["shared_gate"] = trunc_normal(gen, (d, fs), 1.0, device=device)
+    return p
+
+
+def expert_capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    cap = int(math.ceil(n_tokens * cfg.top_k / cfg.n_experts
+                        * cfg.capacity_factor))
+    return max(8, -(-cap // 8) * 8)  # round up to 8
+
+
+def route(p: Params, x2d: torch.Tensor, cfg: MoEConfig):
+    """x2d [T, D] -> (weights [T,k], expert_ids [T,k], aux_loss)."""
+    logits = (x2d @ p["router"].to(x2d.dtype)).float()             # [T,E]
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :cfg.top_k], ids[:, :cfg.top_k]
+    w = w / w.sum(dim=-1, keepdim=True)
+    # Switch-style load-balancing aux loss
+    density = F.one_hot(ids[:, 0], cfg.n_experts).float().mean(dim=0)
+    aux = cfg.n_experts * (density * probs.mean(dim=0)).sum()
+    return w.to(x2d.dtype), ids, aux
+
+
+def _experts(w: torch.Tensor, xs: torch.Tensor, eids: torch.Tensor,
+             cap: int) -> torch.Tensor:
+    """[E*C, K] @ w[e] for each expert's C rows, through the kernel."""
+    return grouped_matmul(xs, w.to(xs.dtype).contiguous(), eids, bt=cap,
+                          bf=math.gcd(w.shape[-1], 128))
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig, act: str = "silu",
+            glu: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (y [B, S, D], aux_loss). Sort-based dispatch with
+    drops."""
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.top_k, cfg.n_experts
+    x2d = x.reshape(t, d)
+    w, ids, aux = route(p, x2d, cfg)
+    cap = expert_capacity(t, cfg)
+
+    flat_e = ids.reshape(-1)                          # [T*k] expert per slot
+    order = torch.argsort(flat_e, stable=True)        # sort slots by expert
+    sorted_e = flat_e[order]
+    # position of each sorted slot within its expert's capacity buffer
+    pos_in_e = (torch.arange(t * k, device=x.device)
+                - torch.searchsorted(sorted_e, sorted_e, side="left"))
+    keep = pos_in_e < cap                             # dropped beyond capacity
+    dest = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
+
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[dest] = x2d[order // k]                       # dispatch scatter
+    xs = buf[:-1]                                     # [E*C, D]
+
+    eids = capacity_block_eids(e, cap, cap, device=x.device)
+    h = _experts(p["up"], xs, eids, cap)
+    if glu:
+        h = ACTS[act](_experts(p["gate"], xs, eids, cap)) * h
+    else:
+        h = ACTS[act](h)
+    yflat = _experts(p["down"], h, eids, cap)         # [E*C, D]
+
+    # combine: gather back to slots, weight, sum over k
+    slot_y = torch.where(keep[:, None],
+                         yflat[torch.clamp(dest, max=e * cap - 1)], 0)
+    unsort = torch.zeros((t * k, d), dtype=x.dtype, device=x.device)
+    unsort[order] = slot_y
+    y = (unsort.reshape(t, k, d) * w[..., None]).sum(dim=1)
+
+    if cfg.n_shared_experts:
+        hs = x2d @ p["shared_up"].to(x.dtype)
+        if glu:
+            hs = ACTS[act](x2d @ p["shared_gate"].to(x.dtype)) * hs
+        else:
+            hs = ACTS[act](hs)
+        y = y + hs @ p["shared_down"].to(x.dtype)
+
+    return y.reshape(b, s, d), aux * cfg.aux_loss_coef

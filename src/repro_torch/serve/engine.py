@@ -41,6 +41,18 @@ def _map_cache(fn, cache):
     return {k: type(v)(*(fn(a) for a in v)) for k, v in cache.items()}
 
 
+def grow_cache(cache, prompt_len: int, max_len: int):
+    """A prefill cache padded to ``max_len`` slots so that decode can
+    append, as the reference pads it: only leaves whose axis 2 has the
+    prompt's length (the KV caches' sequence axis)."""
+    def grow(a):
+        if a.dim() >= 4 and a.shape[2] == prompt_len:
+            pad = [0, 0] * (a.dim() - 3) + [0, max_len - a.shape[2]]
+            return torch.nn.functional.pad(a, pad)
+        return a
+    return _map_cache(grow, cache)
+
+
 class ServingEngine:
     def __init__(self, model: Model, *, max_batch: int = 8,
                  n_pages: int = 512, page_size: int = 16,
@@ -71,15 +83,8 @@ class ServingEngine:
         toks = self._tokens(self._seq_tokens[req.rid])
         batch = {"tokens": toks, "labels": toks}
         logits, cache = self.model.prefill(batch)
-
-        # pad KV to max_len so decode can append (as the reference does:
-        # only leaves whose axis 2 has the prompt's length)
-        def grow(a):
-            if a.dim() >= 4 and a.shape[2] == toks.shape[1]:
-                pad = [0, 0] * (a.dim() - 3) + [0, max_len - a.shape[2]]
-                return torch.nn.functional.pad(a, pad)
-            return a
-        self._device_cache[req.rid] = _map_cache(grow, cache)
+        self._device_cache[req.rid] = grow_cache(cache, toks.shape[1],
+                                                 max_len)
         nxt = int(torch.argmax(logits[0, -1]))
         self._seq_tokens[req.rid].append(nxt)
 

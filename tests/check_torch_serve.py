@@ -1,27 +1,36 @@
-"""Serve mamba2-780m at full width with the port and hold it to the JAX
-fixture (``tests/data/torch_serve_mamba2_780m.json``).
+"""Serve a model at full width with the port and hold it to its JAX
+fixture: mamba2-780m (``tests/data/torch_serve_mamba2_780m.json``),
+smollm-135m whole (``torch_serve_smollm_135m.json``) or
+moonshot-v1-16b-a3b cut to 2 layers (``torch_serve_moonshot_16b_l2.json``).
 
-NOT a test module (no ``test_`` prefix): full width is 3.1 GB of float32
-weights and some seconds of work a request, too much for the tier-1 suite.
-``chip_smoke.py`` runs these checks on the card; on the CPU run
+NOT a test module (no ``test_`` prefix): full width is gigabytes of
+float32 weights and some seconds of work a request, too much for the
+tier-1 suite. ``chip_smoke.py`` runs these checks on the card; on the CPU
+run
 
-    PYTHONPATH=src:tests python tests/check_torch_serve.py --device cpu
+    PYTHONPATH=src:tests python tests/check_torch_serve.py --device cpu \
+        [--arch smollm-135m]
 
-(about 10 GB and a few minutes). Imports nothing of the JAX package.
+(mamba2: about 10 GB and a few minutes). Imports nothing of the JAX
+package.
 
 * :func:`serve` runs ``repro_torch.launch.serve``'s path with the
-  fixture's arguments, timing prefill and decode calls, and checks that
-  the weights are the fixture's (sha256 of every leaf), that
-  ``EngineStats`` equals the fixture's exactly, and that every request's
-  tokens equal the fixture's at every step before the first whose fixture
-  top-1/top-2 gap is under ``NEAR_TIE``.
+  fixture's arguments (a fixture's ``n_repeats``, a depth cut, replaces
+  the config's repeats, and the engine is built as the launcher builds
+  it, by ``launch.serve.engine_for``), timing prefill and decode calls,
+  and checks that the weights are the fixture's (sha256 of every leaf),
+  that ``EngineStats`` equals the fixture's exactly, and that every
+  request's tokens equal the fixture's at every step before the first
+  whose fixture top-1/top-2 gap is under ``NEAR_TIE``.
 * :func:`teacher_forced` feeds the fixture's tokens through ``prefill``
-  and ``decode_step`` and holds every step's logits at the fixture's top-8
-  ids within rtol = atol = ``LOGIT_TOL``.
+  and ``decode_step`` (the prefill cache padded to the engine's
+  ``MAX_LEN`` slots, as the engine and the fixture pad it) and holds every
+  step's logits at the fixture's top-8 ids within rtol = atol =
+  ``LOGIT_TOL``.
 * :func:`profile` traces one request's prefill and its decode steps with
   ``torch.profiler`` on the card: wall time, the time the card spent in
-  kernels and copies, and the SSD-scan and matmul (GEMM, GEMV) kernels'
-  shares.
+  kernels and copies, and the SSD-scan, grouped expert GEMM and other
+  matmul (GEMM, GEMV) kernels' shares.
 """
 from __future__ import annotations
 
@@ -35,13 +44,18 @@ import time
 import torch
 
 import torch_cases as tc
+from repro_torch.configs import get_config
 from repro_torch.launch import serve as launch_serve
+from repro_torch.serve.engine import grow_cache
 
 #: A step whose fixture top-1/top-2 logit gap is under this may pick
 #: another token in a different summation order.
 NEAR_TIE = 1e-2
-#: fp32 over 48 layers with sums in another order.
+#: fp32 over up to 48 layers with sums in another order.
 LOGIT_TOL = 1e-3
+#: ServingEngine.run's default max_len: the slots of a decode cache (the
+#: fixture's teacher forcing pads the prefill cache to it, as the engine).
+MAX_LEN = 256
 
 
 class CheckFailed(Exception):
@@ -88,8 +102,13 @@ def serve(fixture: dict, device: str) -> dict:
     """launch.serve's path with the fixture's arguments; raises CheckFailed
     on any mismatch. Returns stats, timings and the near-tie count."""
     t0 = time.perf_counter()
-    engine = launch_serve.build(launch_serve.parse_args(
-        launch_args(fixture, device)))
+    args = launch_serve.parse_args(launch_args(fixture, device))
+    cut = fixture["args"].get("n_repeats")
+    if cut is None:
+        engine = launch_serve.build(args)
+    else:
+        engine = launch_serve.engine_for(dataclasses.replace(
+            get_config(args.arch), n_repeats=cut), args)
     model = engine.model
     dev = model.device
     _sync(dev)
@@ -100,7 +119,7 @@ def serve(fixture: dict, device: str) -> dict:
     model.decode_step = _timed(model.decode_step, dev, times, "decode")
     try:
         t1 = time.perf_counter()
-        stats = engine.run(max_steps=10_000)
+        stats = engine.run(max_steps=10_000, max_len=MAX_LEN)
         _sync(dev)
         wall = time.perf_counter() - t1
     finally:
@@ -148,6 +167,7 @@ def teacher_forced(model, fixture: dict) -> dict:
     for req in fixture["requests"]:
         toks = torch.tensor(req["prompt"], dtype=torch.long, device=dev)[None]
         logits, cache = model.prefill({"tokens": toks})
+        cache = grow_cache(cache, toks.shape[1], MAX_LEN)
         rows = [logits[0, -1]]
         for i, tok in enumerate(req["generated"][:-1]):
             logits, cache = model.decode_step(
@@ -192,6 +212,7 @@ def profile(model, fixture: dict) -> dict | None:
                 len(req["prompt"]) + i)
 
     _, cache = model.prefill({"tokens": toks})     # warm-up
+    cache = grow_cache(cache, toks.shape[1], MAX_LEN)
     _sync(dev)
     out = {}
     for name, work in (("prefill", lambda: model.prefill({"tokens": toks})),
@@ -212,13 +233,17 @@ def profile(model, fixture: dict) -> dict | None:
             t[1] += 1
         busy = sum(t for t, _ in by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        ms = {k: 0.0 for k in ("ssd_scan", "moe_gemm", "matmul")}
+        for n, (t, _) in by_name.items():
+            key = next((k for k in ("ssd_scan", "moe_gemm") if k in n),
+                       "matmul" if "gemm" in n.lower() or "gemv" in n.lower()
+                       else None)
+            if key:
+                ms[key] += t
         out[name] = dict(
             wall_ms=wall, device_ms=busy, idle_share=1.0 - busy / wall,
             device_ops=len(kernels),
-            ssd_scan_ms=sum(t for n, (t, _) in by_name.items()
-                            if "ssd_scan" in n),
-            matmul_ms=sum(t for n, (t, _) in by_name.items()
-                          if "gemm" in n.lower() or "gemv" in n.lower()),
+            **{f"{k}_ms": v for k, v in ms.items()},
             top=[(n[:60], t, c) for n, (t, c) in top])
     return out
 
@@ -226,10 +251,12 @@ def profile(model, fixture: dict) -> dict | None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--arch", default="mamba2-780m",
+                    choices=list(tc.SERVE_PATHS))
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fixture = tc.serve_fixture()
+    fixture = tc.serve_fixture(args.arch)
     try:
         res = serve(fixture, args.device)
         tf = teacher_forced(res.pop("model"), fixture)

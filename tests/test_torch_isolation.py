@@ -70,7 +70,9 @@ print(json.dumps(dict(modules=names, leaked=leaked)))
             "repro_torch.configs.registry", "repro_torch.core.salp.cost_model",
             "repro_torch.kernels.ssd_scan.kernel",
             "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.builder",
-            "repro_torch.models.ssm", "repro_torch.serve.engine",
+            "repro_torch.models.ssm", "repro_torch.models.attention",
+            "repro_torch.models.moe", "repro_torch.serve_salp",
+            "repro_torch.serve.engine",
             "repro_torch.serve.steps", "repro_torch.launch.serve",
             "repro_torch.kernel_bench",
             "repro_torch.kernels.masa_gemm.kernel",

@@ -2,9 +2,13 @@
 
 Weights are made by the JAX package (``model.init``), converted to numpy
 and carried across with ``repro_torch.interop.params_from_reference``;
-inputs are numpy. The port's SSD scan runs its plain version here. The bar
-is ``tests/test_kernels.py``'s float32 tolerance, rtol = atol = 2e-4, on
-reduced mamba2-780m and on a hand-built SSM + dense-FFN stack.
+inputs are numpy (``repro.data.synth.make_batch`` for the registry's
+architectures). The port's SSD scan and grouped expert GEMM run their
+plain versions here. The bar is ``tests/test_kernels.py``'s float32
+tolerance, rtol = atol = 2e-4: on reduced mamba2-780m and hand-built SSM +
+dense-FFN stacks, and on every architecture of the registry at
+``reduced()`` (forward logits and aux loss, prefill-then-decode, decode
+with cache growth, padded heads, the cache and weight layouts).
 """
 import dataclasses
 import functools
@@ -17,6 +21,7 @@ import torch
 
 import repro.configs as R
 import repro_torch.configs as P
+from repro.data.synth import make_batch
 from repro.models import build_model as r_build_model
 from repro.models import layers as r_layers
 from repro.models import ssm as r_ssm
@@ -229,10 +234,180 @@ def test_params_from_reference_refuses_a_wrong_tree():
         interop.params_from_reference(p_cfg, tree)
 
 
-@pytest.mark.parametrize("arch", [a for a in P.list_archs() if a != ARCH])
-def test_attention_and_moe_models_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        build_model(P.get_config(arch).reduced(), {}, device="cpu")
+# ------------------------------------------------- every registry arch
+B, S = 2, 32
+
+
+def torch_batch(batch: dict) -> dict:
+    """A ``make_batch`` batch (numpy) as tensors: ids as int64."""
+    out = {}
+    for k, v in batch.items():
+        a = np.array(v)
+        out[k] = torch.from_numpy(a.astype(np.int64) if a.dtype.kind == "i"
+                                  else a)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def arch_models(arch: str, pad_heads: int = 0):
+    """tests/test_arch_smoke.py's setup (reduced config, JAX init from key
+    0, fp32) in both packages, the port's weights carried across."""
+    r_cfg = R.get_config(arch).reduced()
+    p_cfg = P.get_config(arch).reduced()
+    r_model = r_build_model(r_cfg, dtype=jnp.float32, pad_heads=pad_heads)
+    params = r_model.init(jax.random.key(0))
+    p_model = build_model(p_cfg, interop.params_from_reference(
+        p_cfg, to_numpy(params), pad_heads=pad_heads), dtype=torch.float32,
+        pad_heads=pad_heads, device="cpu")
+    return r_cfg, r_model, params, p_model
+
+
+def close_cache(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for k in want:
+        assert type(got[k]).__name__ == type(want[k]).__name__
+        for a, b in zip(got[k], want[k]):
+            assert tuple(a.shape) == b.shape
+            close(a, b)
+
+
+@pytest.mark.parametrize("arch", P.list_archs())
+def test_every_arch_forward_matches_jax(arch):
+    """Logits and aux loss of the full-sequence forward (make_batch seed 1,
+    as tests/test_arch_smoke.py): text, modality-prefix and
+    encoder-decoder batches, MoE aux losses included."""
+    r_cfg, r_model, params, p_model = arch_models(arch)
+    batch = make_batch(r_cfg, B, S, seed=1, dtype=jnp.float32)
+    logits_r, aux_r = r_model.forward(params, batch)
+    logits_p, aux_p = p_model(torch_batch(batch))
+    assert logits_p.shape == (B, batch["labels"].shape[1], r_cfg.padded_vocab)
+    close(logits_p, logits_r)
+    close(aux_p, aux_r)
+    assert (float(aux_p) > 0) == (r_cfg.moe is not None)
+
+
+@pytest.mark.parametrize("arch", P.list_archs())
+def test_every_arch_prefill_then_decode_matches_jax(arch):
+    """tests/test_arch_smoke.py's prefill-then-decode: token 5 decoded at
+    the prefilled length with the cache not grown, so every KV position
+    takes the reference's write-nothing case at cur_len == S_max. Logits
+    and every cache leaf against JAX."""
+    r_cfg, r_model, params, p_model = arch_models(arch)
+    batch = make_batch(r_cfg, B, S, seed=3, dtype=jnp.float32)
+    logits_r, cache_r = r_model.prefill(params, batch)
+    logits_p, cache_p = p_model.prefill(torch_batch(batch))
+    close(logits_p, logits_r)
+    close_cache(cache_p, cache_r)
+    if r_cfg.encoder_decoder or r_cfg.modality is None:
+        seq_done = batch["tokens"].shape[1]
+    else:
+        seq_done = batch["labels"].shape[1]
+    tok = np.full((B, 1), 5, np.int32)
+    logits_r, cache_r = r_model.decode_step(params, jnp.asarray(tok), cache_r,
+                                            jnp.int32(seq_done))
+    logits_p, cache_p = p_model.decode_step(torch.from_numpy(tok).long(),
+                                            cache_p, seq_done)
+    assert logits_p.shape == (B, 1, r_cfg.padded_vocab)
+    close(logits_p, logits_r)
+    close_cache(cache_p, cache_r)
+
+
+@pytest.mark.parametrize("arch,grouped", [("phi3-mini-3.8b", False),
+                                          ("smollm-135m", True),
+                                          ("moonshot-v1-16b-a3b", False)])
+def test_decode_with_cache_growth_matches_jax(arch, grouped):
+    """test_decode_consistency_dense's schedule: prefill 8 tokens, grow
+    the cache by 8 slots, decode tokens 8..15 teacher-forced; each step's
+    logits equal JAX's decode and the port's own parallel forward."""
+    r_cfg, r_model, params, p_model = arch_models(arch)
+    r_model = dataclasses.replace(r_model, decode_grouped=grouped)
+    p_model.decode_grouped = grouped
+    try:
+        batch = make_batch(r_cfg, 1, 16, seed=5, dtype=jnp.float32)
+        logits_all, _ = p_model(torch_batch(batch))
+        pre = {k: v[:, :8] for k, v in batch.items()}
+        _, cache_r = r_model.prefill(params, pre)
+        _, cache_p = p_model.prefill(torch_batch(pre))
+
+        def grow(a):
+            return np.pad(np.asarray(a), [(0, 0), (0, 0), (0, 8)]
+                          + [(0, 0)] * (a.ndim - 3))
+        cache_r = jax.tree.map(lambda a: jnp.asarray(grow(a)), cache_r)
+        cache_p = {k: type(v)(*(torch.from_numpy(grow(a)) for a in v))
+                   for k, v in cache_p.items()}
+        for t in range(8, 16):
+            tok = np.array(batch["tokens"][:, t:t + 1])
+            logits_r, cache_r = r_model.decode_step(
+                params, jnp.asarray(tok), cache_r, jnp.int32(t))
+            logits_p, cache_p = p_model.decode_step(
+                torch.from_numpy(tok).long(), cache_p, t)
+            close(logits_p, logits_r)
+            close(logits_p[0, 0], logits_all[0, t])
+    finally:
+        p_model.decode_grouped = False
+
+
+def test_padded_heads_model_matches_jax():
+    """build_model(pad_heads=2) on reduced smollm-135m (GQA 4:1): the
+    reference's zero-padded heads, regrouped, in forward and decode."""
+    r_cfg, r_model, params, p_model = arch_models("smollm-135m", 2)
+    assert p_model.pad_heads == 2
+    wq = p_model.state_dict()["dec.pos0.mixer.wq"]
+    assert wq.shape[2] == r_cfg.attn.n_heads + 2 and not wq[:, :, 4:].any()
+    batch = make_batch(r_cfg, B, S, seed=1, dtype=jnp.float32)
+    close(p_model(torch_batch(batch))[0], r_model.forward(params, batch)[0])
+    _, cache_r = r_model.prefill(params, batch)
+    _, cache_p = p_model.prefill(torch_batch(batch))
+    tok = np.full((B, 1), 7, np.int32)
+    close(p_model.decode_step(torch.from_numpy(tok).long(), cache_p, 20)[0],
+          r_model.decode_step(params, jnp.asarray(tok), cache_r,
+                              jnp.int32(20))[0])
+
+
+def test_chunked_attn_impl_matches_jax():
+    """attn_impl="chunked" reaches attention's query chunks only above
+    q_chunk (1024): at S 32 it is the naive path, in both packages."""
+    r_cfg, r_model, params, _ = arch_models("phi3-mini-3.8b")
+    p_cfg = P.get_config("phi3-mini-3.8b").reduced()
+    p_model = build_model(p_cfg, interop.params_from_reference(
+        p_cfg, to_numpy(params)), dtype=torch.float32, attn_impl="chunked",
+        device="cpu")
+    r_model = dataclasses.replace(r_model, attn_impl="chunked")
+    batch = make_batch(r_cfg, B, S, seed=1, dtype=jnp.float32)
+    close(p_model(torch_batch(batch))[0], r_model.forward(params, batch)[0])
+
+
+@pytest.mark.parametrize("arch", P.list_archs())
+def test_every_arch_init_cache_and_params_match_reference_layout(arch):
+    """init_cache's leaves (zero, shapes, dtypes; cross positions sized by
+    enc_len) and the numpy parameter draw's tree against the reference's."""
+    r_cfg = R.get_config(arch).reduced()
+    p_cfg = P.get_config(arch).reduced()
+    r_model = r_build_model(r_cfg, dtype=jnp.float32)
+    tree = interop.numpy_reference_params(p_cfg, seed=0)
+    want = jax.eval_shape(r_model.init, jax.random.key(0))
+    assert jax.tree.structure(tree) == jax.tree.structure(want)
+    assert tree_spec(tree) == tree_spec(want)
+    p_model = build_model(p_cfg, interop.params_from_reference(p_cfg, tree),
+                          dtype=torch.float32, device="cpu")
+    want = r_model.init_cache(3, 24, enc_len=5)
+    got = p_model.init_cache(3, 24, enc_len=5)
+    assert set(got) == set(want)
+    for k in want:
+        for a, b in zip(got[k], want[k]):
+            assert tuple(a.shape) == b.shape and not a.any()
+            assert str(a.dtype).split(".")[-1] == str(b.dtype)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "moonshot-v1-16b-a3b"])
+def test_full_width_trees_match_reference(arch):
+    """The card's serve models at full width: shapes only (moonshot cut
+    to 2 of its 48 layers, as chip_smoke.py serves it)."""
+    r_cfg = dataclasses.replace(R.get_config(arch), n_repeats=2)
+    p_cfg = dataclasses.replace(P.get_config(arch), n_repeats=2)
+    want = jax.eval_shape(r_build_model(r_cfg).init, jax.random.key(0))
+    meta = init_params(p_cfg, torch.Generator(), device="meta")
+    assert tree_spec(meta) == tree_spec(want)
 
 
 def test_default_device_is_the_card():

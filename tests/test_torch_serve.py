@@ -5,11 +5,16 @@
   page tables, free lists, batch orders and costs exactly.
 * ``ServingEngine`` end to end on reduced mamba2-780m, with the same numpy
   weights in both packages: the generated tokens and ``EngineStats`` equal
-  the JAX engine's exactly, under BASELINE and MASA.
+  the JAX engine's exactly, under BASELINE and MASA; likewise on reduced
+  smollm-135m (attention, GQA) and moonshot-v1-16b-a3b (attention + MoE).
 * ``python -m repro_torch.launch.serve --reduced --device cpu`` runs.
+* ``repro_torch.serve_salp`` gives ``examples/serve_salp.py``'s stats and
+  tokens under all four policies, on the same numpy weights.
 """
 import dataclasses
+import importlib.util
 import itertools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +31,7 @@ from repro.serve import kvcache as r_kv, scheduler as r_sched
 from repro.serve.engine import ServingEngine as RServingEngine
 from repro.serve.steps import make_decode_step as r_decode_step
 from repro.serve.steps import make_prefill_step as r_prefill_step
-from repro_torch import interop
+from repro_torch import interop, serve_salp
 from repro_torch.core.dram.policies import Policy as PPolicy
 from repro_torch.core.salp import cost_model as p_cost, pipeline as p_pipe
 from repro_torch.launch import serve as p_launch
@@ -185,3 +190,50 @@ def test_launch_serve_runs_on_the_cpu(capsys):
     assert engine.stats.tokens == 12 and engine.stats.steps == 4
     assert engine.model.device.type == "cpu"
     assert "[serve] 12 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "moonshot-v1-16b-a3b"])
+def test_attention_and_moe_engines_match_jax(arch):
+    """The launcher's reduced config (width 128) of a GQA and an MoE
+    architecture, 5 requests through a batch of 4: tokens and stats are
+    the JAX engine's (max_len 256 as ``run`` defaults)."""
+    p_cfg = P.get_config(arch).reduced(128)
+    r_cfg = R.get_config(arch).reduced(128)
+    tree = interop.numpy_reference_params(p_cfg, seed=3)
+    r_engine = RServingEngine(r_build_model(r_cfg, dtype=jnp.float32),
+                              jax.tree.map(jnp.asarray, tree), max_batch=4,
+                              policy=RPolicy.MASA)
+    p_model = build_model(p_cfg, interop.params_from_reference(p_cfg, tree),
+                          dtype=torch.float32, device="cpu")
+    p_engine = ServingEngine(p_model, max_batch=4, policy=PPolicy.MASA)
+    reqs = requests(p_cfg, 5, 24, seed=6)
+    for eng in (r_engine, p_engine):
+        for rid, prompt, share in reqs:
+            eng.submit(rid, prompt, 4, shared_prefix_of=share)
+    r_stats, p_stats = r_engine.run(max_steps=100), p_engine.run(max_steps=100)
+    assert dataclasses.asdict(p_stats) == dataclasses.asdict(r_stats)
+    assert p_stats.tokens == 5 * 4
+    for rid, _, _ in reqs:
+        assert p_engine.output(rid) == r_engine.output(rid), rid
+
+
+def test_serve_salp_matches_the_example(capsys):
+    """examples/serve_salp.py's run_policy (the JAX engine) on the port's
+    numpy weights against ``python -m repro_torch.serve_salp``."""
+    spec = importlib.util.spec_from_file_location(
+        "serve_salp_example",
+        Path(__file__).resolve().parent.parent / "examples" / "serve_salp.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    p_cfg = P.get_config("phi3-mini-3.8b").reduced(64)
+    r_model = r_build_model(R.get_config("phi3-mini-3.8b").reduced(64),
+                            dtype=jnp.float32)
+    params = jax.tree.map(jnp.asarray,
+                          interop.numpy_reference_params(p_cfg, 0))
+    got = serve_salp.main(["--device", "cpu"])
+    assert "MASA" in capsys.readouterr().out
+    assert list(got) == [p.name for p in serve_salp.POLICIES]
+    for name, (p_stats, p_outs) in got.items():
+        r_stats, r_outs = example.run_policy(RPolicy[name], params, r_model)
+        assert dataclasses.asdict(p_stats) == dataclasses.asdict(r_stats)
+        assert p_outs == r_outs, name

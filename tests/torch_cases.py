@@ -31,7 +31,13 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN_PATH = os.path.join(DATA, "golden_packed_state.json")
 FIG4_PATH = os.path.join(DATA, "torch_fig4_n8000.json")
 MULTICORE_PATH = os.path.join(DATA, "torch_multicore_fixture.json")
-SERVE_PATH = os.path.join(DATA, "torch_serve_mamba2_780m.json")
+#: The serving fixtures by architecture (tests/make_torch_serve_fixture.py).
+SERVE_PATHS = {
+    "mamba2-780m": os.path.join(DATA, "torch_serve_mamba2_780m.json"),
+    "smollm-135m": os.path.join(DATA, "torch_serve_smollm_135m.json"),
+    "moonshot-v1-16b-a3b": os.path.join(DATA,
+                                        "torch_serve_moonshot_16b_l2.json"),
+}
 
 #: tests/test_kernels.py's SSD sweep: (B, L, H, hd, ds, chunk).
 SSD_SHAPES = ((1, 32, 2, 16, 8, 16), (2, 64, 3, 16, 8, 16),
@@ -320,8 +326,8 @@ def ssd_kernel_inputs(shape, dtype, device, seed: int = 0):
             inp["c"].to(dtype))
 
 
-def serve_fixture() -> dict:
-    """tests/data/torch_serve_mamba2_780m.json (see
+def serve_fixture(arch: str = "mamba2-780m") -> dict:
+    """The serving fixture of ``arch`` (``SERVE_PATHS``; see
     tests/make_torch_serve_fixture.py)."""
-    with open(SERVE_PATH) as f:
+    with open(SERVE_PATHS[arch]) as f:
         return json.load(f)
