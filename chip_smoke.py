@@ -44,7 +44,28 @@ on any mismatch:
                 launches, each on the smem body; every cell equals
                 ``tests/data/torch_multicore_fixture.json`` (made by the JAX
                 package); MASA under FR-FCFS also equals the plain version.
-10. timing    — CUDA-event times of both kernels, each body timed in turns
+10. sweep     — main paths one and two again, through the sweep layer
+                (``repro_torch.experiments``), each run with the launch counts
+                set to 0 just before it: Fig. 4 through ``run_sweep``
+                (``repro_torch.benchmarks.fig4_ipc.make_grid()``, a fresh
+                ``ResultCache``): every cell equals
+                ``tests/data/torch_fig4_n8000.json``, 160 cells in 5 batches,
+                exactly 5 lane launches; the same grid journaled by a
+                ``PersistentResultCache`` and replayed by a second one (160
+                hits, no launch); the scheduler study through
+                ``run_mix_sweep`` (``sched_bench.make_grid()``): its 40 cells
+                equal the fixture's sched cells, exactly 10 mix and 4 lane
+                launches (the run-alone memo, one a mix); the golden-fragment
+                scenario (``tests/make_golden_shard_fragments.py``'s grid, 2
+                shards on cuda:0, a persistent fault on cell 2): its fragments
+                equal ``tests/data/shard_fragments`` (shard device aside) and
+                their merge equals ``merged.json`` byte for byte, exactly 3
+                lane launches; Fig. 4 at 4 shards on the one card (20 lane
+                launches) equals the first run. Every launch runs the smem
+                body, and no run but the faulted one quarantines a cell. The
+                wall times print beside ``paper_repro.run_fig4``'s and
+                ``run_sched``'s from phases 8 and 9.
+11. timing    — CUDA-event times of both kernels, each body timed in turns
                 (global, smem, smem, global), at the main paths' shapes and
                 at throughput shapes, with nvidia-smi's SM clock sampled
                 meanwhile: ms, us and cycles a step, req/s, beside the byte
@@ -52,7 +73,7 @@ on any mismatch:
                 one step's critical path as counted by hand from the smem
                 bodies' code, at assumed latencies: not measured, and not
                 in the result line).
-11. ssd       — the SSD-scan kernel vs its plain version on the card, in
+12. ssd       — the SSD-scan kernel vs its plain version on the card, in
                 float32 (rtol = atol = 2e-4) and bfloat16 (2e-2), at
                 tests/test_kernels.py's sweep, mamba2-780m's serve shape,
                 jamba's SSM shape, chunk 256 with ds 128 and the kernel's
@@ -60,7 +81,7 @@ on any mismatch:
                 head 1, ds up to 512), and on bases that are not 16-byte
                 aligned; one launch a call; the decay-bound property and no
                 NaN at a huge dt.
-12. serve     — main path three: ``repro_torch.launch.serve``'s path with
+13. serve     — main path three: ``repro_torch.launch.serve``'s path with
                 the fixture's arguments (mamba2-780m at full width, fp32,
                 4 requests x 256 prompt tokens x 16 new, MASA). Weights equal
                 the fixture's numpy stream (sha256 of every leaf);
@@ -68,14 +89,14 @@ on any mismatch:
                 (made by the JAX package); every request's tokens equal the
                 fixture's up to its first near-tie step (top-1/top-2 gap
                 under 1e-2); exactly 4 x 48 = 192 SSD-scan launches.
-13. logits    — teacher-forced: the fixture's tokens through ``prefill`` and
+14. logits    — teacher-forced: the fixture's tokens through ``prefill`` and
                 ``decode_step``; every step's logits at the fixture's top-8
                 ids within rtol = atol = 1e-3.
-14. profile   — ``torch.profiler`` trace of one request's prefill and its
+15. profile   — ``torch.profiler`` trace of one request's prefill and its
                 16 decode steps: the card's busy and idle share, and the
                 SSD-scan and matmul kernels' device time (reported, not
                 checked: the trace may hold no device activity there).
-15. serve_smollm — main path five: smollm-135m whole (30 layers, 9 query
+16. serve_smollm — main path five: smollm-135m whole (30 layers, 9 query
                 heads on 3 kv heads, tied embeddings), fp32, through
                 ``launch.serve``'s path with the arguments of
                 ``tests/data/torch_serve_smollm_135m.json`` (made by the JAX
@@ -84,23 +105,23 @@ on any mismatch:
                 near tie, teacher-forced top-8 logits within rtol = atol =
                 1e-3, and no kernel launched (attention is plain PyTorch, as
                 the reference's is plain JAX); a profile of one request.
-16. serve_moonshot — main path six: moonshot-v1-16b-a3b at full width cut
+17. serve_moonshot — main path six: moonshot-v1-16b-a3b at full width cut
                 to 2 of its 48 layers (16 heads of 128, 64 experts top-6 and
                 2 shared, F 1408), the same checks against
                 ``tests/data/torch_serve_moonshot_16b_l2.json``; exactly
                 2 layers x 3 products (up, gate, down) moe_gemm launches a
                 prefill and a decode call, each on the simt body, and no
                 other kernel; a profile of one request.
-17. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
+18. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
                 capacity 16 and 8, D 2048, F 1408; the up and the down
                 product), fp32: kernel vs plain within 2e-4, then CUDA-event
                 times of the kernel, its plain version and ``torch.bmm`` on
                 the same capacity buffer, beside the bound.
-18. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
+19. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound
                 (C B^T counted once a batch element and chunk: B and C are
                 shared by the heads).
-19. kernels   — the masa_gemm (both orders, through ops and its fallback),
+20. kernels   — the masa_gemm (both orders, through ops and its fallback),
                 moe_gemm, paged_attention and flash_attention kernels vs
                 their plain versions on the card, in float32 (rtol = atol =
                 2e-4) and bfloat16 (2e-2), at tests/test_kernels.py's and
@@ -123,12 +144,12 @@ on any mismatch:
                 simt otherwise; paged: split for G 1 to 8 and rows of 1
                 to 32 whole 16-byte units, serial otherwise), counted in
                 ``BODIES``.
-20. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
+21. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
                 (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
                 paged_attention 2, flash_attention 1); no DRAM-kernel launch.
-21. kernel_time — the four kernels at jamba-v0.1-52b's full width
+22. kernel_time — the four kernels at jamba-v0.1-52b's full width
                 (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
                 kernel vs plain within the tolerances above, then CUDA-event
                 times of the kernel, its plain version and the one PyTorch
@@ -147,10 +168,11 @@ on any mismatch:
 
 Each phase prints its seconds. The last lines are nvidia-smi's name and
 power limit, the per-kernel JSON record (all seven kernels; lane_step and
-mix_step also give their body, µs and cycles a step, chain bound and the
-global body's time; moe_gemm its launches by path, moonshot's serve run
-and its times at moonshot's shapes), and ``{"ok": true, "device":
-{...}}``.
+mix_step also give their body, µs and cycles a step, chain bound, the
+global body's time and their launches by path, the sweep phase's included;
+lane_step the sweep phase's wall times; moe_gemm its launches by path,
+moonshot's serve run and its times at moonshot's shapes), and ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -696,7 +718,7 @@ def phase_fig4():
     return dict(launches=launches["lane_step"], max_abs_err=err,
                 ms=sum(kernel_ms) / n_pol, global_ms=sum(global_ms) / n_pol,
                 plain_ms=sum(plain_ms) / len(plain_ms), B=B, N=N,
-                clock_mhz=clock.mhz)
+                clock_mhz=clock.mhz, wall_s=wall)
 
 
 def phase_throughput(smi: str):
@@ -772,13 +794,15 @@ def phase_multicore(smi: str):
     cuda_step.reset_launches()
     t0 = time.perf_counter()
     mc = pr.run_multicore(pr.MULTICORE_N, FIG4_SEED, device="cuda")
+    t1 = time.perf_counter()
     sc = pr.run_sched(pr.SCHED_N, FIG4_SEED, device="cuda")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    t2 = time.perf_counter()
+    wall, sched_wall = t2 - t0, t2 - t1
     launches = dict(cuda_step.LAUNCHES)
     log(f"[multicore] run_multicore(n={pr.MULTICORE_N}) + run_sched("
         f"n={pr.SCHED_N}) on the card: {wall:.3f}s wall incl. trace "
-        f"generation; launches {launches}")
+        f"generation (run_sched {sched_wall:.3f}s); launches {launches}")
     if launches != MULTICORE_LAUNCHES:
         fail(f"multicore: expected launches {MULTICORE_LAUNCHES}, counted "
              f"{launches}")
@@ -871,7 +895,186 @@ def phase_multicore(smi: str):
                 bound_ms=b_ms, bound_by=b_by, M=M, C=C, N=N, body="smem",
                 clock_mhz=clock.mhz,
                 req_per_s=M * C * N / ms * 1e3,
-                **per_step(ms, steps, clock.mhz), throughput=thr)
+                **per_step(ms, steps, clock.mhz), throughput=thr,
+                sched_wall_s=sched_wall)
+
+
+#: The sweep phase's runs and the kernel launches each must make: Fig. 4
+#: through run_sweep (one lane launch a policy bucket), its journal replay
+#: (none), the scheduler study through run_mix_sweep (one mix launch a
+#: (policy, scheduler) point; one lane launch a mix for the run-alone memo,
+#: which every point shares: FCFS, refresh on), the golden fragments'
+#: faulted 2-shard scenario (one lane launch a shard; cell 2's shard fails
+#: before its launch) and Fig. 4 at 4 shards on the one card.
+SWEEP_LAUNCHES = {"fig4": {"lane_step": 5, "mix_step": 0},
+                  "replay": {"lane_step": 0, "mix_step": 0},
+                  "sched": {"lane_step": 4, "mix_step": 10},
+                  "golden_shards": {"lane_step": 3, "mix_step": 0},
+                  "fig4_shards": {"lane_step": 20, "mix_step": 0}}
+#: tests/make_golden_shard_fragments.py's scenario, rebuilt on the port.
+GOLDEN_SHARD_FAULT = "raise@c2:p"
+
+
+def golden_shard_grid():
+    """``make_golden_shard_fragments.make_grid()`` on the port: lbm and mcf x
+    BASELINE and SALP1 x 96 requests at 4 subarrays (4 cells, 2 buckets)."""
+    from repro_torch.core.dram import PAPER_WORKLOADS, Policy
+    from repro_torch.experiments import SweepGrid
+
+    return SweepGrid(name="golden_shards",
+                     workloads=tuple(p for p in PAPER_WORKLOADS
+                                     if p.name in ("mcf", "lbm")),
+                     policies=(Policy.BASELINE, Policy.SALP1), n_requests=96,
+                     config_axes={"n_subarrays": (4,)})
+
+
+def counted_sweep(name: str, fn, *args, **kwargs):
+    """One sweep-layer run with the launch counts set to 0 just before it:
+    ``(result, wall s)``. Fails unless it made exactly
+    ``SWEEP_LAUNCHES[name]`` launches, each lane and mix launch on the smem
+    body, and (unless it is the faulted run) quarantined no cell."""
+    from repro_torch.core.dram import cuda_step
+
+    cuda_step.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_step.LAUNCHES)
+    if launches != SWEEP_LAUNCHES[name]:
+        fail(f"sweep {name}: expected launches {SWEEP_LAUNCHES[name]}, "
+             f"counted {launches}")
+    for k, n in launches.items():
+        if n:
+            check_smem(f"sweep {name}", k)
+    if name != "golden_shards" and out.stats["quarantined_cells"]:
+        fail(f"sweep {name}: {out.stats['quarantined_cells']} cells "
+             f"quarantined: {out.quarantined[:2]}")
+    log(f"[sweep] {name}: {wall:.3f}s wall; launches {launches}; "
+        f"batches {out.stats['sim_batches']}; watchdog "
+        f"{out.stats.get('watchdog')}")
+    return out, wall
+
+
+def phase_sweep(smi: str, fig4_wall: float, sched_wall: float):
+    import os
+    import tempfile
+
+    import torch_cases as tc
+    from repro_torch.benchmarks import fig4_ipc, sched_bench
+    from repro_torch.experiments import (FaultPlan, PersistentResultCache,
+                                         ResiliencePolicy, ResultCache,
+                                         clear_trace_cache, load_fragments,
+                                         merge_fragment_dir, run_mix_sweep,
+                                         run_sweep, write_artifact)
+
+    walls = {}
+    # ---- Fig. 4 through run_sweep, against the JAX package's counters
+    clear_trace_cache()
+    fig4, walls["fig4"] = counted_sweep("fig4", run_sweep,
+                                        fig4_ipc.make_grid(), ResultCache())
+    cells = {(c.workload.name, c.policy.name): c.counters
+             for c in fig4.cells}
+    fixture = tc.fig4_fixture()
+    bad = [k for k in fixture if cells.get(k) != fixture[k]]
+    if len(cells) != len(fixture) or bad:
+        fail(f"sweep fig4: {len(bad)} of {len(fixture)} cells differ from "
+             f"{Path(tc.FIG4_PATH).name}, e.g. {bad[:3]}")
+    st = fig4.stats
+    if (st["simulated_cells"], st["sim_batches"]) != (160, 5):
+        fail(f"sweep fig4: simulated {st['simulated_cells']} cells in "
+             f"{st['sim_batches']} batches, expected 160 in 5")
+    log(f"[sweep] fig4 run_sweep: all {len(fixture)} cells equal "
+        f"{Path(tc.FIG4_PATH).name}; {walls['fig4']:.3f}s wall beside "
+        f"paper_repro.run_fig4's {fig4_wall:.3f}s (both incl. trace "
+        f"generation); card {smi}")
+    ref = [c.to_json() for c in fig4.cells]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- journal: write it, then replay it in a second cache
+        journal = os.path.join(tmp, "journal.jsonl")
+        first, walls["journal_write"] = counted_sweep(
+            "fig4", run_sweep, fig4_ipc.make_grid(),
+            PersistentResultCache(journal))
+        replay_cache = PersistentResultCache(journal)
+        replay, walls["replay"] = counted_sweep(
+            "replay", run_sweep, fig4_ipc.make_grid(), replay_cache)
+        st = replay.stats
+        if (replay_cache.loaded, st["cache_hits"], st["simulated_cells"]) \
+                != (160, 160, 0):
+            fail(f"sweep replay: loaded {replay_cache.loaded}, "
+                 f"{st['cache_hits']} hits, {st['simulated_cells']} "
+                 f"simulated; expected 160, 160, 0")
+        strip = [dict(c, cache_hit=None) for c in ref]
+        for run in (first, replay):
+            if [dict(c.to_json(), cache_hit=None) for c in run.cells] != strip:
+                fail("sweep replay: the journal's cells differ from run 1's")
+        log(f"[sweep] journal: written in {walls['journal_write']:.3f}s, "
+            f"replayed as 160 hits with no launch in {walls['replay']:.3f}s")
+
+        # ---- the scheduler study through run_mix_sweep (its traces are
+        # not memoised yet: generated in the run, as run_sched does)
+        sched, walls["sched"] = counted_sweep(
+            "sched", run_mix_sweep, sched_bench.make_grid())
+        want = {k[1:]: v for k, v in tc.multicore_fixture().items()
+                if k[0] == "sched"}
+        got = {(c.mix_name, c.policy.name, c.config.scheduler.name):
+               dict(counters=c.counters, core_cycles=c.core_cycles,
+                    alone_cycles=c.alone_cycles) for c in sched.cells}
+        bad = [k for k, v in want.items() if got.get(k) != {
+            f: v[f] for f in ("counters", "core_cycles", "alone_cycles")}]
+        if len(want) != 40 or set(got) != set(want) or bad:
+            fail(f"sweep sched: {len(bad)} of {len(want)} cells differ from "
+                 f"{Path(tc.MULTICORE_PATH).name}, e.g. {bad[:3]}")
+        log(f"[sweep] sched run_mix_sweep: all {len(want)} cells equal "
+            f"{Path(tc.MULTICORE_PATH).name}; {walls['sched']:.3f}s wall "
+            f"beside paper_repro.run_sched's {sched_wall:.3f}s; card {smi}")
+
+        # ---- the golden fragments: 2 shards, a persistent fault on cell 2
+        frag_dir = os.path.join(tmp, "fragments")
+        fast = ResiliencePolicy(backoff_base_s=0.0, sleep=lambda s: None)
+        golden, walls["golden_shards"] = counted_sweep(
+            "golden_shards", run_sweep, golden_shard_grid(), ResultCache(),
+            resilience=fast, fault_plan=FaultPlan.parse(GOLDEN_SHARD_FAULT),
+            shards=2, fragment_dir=frag_dir, device="cuda:0")
+        if [q["index"] for q in golden.quarantined] != [2]:
+            fail(f"sweep golden_shards: quarantined "
+                 f"{golden.quarantined}, expected cell 2 alone")
+        pinned = ROOT / "tests" / "data" / "shard_fragments"
+
+        def no_device(frags):
+            return [dict(f, shard=dict(f["shard"], device=None))
+                    for f in frags]
+
+        if no_device(load_fragments(frag_dir)) != no_device(
+                load_fragments(pinned)):
+            fail("sweep golden_shards: the fragments differ from "
+                 "tests/data/shard_fragments")
+        merged = write_artifact(os.path.join(tmp, "merged.json"),
+                                merge_fragment_dir(frag_dir))
+        if Path(merged).read_bytes() != (pinned / "merged.json").read_bytes():
+            fail("sweep golden_shards: the merge differs from merged.json")
+        log(f"[sweep] golden_shards: 4 fragments equal "
+            f"tests/data/shard_fragments (devices "
+            f"{sorted({f['shard']['device'] for f in golden.fragments})}), "
+            f"merged.json byte for byte, cell 2 quarantined")
+
+    # ---- Fig. 4 at 4 shards on the one card, nothing a hit (its traces
+    # memoised, as for the journal write: the two walls compare)
+    sharded, walls["fig4_shards"] = counted_sweep(
+        "fig4_shards", run_sweep, fig4_ipc.make_grid(), ResultCache(),
+        shards=4)
+    if [c.to_json() for c in sharded.cells] != ref:
+        fail("sweep fig4_shards: 4-shard cells differ from run 1's")
+    log(f"[sweep] fig4 at 4 shards on {sharded.stats['sharding']['devices']}:"
+        f" cells equal run 1's; {walls['fig4_shards']:.3f}s wall beside the "
+        f"unsharded journal write's {walls['journal_write']:.3f}s (traces "
+        f"memoised in both)")
+    # every run above once, and Fig. 4's counts again for the journal write
+    launches = {k: sum(v[k] for v in SWEEP_LAUNCHES.values())
+                + SWEEP_LAUNCHES["fig4"][k] for k in ("lane_step", "mix_step")}
+    return dict(launches=launches, walls=walls,
+                paper_repro_walls={"fig4": fig4_wall, "sched": sched_wall})
 
 
 def phase_ssd():
@@ -1784,6 +1987,8 @@ def main() -> None:
     run_phase("global_body", phase_global_body)
     fig4 = run_phase("fig4", phase_fig4)
     mc = run_phase("multicore", phase_multicore, smi)
+    sw = run_phase("sweep", phase_sweep, smi, fig4["wall_s"],
+                   mc["sched_wall_s"])
     thr = run_phase("timing", phase_throughput, smi)
     ssd_err = run_phase("ssd", phase_ssd)
     serve, model, fixture = run_phase("serve", phase_serve, smi)
@@ -1809,12 +2014,15 @@ def main() -> None:
         f"plain {fig4['plain_ms']:.1f} ms, bound {b_ms:.5f} ms ({b_by}), "
         f"chain estimate {chain_ms:.4f} ms; "
         f"{fig4['req_per_s']:.4e} req/s; card {smi}")
-    if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
+    if "jax" in sys.modules or any(m.split(".")[0] in ("repro", "benchmarks")
                                    for m in sys.modules):
-        fail("the JAX package was imported")
+        fail("the JAX package or its benches were imported")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     lane_launches = {"fig4": fig4["launches"],
-                     "multicore": mc["launches"]["lane_step"]}
+                     "multicore": mc["launches"]["lane_step"],
+                     "sweep": sw["launches"]["lane_step"]}
+    mix_launches = {"multicore": mc["launches"]["mix_step"],
+                    "sweep": sw["launches"]["mix_step"]}
     record = {"kernels": [{
         "name": "lane_step", "route": "cuda",
         "source": "src/repro_torch/core/dram/csrc/lane_step.cu",
@@ -1828,11 +2036,12 @@ def main() -> None:
                                 "clock_mhz", "req_per_s")},
         "shape": f"B={fig4['B']} N={fig4['N']} (Fig. 4, mean of 5 policies; "
                  f"ms the smem body, global_ms the global body, in turns)",
-        "throughput": thr}, {
+        "throughput": thr, "sweep": sw}, {
         "name": "mix_step", "route": "cuda",
         "source": "src/repro_torch/core/dram/csrc/mix_step.cu",
         "replaces": "src/repro/core/dram/pallas_step.py:160",
-        "launches": mc["launches"]["mix_step"],
+        "launches": sum(mix_launches.values()),
+        "launches_by_path": mix_launches,
         "max_abs_err": max(mc["max_abs_err"], mc_plain_err),
         "ms": mc["ms"], "plain_ms": mc["plain_ms"],
         "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],

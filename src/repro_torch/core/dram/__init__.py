@@ -18,7 +18,8 @@ The port of ``repro.core.dram``, single-core path:
                         on ``csrc/dram_step.cuh``) and their plain versions.
   * ``metrics.py``    — IPC / energy / latency metrics.
 
-Command export, the checker and the sweep layer are not ported yet.
+The sweep layer over these entry points is :mod:`repro_torch.experiments`.
+Command export and the checker are not ported yet.
 """
 from repro_torch.core.dram import registry
 from repro_torch.core.dram.timing import (DramTiming, EnergyModel, CoreModel,

@@ -19,7 +19,10 @@ lane-kernel launch); the mean weighted-speedup gains print beside the
 paper's. ``--n`` then sets both products' trace length (by default the
 benches' 1500 and, for the scheduler study, 1000).
 
-There is no sweep layer yet: cells are not cached.
+It calls the simulator directly, without the sweep layer (no result cache,
+no resilience, no sharding): ``chip_smoke.py`` times the kernels on it. The
+same products through the sweep layer are ``repro_torch.benchmarks.fig4_ipc``
+and ``repro_torch.benchmarks.sched_bench`` (``repro_torch.experiments``).
 """
 from __future__ import annotations
 

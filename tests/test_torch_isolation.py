@@ -3,7 +3,10 @@
 ``repro_torch`` and ``chip_smoke.py`` must run on a machine without JAX.
 Checked twice: statically (every import statement, including the ones
 inside functions) and at run time in a fresh interpreter that imports
-every module of the port.
+every module of the port (``pkgutil.walk_packages`` reaches every
+subpackage: the sweep layer, ``fault`` and ``benchmarks`` included). The
+repo's top-level ``benchmarks`` package imports the JAX package, so the
+port's own ``repro_torch.benchmarks`` must not import it either.
 """
 import ast
 import json
@@ -22,9 +25,13 @@ def port_sources():
         ROOT / "tests" / "check_torch_serve.py"]
 
 
+#: Top-level packages the port never imports: JAX, and the JAX package and
+#: its benches.
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+
+
 def forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return name.split(".")[0] in FORBIDDEN
 
 
 def test_no_jax_or_reference_imports_in_the_source():
@@ -53,7 +60,7 @@ for n in names:
     importlib.import_module(n)
 import torch_cases, check_torch_serve, chip_smoke
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+                if m.split(".")[0] in {FORBIDDEN!r})
 print(json.dumps(dict(modules=names, leaked=leaked)))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -88,6 +95,16 @@ print(json.dumps(dict(modules=names, leaked=leaked)))
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.flash_attention.ref",
             "repro_torch.kernels.dispatch",
+            "repro_torch.fault", "repro_torch.fault.watchdog",
+            "repro_torch.experiments", "repro_torch.experiments.grid",
+            "repro_torch.experiments.artifact",
+            "repro_torch.experiments.cache",
+            "repro_torch.experiments.resilience",
+            "repro_torch.experiments.sharding",
+            "repro_torch.experiments.runner", "repro_torch.serve.what_if",
+            "repro_torch.benchmarks", "repro_torch.benchmarks.common",
+            "repro_torch.benchmarks.fig4_ipc",
+            "repro_torch.benchmarks.sched_bench",
             } <= set(out["modules"])
 
 
