@@ -65,7 +65,24 @@ on any mismatch:
                 body, and no run but the faulted one quarantines a cell. The
                 wall times print beside ``paper_repro.run_fig4``'s and
                 ``run_sched``'s from phases 8 and 9.
-11. timing    — CUDA-event times of both kernels, each body timed in turns
+11. commands  — the DRAM command stream on the card: the 50 single-core
+                and 4 multicore cells of ``tests/data/golden_commands.json``
+                exported by the plain emitting step (``simulate_commands``,
+                ``simulate_mix_commands``): every sha256 pin and the 3 texts
+                equal, zero JEDEC checker violations; the lane and mix
+                kernels on the same traces (50 lane launches, 4 mix + 4
+                lane): every counter but ``sa_open_cycles`` equals
+                ``counters_from_commands``, completions equal
+                ``completions_from_commands`` and per-core cycles the
+                stream's last completions; then ``refresh_bench.run()`` (33
+                lane launches) and ``memtech_bench.run()`` (17 lane, 4 mix)
+                at full size: their artifacts pass the port's validators and
+                ``check_commands_file``, every cell, PALP latency and command
+                slice equals ``tests/data/torch_refresh_memtech_fixture.json``
+                (made by the JAX package), ``DDR3_PIN_WANT`` holds. Prints
+                the export's ms a step, the checker's µs a command and each
+                bench's wall and launches.
+12. timing    — CUDA-event times of both kernels, each body timed in turns
                 (global, smem, smem, global), at the main paths' shapes and
                 at throughput shapes, with nvidia-smi's SM clock sampled
                 meanwhile: ms, us and cycles a step, req/s, beside the byte
@@ -73,7 +90,7 @@ on any mismatch:
                 one step's critical path as counted by hand from the smem
                 bodies' code, at assumed latencies: not measured, and not
                 in the result line).
-12. ssd       — the SSD-scan kernel vs its plain version on the card, in
+13. ssd       — the SSD-scan kernel vs its plain version on the card, in
                 float32 (rtol = atol = 2e-4) and bfloat16 (2e-2), at
                 tests/test_kernels.py's sweep, mamba2-780m's serve shape,
                 jamba's SSM shape, chunk 256 with ds 128 and the kernel's
@@ -81,7 +98,7 @@ on any mismatch:
                 head 1, ds up to 512), and on bases that are not 16-byte
                 aligned; one launch a call; the decay-bound property and no
                 NaN at a huge dt.
-13. serve     — main path three: ``repro_torch.launch.serve``'s path with
+14. serve     — main path three: ``repro_torch.launch.serve``'s path with
                 the fixture's arguments (mamba2-780m at full width, fp32,
                 4 requests x 256 prompt tokens x 16 new, MASA). Weights equal
                 the fixture's numpy stream (sha256 of every leaf);
@@ -89,14 +106,14 @@ on any mismatch:
                 (made by the JAX package); every request's tokens equal the
                 fixture's up to its first near-tie step (top-1/top-2 gap
                 under 1e-2); exactly 4 x 48 = 192 SSD-scan launches.
-14. logits    — teacher-forced: the fixture's tokens through ``prefill`` and
+15. logits    — teacher-forced: the fixture's tokens through ``prefill`` and
                 ``decode_step``; every step's logits at the fixture's top-8
                 ids within rtol = atol = 1e-3.
-15. profile   — ``torch.profiler`` trace of one request's prefill and its
+16. profile   — ``torch.profiler`` trace of one request's prefill and its
                 16 decode steps: the card's busy and idle share, and the
                 SSD-scan and matmul kernels' device time (reported, not
                 checked: the trace may hold no device activity there).
-16. serve_smollm — main path five: smollm-135m whole (30 layers, 9 query
+17. serve_smollm — main path five: smollm-135m whole (30 layers, 9 query
                 heads on 3 kv heads, tied embeddings), fp32, through
                 ``launch.serve``'s path with the arguments of
                 ``tests/data/torch_serve_smollm_135m.json`` (made by the JAX
@@ -105,23 +122,23 @@ on any mismatch:
                 near tie, teacher-forced top-8 logits within rtol = atol =
                 1e-3, and no kernel launched (attention is plain PyTorch, as
                 the reference's is plain JAX); a profile of one request.
-17. serve_moonshot — main path six: moonshot-v1-16b-a3b at full width cut
+18. serve_moonshot — main path six: moonshot-v1-16b-a3b at full width cut
                 to 2 of its 48 layers (16 heads of 128, 64 experts top-6 and
                 2 shared, F 1408), the same checks against
                 ``tests/data/torch_serve_moonshot_16b_l2.json``; exactly
                 2 layers x 3 products (up, gate, down) moe_gemm launches a
                 prefill and a decode call, each on the simt body, and no
                 other kernel; a profile of one request.
-18. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
+19. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
                 capacity 16 and 8, D 2048, F 1408; the up and the down
                 product), fp32: kernel vs plain within 2e-4, then CUDA-event
                 times of the kernel, its plain version and ``torch.bmm`` on
                 the same capacity buffer, beside the bound.
-19. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
+20. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound
                 (C B^T counted once a batch element and chunk: B and C are
                 shared by the heads).
-20. kernels   — the masa_gemm (both orders, through ops and its fallback),
+21. kernels   — the masa_gemm (both orders, through ops and its fallback),
                 moe_gemm, paged_attention and flash_attention kernels vs
                 their plain versions on the card, in float32 (rtol = atol =
                 2e-4) and bfloat16 (2e-2), at tests/test_kernels.py's and
@@ -144,12 +161,12 @@ on any mismatch:
                 simt otherwise; paged: split for G 1 to 8 and rows of 1
                 to 32 whole 16-byte units, serial otherwise), counted in
                 ``BODIES``.
-21. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
+22. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
                 (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
                 paged_attention 2, flash_attention 1); no DRAM-kernel launch.
-22. kernel_time — the four kernels at jamba-v0.1-52b's full width
+23. kernel_time — the four kernels at jamba-v0.1-52b's full width
                 (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
                 kernel vs plain within the tolerances above, then CUDA-event
                 times of the kernel, its plain version and the one PyTorch
@@ -169,7 +186,8 @@ on any mismatch:
 Each phase prints its seconds. The last lines are nvidia-smi's name and
 power limit, the per-kernel JSON record (all seven kernels; lane_step and
 mix_step also give their body, µs and cycles a step, chain bound, the
-global body's time and their launches by path, the sweep phase's included;
+global body's time and their launches by path, the sweep and commands
+phases' included;
 lane_step the sweep phase's wall times; moe_gemm its launches by path,
 moonshot's serve run and its times at moonshot's shapes), and ``{"ok":
 true, "device": {...}}``.
@@ -928,11 +946,10 @@ def golden_shard_grid():
                      config_axes={"n_subarrays": (4,)})
 
 
-def counted_sweep(name: str, fn, *args, **kwargs):
-    """One sweep-layer run with the launch counts set to 0 just before it:
-    ``(result, wall s)``. Fails unless it made exactly
-    ``SWEEP_LAUNCHES[name]`` launches, each lane and mix launch on the smem
-    body, and (unless it is the faulted run) quarantined no cell."""
+def counted(tag: str, want: dict, fn, *args, **kwargs):
+    """``fn`` with the DRAM kernels' launch counts set to 0 just before it:
+    ``(result, wall s, launches)``. Fails unless it made exactly ``want``
+    launches, each lane and mix launch on the smem body."""
     from repro_torch.core.dram import cuda_step
 
     cuda_step.reset_launches()
@@ -941,12 +958,20 @@ def counted_sweep(name: str, fn, *args, **kwargs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_step.LAUNCHES)
-    if launches != SWEEP_LAUNCHES[name]:
-        fail(f"sweep {name}: expected launches {SWEEP_LAUNCHES[name]}, "
-             f"counted {launches}")
+    if launches != want:
+        fail(f"{tag}: expected launches {want}, counted {launches}")
     for k, n in launches.items():
         if n:
-            check_smem(f"sweep {name}", k)
+            check_smem(tag, k)
+    return out, wall, launches
+
+
+def counted_sweep(name: str, fn, *args, **kwargs):
+    """One sweep-layer run through :func:`counted`: ``(result, wall s)``.
+    Fails unless it made exactly ``SWEEP_LAUNCHES[name]`` launches and
+    (unless it is the faulted run) quarantined no cell."""
+    out, wall, launches = counted(f"sweep {name}", SWEEP_LAUNCHES[name], fn,
+                                  *args, **kwargs)
     if name != "golden_shards" and out.stats["quarantined_cells"]:
         fail(f"sweep {name}: {out.stats['quarantined_cells']} cells "
              f"quarantined: {out.quarantined[:2]}")
@@ -1075,6 +1100,216 @@ def phase_sweep(smi: str, fig4_wall: float, sched_wall: float):
                 + SWEEP_LAUNCHES["fig4"][k] for k in ("lane_step", "mix_step")}
     return dict(launches=launches, walls=walls,
                 paper_repro_walls={"fig4": fig4_wall, "sched": sched_wall})
+
+
+#: The commands phase's launches by step: the golden grid's exports (the
+#: plain emitting step; the 4 mixes' run-alone baselines through the lane
+#: kernel), the kernels on the same traces (one lane launch a single-core
+#: cell, one mix and one lane launch a mix), refresh_bench.run() (one lane
+#: launch a (policy, config) bucket) and memtech_bench.run() (12 buckets, the
+#: DDR3 pin, and one mix and one lane launch for each of the 4 PALP mixes).
+COMMANDS_LAUNCHES = {"exports": {"lane_step": 4, "mix_step": 0},
+                     "kernels": {"lane_step": 50 + 4, "mix_step": 4},
+                     "refresh": {"lane_step": 33, "mix_step": 0},
+                     "memtech": {"lane_step": 12 + 1 + 4, "mix_step": 4}}
+
+
+
+def tree_id() -> str:
+    """The checkout's git commit, or, where the copy has no ``.git``, the
+    sha256 of its ``src/`` files (an artifact must name its code)."""
+    import hashlib
+
+    from repro_torch.experiments.artifact import git_sha
+
+    sha = git_sha(str(ROOT))
+    if sha != "unknown":
+        return sha
+    h = hashlib.sha256()
+    for path in sorted((ROOT / "src").rglob("*.py")):
+        h.update(str(path.relative_to(ROOT)).encode())
+        h.update(path.read_bytes())
+    return "tree-sha256-" + h.hexdigest()
+
+
+def phase_commands(smi: str):
+    """The command stream on the card: the golden pins, the lane and mix
+    kernels held to the stream, and the refresh and memtech benches at full
+    size against the JAX fixture."""
+    import dataclasses
+    import hashlib
+
+    import torch_cases as tc
+    from repro_torch.benchmarks import (common, memtech_bench, refresh_bench,
+                                        validate)
+    from repro_torch.core.dram import (Policy, SimConfig, check_trace,
+                                       completions_from_commands,
+                                       counters_from_commands,
+                                       simulate_commands,
+                                       simulate_mix_commands,
+                                       simulate_multicore, simulate_stacked,
+                                       stack_traces, state_layout as L)
+    from repro_torch.experiments import (ResultCache, bench_artifact,
+                                         install_global_cache)
+
+    t_phase = time.perf_counter()
+    golden = json.loads(Path(tc.GOLDEN_COMMANDS_PATH).read_text())
+    fixture = tc.refresh_memtech_fixture()
+
+    # ---- 1. the golden pins: export every cell on the card
+    trace = tc.random_trace(tc.GOLDEN_COMMANDS_SEED)
+    mix = tc.golden_commands_mix()
+    singles = [(c["config"], c["policy"]) for c in golden["single"]]
+
+    def export_all():
+        out = {}
+        for cfg, pol in singles:
+            out[(cfg, pol)] = simulate_commands(
+                trace, Policy[pol], SimConfig(**tc.CONFIGS[cfg]),
+                device="cuda")
+        for cfg, pol in tc.GOLDEN_COMMANDS_MIX_CELLS:
+            out[("mix", cfg, pol)] = simulate_mix_commands(
+                mix, Policy[pol], tc.golden_commands_mix_config(cfg),
+                device="cuda")
+        return out
+
+    exports, export_s, export_launches = counted(
+        "commands exports", COMMANDS_LAUNCHES["exports"], export_all)
+    steps = sum(ct.meta["n_steps"] for _, ct in exports.values())
+    bad = []
+    for c in golden["single"]:
+        ct = exports[(c["config"], c["policy"])][1]
+        if (hashlib.sha256(ct.dumps().encode()).hexdigest(), len(ct),
+                ct.counts()) != (c["sha256"], c["n_commands"], c["ops"]):
+            bad.append((c["config"], c["policy"]))
+    for c in golden["multicore"]:
+        ct = exports[("mix", c["config"], c["policy"])][1]
+        if hashlib.sha256(ct.dumps().encode()).hexdigest() != c["sha256"]:
+            bad.append(("mix", c["config"], c["policy"]))
+    texts = [k for k, v in golden["texts"].items()
+             if exports[tuple(k.split("/"))][1].dumps() != v]
+    if bad or texts:
+        fail(f"commands: {len(bad)} golden cells and {len(texts)} texts "
+             f"differ from golden_commands.json, e.g. {(bad + texts)[:3]}")
+    t0 = time.perf_counter()
+    checks = {k: check_trace(ct) for k, (_, ct) in exports.items()}
+    check_s = time.perf_counter() - t0
+    n_cmds = sum(r.n_commands for r in checks.values())
+    illegal = {k: r.summary() for k, r in checks.items() if not r.ok}
+    if illegal:
+        fail(f"commands: checker violations {list(illegal.items())[:2]}")
+    log(f"[commands] {len(singles)} single + {len(golden['multicore'])} "
+        f"multicore golden cells exported on the card: every sha256 pin and "
+        f"the {len(golden['texts'])} texts equal; {n_cmds} commands, zero "
+        f"violations. Export {export_s:.2f}s for {steps} steps "
+        f"({export_s / steps * 1e3:.3f} ms a step, the plain emitting step); "
+        f"checker {check_s:.3f}s ({check_s / n_cmds * 1e6:.2f} us a "
+        f"command); launches {export_launches}; card {smi}")
+
+    # ---- 2. the lane and mix kernels against the stream
+    def kernels_all():
+        out = {}
+        for cfg, pol in singles:
+            out[(cfg, pol)] = simulate_stacked(
+                stack_traces([trace]), Policy[pol],
+                SimConfig(**tc.CONFIGS[cfg]), device="cuda")
+        for cfg, pol in tc.GOLDEN_COMMANDS_MIX_CELLS:
+            out[("mix", cfg, pol)] = simulate_multicore(
+                mix, Policy[pol], tc.golden_commands_mix_config(cfg),
+                device="cuda")
+        return out
+
+    kernels, kernel_s, kernel_launches = counted(
+        "commands kernels", COMMANDS_LAUNCHES["kernels"], kernels_all)
+    fields = [f.name for f in dataclasses.fields(type(
+        exports[singles[0]][0])) if f.name != "sa_open_cycles"]
+    bad = []
+    for key, (_, ct) in exports.items():
+        res = kernels[key]
+        mc = key[0] == "mix"
+        shared = res.shared if mc else res
+        got = {f: int(getattr(shared, f).reshape(-1)[0]) for f in fields}
+        comp = completions_from_commands(ct)
+        ok = (got == counters_from_commands(ct)
+              and np.array_equal(comp, ct.step_comp))
+        if mc:
+            col = np.isin(ct.op, (L.OP_RD, L.OP_WR))
+            per_core = [int(comp[ct.step[col & (ct.core == c)]].max())
+                        for c in range(len(mix))]
+            ok = ok and per_core == [int(x) for x in res.core_cycles]
+        if not ok:
+            bad.append(key)
+    if bad:
+        fail(f"commands: kernel counters or completions differ from the "
+             f"stream's for {len(bad)} cells, e.g. {bad[:3]}")
+    log(f"[commands] lane and mix kernels on the same traces: every counter "
+        f"but sa_open_cycles equals counters_from_commands, completions "
+        f"equal completions_from_commands, per-core cycles the stream's last "
+        f"completions ({len(exports)} cells; launches {kernel_launches}; "
+        f"{kernel_s:.3f}s)")
+
+    # ---- 3. the two benches at full size
+    install_global_cache(ResultCache())
+    sha = tree_id()
+    benches, summary = {}, {}
+    for name, bench in (("refresh", refresh_bench), ("memtech",
+                                                      memtech_bench)):
+        common.SWEEPS.clear()
+        result, wall, launches = counted(
+            f"commands {name}", COMMANDS_LAUNCHES[name], bench.run,
+            device="cuda")
+        doc = bench_artifact({name: result}, list(common.SWEEPS),
+                             seed=common.SEED)
+        doc["git_sha"] = sha
+        try:
+            msg = getattr(validate, f"validate_{name}")(doc)
+            paths = [result["commands"]["path"]]
+            msg += "; " + validate.check_commands_file(paths[0], doc, name)
+            if name == "memtech":
+                paths.append(result["commands_lpddr4"]["path"])
+                msg += "; " + validate.check_commands_file(paths[1])
+        except validate.ValidationError as e:
+            fail(f"commands {name}: {e}")
+        want = {c["key"]: c["counters"] for c in fixture["cells"]
+                if c["grid"] == name}
+        got = {c["key"]: c["counters"] for c in common.SWEEPS[-1]["cells"]}
+        diff = [k for k in want if got.get(k) != want[k]]
+        if set(got) != set(want) or diff:
+            fail(f"commands {name}: {len(diff)} of {len(want)} cells differ "
+                 f"from {Path(tc.REFRESH_MEMTECH_PATH).name}")
+        slices = {"refresh": result["commands"]} if name == "refresh" else {
+            "memtech_pcm": result["commands"],
+            "memtech_lpddr4": result["commands_lpddr4"]}
+        for sname, rec in slices.items():
+            keys = ("sha256", "n_commands", "ops", "n_rules")
+            if {k: rec[k] for k in keys} != fixture["commands"][sname]:
+                fail(f"commands {name}: slice {sname} {rec} differs from the "
+                     f"fixture's {fixture['commands'][sname]}")
+        if name == "memtech":
+            if tuple(result["ddr3_pin"]["got"]) != memtech_bench.DDR3_PIN_WANT:
+                fail(f"commands memtech: ddr3 pin {result['ddr3_pin']}")
+            palp = {t: {"FRFCFS": v["frfcfs_read_lat"],
+                        "PALP_RP": v["palp_rp_read_lat"]}
+                    for t, v in result["palp"].items()}
+            if palp != fixture["palp"]:
+                fail(f"commands memtech: PALP latencies {palp} differ from "
+                     f"the fixture's {fixture['palp']}")
+        benches[name] = result
+        summary[name] = dict(wall_s=wall, launches=launches,
+                             cells=len(got))
+        log(f"[commands] {name}_bench.run() on the card: {wall:.2f}s wall, "
+            f"launches {launches}; {len(got)} cells and "
+            f"{', '.join(slices)} equal the JAX fixture; {msg}")
+    launches = {k: sum(v[k] for v in COMMANDS_LAUNCHES.values())
+                for k in ("lane_step", "mix_step")}
+    wall = time.perf_counter() - t_phase
+    log(f"[commands] phase {wall:.1f}s; card {smi}")
+    return dict(wall_s=wall, export_s=export_s, export_steps=steps,
+                export_ms_per_step=export_s / steps * 1e3,
+                checker_s=check_s, checker_commands=n_cmds,
+                checker_us_per_command=check_s / n_cmds * 1e6,
+                kernels_s=kernel_s, benches=summary, launches=launches,
+                ddr3_pin=benches["memtech"]["ddr3_pin"]["got"])
 
 
 def phase_ssd():
@@ -1989,6 +2224,7 @@ def main() -> None:
     mc = run_phase("multicore", phase_multicore, smi)
     sw = run_phase("sweep", phase_sweep, smi, fig4["wall_s"],
                    mc["sched_wall_s"])
+    cmds = run_phase("commands", phase_commands, smi)
     thr = run_phase("timing", phase_throughput, smi)
     ssd_err = run_phase("ssd", phase_ssd)
     serve, model, fixture = run_phase("serve", phase_serve, smi)
@@ -2020,9 +2256,11 @@ def main() -> None:
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     lane_launches = {"fig4": fig4["launches"],
                      "multicore": mc["launches"]["lane_step"],
-                     "sweep": sw["launches"]["lane_step"]}
+                     "sweep": sw["launches"]["lane_step"],
+                     "commands": cmds["launches"]["lane_step"]}
     mix_launches = {"multicore": mc["launches"]["mix_step"],
-                    "sweep": sw["launches"]["mix_step"]}
+                    "sweep": sw["launches"]["mix_step"],
+                    "commands": cmds["launches"]["mix_step"]}
     record = {"kernels": [{
         "name": "lane_step", "route": "cuda",
         "source": "src/repro_torch/core/dram/csrc/lane_step.cu",
@@ -2036,7 +2274,7 @@ def main() -> None:
                                 "clock_mhz", "req_per_s")},
         "shape": f"B={fig4['B']} N={fig4['N']} (Fig. 4, mean of 5 policies; "
                  f"ms the smem body, global_ms the global body, in turns)",
-        "throughput": thr, "sweep": sw}, {
+        "throughput": thr, "sweep": sw, "commands": cmds}, {
         "name": "mix_step", "route": "cuda",
         "source": "src/repro_torch/core/dram/csrc/mix_step.cu",
         "replaces": "src/repro/core/dram/pallas_step.py:160",

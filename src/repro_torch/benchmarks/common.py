@@ -4,8 +4,9 @@
 Canonical reproduction settings: 8000 requests/workload, seed 7 — the
 calibration frozen in EXPERIMENTS.md. Every benchmark prints
 ``name,us_per_call,derived`` CSV rows (one per paper table/figure entry).
-``run_grid`` and ``run_mix_grid`` take the ``device`` the sweep runs on
-(``None`` = the card).
+``run_grid``, ``run_mix_grid`` and ``command_slice`` take the ``device``
+they run on (``None`` = the card). Command dumps go under
+:data:`COMMANDS_DIR`, beside (never over) the JAX benches' dumps.
 """
 from __future__ import annotations
 
@@ -20,6 +21,11 @@ SEED = 7
 #: Sweep artifacts (``repro.sweep/v1`` dicts) produced by benchmarks in this
 #: process, for a runner to fold into one bench artifact.
 SWEEPS: list[dict] = []
+
+#: Where the port's benches write their command dumps, relative to the
+#: working directory (``artifacts/*`` is git-ignored; the JAX benches write
+#: ``artifacts/commands_*.trace``).
+COMMANDS_DIR = "artifacts/torch"
 
 
 def mem_intensive(min_mpki: float = 9.0):
@@ -78,3 +84,42 @@ def emit(name: str, us: float, derived) -> str:
     print(row)
     return row
 
+
+
+def command_slice(trace, policy, config, out_path: str, device=None) -> dict:
+    """One command-level fidelity cell: export, check, cross-validate, dump.
+
+    Runs the emitting simulation (the plain emitting step on ``device``),
+    asserts the stream is legal under the full JEDEC rule table
+    (``check_trace``), asserts the stream alone reproduces the SimResult
+    counters (minus the non-derivable ``sa_open_cycles``), then writes the
+    ramulator-style dump to ``out_path`` so it can be re-parsed and
+    re-checked (``repro_torch.benchmarks.validate --check-commands``).
+    """
+    import dataclasses
+    import hashlib
+    import os
+
+    from repro_torch.core.dram import (check_trace, counters_from_commands,
+                                       simulate_commands)
+    from repro_torch.core.dram.engine import SimResult
+
+    res, ct = simulate_commands(trace, policy, config, device=device)
+    chk = check_trace(ct)
+    if not chk.ok:
+        raise AssertionError(f"illegal command stream: {chk.summary()}")
+    got = counters_from_commands(ct)
+    want = {f.name: int(getattr(res, f.name))
+            for f in dataclasses.fields(SimResult)}
+    want.pop("sa_open_cycles")
+    if got != want:
+        raise AssertionError(
+            f"command stream does not reproduce the engine's counters: "
+            f"{got} != {want}")
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    text = ct.dumps()
+    with open(out_path, "w") as f:
+        f.write(text)
+    return {"path": out_path, "n_commands": len(ct), "ops": ct.counts(),
+            "n_rules": chk.n_rules, "checker_ok": True,
+            "sha256": hashlib.sha256(text.encode()).hexdigest()}

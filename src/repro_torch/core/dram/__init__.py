@@ -17,9 +17,12 @@ The port of ``repro.core.dram``, single-core path:
                         (``csrc/lane_step.cu``, ``csrc/mix_step.cu``, both
                         on ``csrc/dram_step.cuh``) and their plain versions.
   * ``metrics.py``    — IPC / energy / latency metrics.
+  * ``commands.py``   — command-stream export (the plain emitting step),
+                        ramulator-style dump/load and the stream-derived
+                        counters; ``checker.py`` — the JEDEC rule-table
+                        checker (a copy of the reference's).
 
 The sweep layer over these entry points is :mod:`repro_torch.experiments`.
-Command export and the checker are not ported yet.
 """
 from repro_torch.core.dram import registry
 from repro_torch.core.dram.timing import (DramTiming, EnergyModel, CoreModel,
@@ -49,6 +52,13 @@ from repro_torch.core.dram.multicore import (simulate_multicore,
                                              MulticoreResult)
 from repro_torch.core.dram.metrics import (ipc_from_result,
                                            energy_from_result, summarize)
+from repro_torch.core.dram.commands import (CommandTrace, simulate_commands,
+                                            simulate_mix_commands,
+                                            completions_from_commands,
+                                            counters_from_commands)
+from repro_torch.core.dram.checker import (TimingRule, Violation, CheckResult,
+                                           rules_for, check_trace,
+                                           min_legal_cycles)
 
 __all__ = [
     "registry",
@@ -65,4 +75,8 @@ __all__ = [
     "simulate_multicore", "simulate_multicore_batch", "alone_baseline_cycles",
     "MulticoreResult",
     "ipc_from_result", "energy_from_result", "summarize",
+    "CommandTrace", "simulate_commands", "simulate_mix_commands",
+    "completions_from_commands", "counters_from_commands",
+    "TimingRule", "Violation", "CheckResult", "rules_for", "check_trace",
+    "min_legal_cycles",
 ]

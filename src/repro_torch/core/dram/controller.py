@@ -93,14 +93,17 @@ def _bank_rows(table, hb) -> torch.Tensor:
 
 
 def _refresh_fns(policy: int, t: DramTiming, n_subarrays: int,
-                 refresh_mode: int):
-    """Build ``(head_visibility, update_ref)`` for one static refresh mode.
+                 refresh_mode: int, emit_commands: bool = False):
+    """Build ``(head_visibility, update_ref, ref_cmds)`` for one static
+    refresh mode.
 
     ``ref`` is the ``[B, nb, REF_F]`` table of ``B`` lanes.
     ``head_visibility`` takes ``[B]`` heads (one per lane) or ``[B, C]``
     heads (one per core of each mix) and is a pure read of the table;
     ``update_ref`` commits one served head per lane (``[B]``). ``hb/hs/vis/
-    comp`` are int32 and ``hwr`` bool. The
+    comp`` are int32 and ``hwr`` bool. ``ref_cmds`` gives the served heads'
+    ``[B, R, CMD_F]`` refresh records (``emit_commands`` only: DARP's
+    directive then also carries its chains' geometry). The
     reference's floor divisions only ever see non-negative operands on the
     branch that is kept (deadlines are non-negative and ``avail`` is clamped
     at 0), which the CUDA kernel relies on.
@@ -164,14 +167,21 @@ def _refresh_fns(policy: int, t: DramTiming, n_subarrays: int,
         vis = torch.where(n_idle > 0, torch.maximum(vis, drain_end), vis)
         owed = owed - n_idle
         n_forced = torch.clamp_min(owed - pmax, 0)
+        forced_at = vis                                   # forced chain start
         vis = vis + n_forced * t.t_rfc_pb
         owed = owed - n_forced
         chain_end = torch.where(n_forced > 0, vis, drain_end)
         shadow = hwr & (owed >= 2)
         act = (n_idle > 0) | (n_forced > 0)
-        return vis, dict(pending=act | shadow, due=new_due,
-                         debt=owed - shadow.to(I32), act=act, end=chain_end,
-                         shadow=shadow)
+        d = dict(pending=act | shadow, due=new_due, debt=owed - shadow.to(I32),
+                 act=act, end=chain_end, shadow=shadow)
+        if emit_commands:
+            # the chains' geometry for the command log (update_ref ignores
+            # it); the shadow burst starts at the write's completion, known
+            # only after the timing step (ref_cmds)
+            d.update(n_idle=n_idle, launch=launch, n_forced=n_forced,
+                     forced_at=forced_at)
+        return vis, d
 
     def update_ref(ref, directive, hb, vis, comp):
         """Commit each lane's served bank row of the refresh table, in
@@ -196,7 +206,35 @@ def _refresh_fns(policy: int, t: DramTiming, n_subarrays: int,
             row_new = torch.where(directive["pending"][:, None], served, old)
         ref[_lanes(ref, hb), hb.long()] = row_new
 
-    return head_visibility, update_ref
+    def ref_cmds(directive, hb, comp):
+        """``[B, R, CMD_F]`` OP_REF records of the served heads.
+
+        Modes 1/2/3/5 fire at most one burst a step, at the deadline;
+        subarray-granular modes carry the target subarray, bank-granular
+        ones NEG. DARP fires up to three chains (idle drain, forced
+        overflow, write shadow) whose lengths ride the aux lane; decode
+        expands a chain of k into k bursts spaced tRFCpb.
+        """
+        neg = torch.full_like(hb, _NEG)
+        one = torch.ones_like(hb)
+
+        def rec(cond, cycle, sa_i, aux):
+            return torch.stack([torch.where(cond, L.OP_REF, L.OP_NOP).to(I32),
+                                cycle, hb, sa_i, neg, aux], dim=1)
+
+        if refresh_mode != 4:
+            target = directive["target"] if refresh_mode in (2, 5) else neg
+            return rec(directive["pending"], directive["due"], target,
+                       one)[:, None]
+        return torch.stack([
+            rec(directive["n_idle"] > 0, directive["launch"], neg,
+                directive["n_idle"]),
+            rec(directive["n_forced"] > 0, directive["forced_at"], neg,
+                directive["n_forced"]),
+            rec(directive["shadow"], comp, neg, one),
+        ], dim=1)
+
+    return head_visibility, update_ref, ref_cmds
 
 
 def _state1_init(B: int, n_banks: int, n_subarrays: int, t: DramTiming,
@@ -212,16 +250,18 @@ def _state1_init(B: int, n_banks: int, n_subarrays: int, t: DramTiming,
 
 
 def _build_step1(policy: int, t: DramTiming, refresh_mode: int,
-                 closed_row: bool, mlp, refresh_fns):
+                 closed_row: bool, mlp, refresh_fns,
+                 emit_commands: bool = False):
     """Build the lane-batched single-core step ``step(state, i, x)``.
 
     ``i`` is the request index (a Python int, the same for every lane),
     ``x`` the ``[B, RQ_F]`` request rows, ``mlp`` the ``[B]`` windows. With
     one core the serve order is program order, so the step is the
     reference's ``_build_step1`` with the lane dimension written out.
-    Updates ``state`` in place.
+    Updates ``state`` in place; with ``emit_commands`` it returns the step's
+    record ``dict(cmds=[B, slots, CMD_F], comp=[B], core=[B], req=[B])``.
     """
-    head_visibility, update_ref = refresh_fns
+    head_visibility, update_ref, ref_cmds = refresh_fns
     mlp_l = mlp.long()
 
     def step1(state, i: int, x):
@@ -240,36 +280,55 @@ def _build_step1(policy: int, t: DramTiming, refresh_mode: int,
         if refresh_mode:
             req["ref_pending"] = directive["pending"]
             req["ref_target"] = directive.get("target", torch.zeros_like(hb))
-        comp = _engine._timing_step(policy, t, refresh_mode, state, req,
-                                    closed_row=closed_row)
+        stepped = _engine._timing_step(policy, t, refresh_mode, state, req,
+                                       closed_row=closed_row,
+                                       emit=emit_commands)
+        comp = stepped[0] if emit_commands else stepped
         if refresh_mode:
             update_ref(state["ref"], directive, hb, vis, comp)
         ring[:, i % _RING] = comp
         state["vis_prev"] = vis
         state["max_comp"] = torch.maximum(state["max_comp"], comp)
+        if not emit_commands:
+            return None
+        cmds = stepped[1]
+        if refresh_mode:
+            cmds = torch.cat([cmds, ref_cmds(directive, hb, comp)], dim=1)
+        return dict(cmds=cmds, comp=comp, core=torch.zeros_like(comp),
+                    req=torch.full_like(comp, i))
 
     return step1
 
 
 def run_lanes(policy: int, n_banks: int, n_subarrays: int, t: DramTiming,
-              refresh_mode: int, xs, mlp, closed_row: bool = False):
+              refresh_mode: int, xs, mlp, closed_row: bool = False,
+              emit_commands: bool = False):
     """The plain lane loop: ``N`` lane-batched steps over ``xs``.
 
     ``xs`` is the ``[B, N, RQ_F]`` int32 request tensor and ``mlp`` the
     ``[B]`` int32 windows, on any device. Returns ``(scalars [B, SC_F],
-    vis_prev [B], max_comp [B])``, the lane kernel's outputs.
+    vis_prev [B], max_comp [B])``, the lane kernel's outputs;
+    ``emit_commands`` appends the stacked command log (:func:`_stack_log`).
     """
     if xs.dtype != I32 or mlp.dtype != I32:
         raise TypeError(f"xs and mlp must be int32, got {xs.dtype}, "
                         f"{mlp.dtype}")
     B, N = xs.shape[0], xs.shape[1]
-    fns = _refresh_fns(policy, t, n_subarrays, refresh_mode)
-    step1 = _build_step1(policy, t, refresh_mode, closed_row, mlp, fns)
+    fns = _refresh_fns(policy, t, n_subarrays, refresh_mode, emit_commands)
+    step1 = _build_step1(policy, t, refresh_mode, closed_row, mlp, fns,
+                         emit_commands)
     state = _state1_init(B, n_banks, n_subarrays, t, refresh_mode, xs.device)
     rows = xs.transpose(0, 1).contiguous()               # [N, B, RQ_F]
-    for i in range(N):
-        step1(state, i, rows[i])
-    return state["scalars"], state["vis_prev"], state["max_comp"]
+    log = [step1(state, i, rows[i]) for i in range(N)]
+    out = state["scalars"], state["vis_prev"], state["max_comp"]
+    return (*out, _stack_log(log)) if emit_commands else out
+
+
+def _stack_log(log: list[dict]) -> dict:
+    """The steps' records stacked lane-major: ``cmds [B, steps, slots,
+    CMD_F]``, ``comp`` / ``core`` / ``req`` ``[B, steps]``, where ``core``
+    and ``req`` name the served request of each step."""
+    return {k: torch.stack([r[k] for r in log], dim=1) for k in log[0]}
 
 
 def _stateC_init(M: int, n_banks: int, n_subarrays: int, t: DramTiming,
@@ -288,7 +347,7 @@ def _stateC_init(M: int, n_banks: int, n_subarrays: int, t: DramTiming,
 
 def _build_stepC(policy: int, scheduler: int, t: DramTiming,
                  refresh_mode: int, closed_row: bool, reqs, mlp, rank,
-                 refresh_fns):
+                 refresh_fns, emit_commands: bool = False):
     """Build the mix-batched C-core step ``step(state)``.
 
     ``reqs`` is the ``[M, C, N, RQ_F]`` request tensor, ``mlp`` and ``rank``
@@ -296,9 +355,10 @@ def _build_stepC(policy: int, scheduler: int, t: DramTiming,
     against the PRE-step state, serves the argmin core of every mix through
     the timing step, and commits that core's refresh row, core row and ring
     slot: the reference's ``_build_stepC`` with the mix dimension written
-    out. Updates ``state`` in place.
+    out. Updates ``state`` in place; with ``emit_commands`` it returns the
+    served heads' record ``dict(cmds, comp, core, req)`` (``[M, ...]``).
     """
-    head_visibility, update_ref = refresh_fns
+    head_visibility, update_ref, ref_cmds = refresh_fns
     M, C, N = reqs.shape[0], reqs.shape[1], reqs.shape[2]
     mix = torch.arange(M, dtype=torch.long, device=reqs.device)
     mix_c = mix[:, None]
@@ -346,8 +406,10 @@ def _build_stepC(policy: int, scheduler: int, t: DramTiming,
             req["ref_pending"] = directive_c["pending"]
             req["ref_target"] = directive_c.get("target",
                                                 torch.zeros_like(vis_c))
-        comp = _engine._timing_step(policy, t, refresh_mode, state, req,
-                                    closed_row=closed_row)
+        stepped = _engine._timing_step(policy, t, refresh_mode, state, req,
+                                       closed_row=closed_row,
+                                       emit=emit_commands)
+        comp = stepped[0] if emit_commands else stepped
         if refresh_mode:
             update_ref(state["ref"], directive_c, req["bank"], vis_c, comp)
         # the loop runs exactly C * N steps, so the chosen core is live and
@@ -356,31 +418,41 @@ def _build_stepC(policy: int, scheduler: int, t: DramTiming,
             [pc + 1, vis_c,
              torch.maximum(core[mix, c, L.CORE_MAX_COMP], comp)], dim=1)
         ring[mix, c, (pc % _RING).long()] = comp
+        if not emit_commands:
+            return None
+        # emission follows the served head only (the step serves one
+        # request a mix; update_ref commits the same head's refresh row)
+        cmds = stepped[1]
+        if refresh_mode:
+            cmds = torch.cat([cmds, ref_cmds(directive_c, req["bank"], comp)],
+                             dim=1)
+        return dict(cmds=cmds, comp=comp, core=c.to(I32), req=pc)
 
     return step
 
 
 def run_cores(policy: int, scheduler: int, n_banks: int, n_subarrays: int,
               t: DramTiming, refresh_mode: int, reqs, mlp, rank,
-              closed_row: bool = False):
+              closed_row: bool = False, emit_commands: bool = False):
     """The plain mix loop: ``C * N`` mix-batched steps over ``reqs``.
 
     ``reqs`` is the ``[M, C, N, RQ_F]`` int32 request tensor, ``mlp`` and
     ``rank`` the ``[M, C]`` int32 windows and TCM ranks, on any device.
     Returns ``(scalars [M, SC_F], vis_prev [M, C], max_comp [M, C])``, the
-    mix kernel's outputs.
+    mix kernel's outputs; ``emit_commands`` appends the stacked command log
+    (:func:`_stack_log`, mix-major).
     """
     if reqs.dtype != I32 or mlp.dtype != I32 or rank.dtype != I32:
         raise TypeError(f"reqs, mlp and rank must be int32, got {reqs.dtype}, "
                         f"{mlp.dtype}, {rank.dtype}")
     M, C, N = reqs.shape[0], reqs.shape[1], reqs.shape[2]
-    fns = _refresh_fns(policy, t, n_subarrays, refresh_mode)
+    fns = _refresh_fns(policy, t, n_subarrays, refresh_mode, emit_commands)
     step = _build_stepC(policy, scheduler, t, refresh_mode, closed_row, reqs,
-                        mlp, rank, fns)
+                        mlp, rank, fns, emit_commands)
     state = _stateC_init(M, n_banks, n_subarrays, t, refresh_mode, C,
                          reqs.device)
-    for _ in range(C * N):
-        step(state)
+    log = [step(state) for _ in range(C * N)]
     core = state["core"]
-    return (state["scalars"], core[..., L.CORE_VIS_PREV].contiguous(),
-            core[..., L.CORE_MAX_COMP].contiguous())
+    out = (state["scalars"], core[..., L.CORE_VIS_PREV].contiguous(),
+           core[..., L.CORE_MAX_COMP].contiguous())
+    return (*out, _stack_log(log)) if emit_commands else out

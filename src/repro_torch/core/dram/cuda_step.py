@@ -81,8 +81,9 @@ SMEM_MAX_CORES = 128
 EMIT_COMMANDS_ERROR = (
     "The CUDA lane and mix kernels refuse emit_commands: they keep the "
     "per-step state on the card and return only the final counters, so "
-    "there is no per-step command log to decode; command export is not "
-    "ported yet — use the JAX package's repro.core.dram.commands.")
+    "there is no per-step command log to decode; export the stream with "
+    "repro_torch.core.dram.commands.simulate_commands (the plain emitting "
+    "step).")
 
 
 def check_no_emit(config) -> None:

@@ -82,7 +82,8 @@ class SimConfig:
     scheduler: Scheduler = Scheduler.FCFS
     mapping: str = "golden"
     refresh_policy: str = "none"
-    # Command-stream export is not ported: the entry points refuse it.
+    # Consumed by repro_torch.core.dram.commands' exports; the simulate*
+    # entry points and the CUDA kernels refuse it.
     emit_commands: bool = False
     memtech: str = "ddr3"
 
@@ -161,6 +162,11 @@ class SimResult:
     n_reads: torch.Tensor
     sa_open_cycles: torch.Tensor
 
+    def lane(self, i: int) -> "SimResult":
+        """Lane (or mix) ``i`` of a batched result, as 0-d tensors."""
+        return SimResult(**{f.name: getattr(self, f.name)[i]
+                            for f in dataclasses.fields(self)})
+
 
 def _bank_state0(B: int, nb: int, ns: int, device) -> dict:
     """Initial packed state of ``B`` lanes: the ``[B, nb, ns + 1, SA_F]``
@@ -177,14 +183,17 @@ def _bank_state0(B: int, nb: int, ns: int, device) -> dict:
 
 
 def _step_math(policy: int, t: DramTiming, refresh_mode: int,
-               bk, act_hist, sc, req: dict, closed_row: bool = False):
+               bk, act_hist, sc, req: dict, closed_row: bool = False,
+               emit: bool = False):
     """One request per lane against its gathered bank block.
 
     ``bk`` is ``[B, ns + 1, SA_F]`` (bank-vector row at index ``ns``),
     ``act_hist`` ``[B, 4]``, ``sc`` ``[B, SC_F]``; every ``req`` field is a
     ``[B]`` tensor (``is_write`` and ``ref_pending`` bool). Returns
     ``(new_bk, new_act_hist, new_sc, comp)``: the reference's int32 op
-    sequence with the lane dimension written out.
+    sequence with the lane dimension written out. ``emit`` also returns the
+    ``[B, slots, CMD_F]`` int32 command block (state_layout ``CMD_*`` /
+    ``OP_*``); the ``emit=False`` path runs exactly the ops it always did.
     """
     s, w = req["subarray"], req["row"]
     is_wr, vis = req["is_write"], req["vis"]
@@ -373,27 +382,58 @@ def _step_math(policy: int, t: DramTiming, refresh_mode: int,
         sa_open_cyc,                                            # SC_SA_OPEN_CYC
         torch.maximum(sc[:, L.SC_MAX_COMP], comp),              # SC_MAX_COMP
     ], dim=1)
-    return new_bk, act_hist, new_sc, comp
+    if not emit:
+        return new_bk, act_hist, new_sc, comp
+
+    # ---- packed command-log block (SimConfig.emit_commands) ----------------
+    # One [B, CMD_F] record per command slot; a slot whose condition is off
+    # carries OP_NOP. The issue cycles are exactly the t_* this step
+    # computed, so the log IS the timing math; commands.decode flattens it
+    # and checker.py re-verifies it against the JEDEC rule table.
+    b = req["bank"]
+
+    def rec(cond, op, cycle, sa_i, row_i, aux=zero_b):
+        op = torch.full_like(s, op) if isinstance(op, int) else op
+        return torch.stack([torch.where(cond, op, L.OP_NOP), cycle, b, sa_i,
+                            row_i, aux], dim=1)
+
+    neg_b = torch.full_like(s, _NEG)
+    always = torch.ones_like(hit)
+    slots = [
+        # the other subarray's PRE may target a row refresh already closed:
+        # the controller tracks BK_OPEN_SA, not the closure
+        rec(pre_other_needed, L.OP_PRE, t_pre_other, so, oth[:, L.SA_OPEN_ROW]),
+        rec(pre_own_needed, L.OP_PRE, t_pre_own, s, orow),
+        rec(act_needed, L.OP_ACT, t_act, s, w),
+        # SA_SEL completes t_sa before the column command it redirects
+        rec(sasel_needed, L.OP_SASEL, t_col - t.t_sa, s, neg_b),
+        rec(always, torch.where(is_wr, L.OP_WR, L.OP_RD).to(I32), t_col, s, w,
+            aux=vis),
+    ]
+    if closed_row:
+        slots.append(rec(always, L.OP_PREA, auto_pre, s, w))
+    return new_bk, act_hist, new_sc, comp, torch.stack(slots, dim=1)
 
 
 def _timing_step(policy: int, t: DramTiming, refresh_mode: int,
-                 state: dict, req: dict, closed_row: bool = False):
+                 state: dict, req: dict, closed_row: bool = False,
+                 emit: bool = False):
     """Serve one request per lane: gather each lane's target bank block,
     run :func:`_step_math`, scatter the block back.
 
     Updates ``state`` in place (the plain loop owns its state, so no copy is
-    kept) and returns the ``[B]`` completion cycles.
+    kept) and returns the ``[B]`` completion cycles; ``emit`` returns
+    ``(comp, cmds)`` with the ``[B, slots, CMD_F]`` command block.
     """
     sa = state["sa"]
     lanes = torch.arange(sa.shape[0], dtype=torch.long, device=sa.device)
     b = req["bank"].long()
     bk = sa[lanes, b]                                     # [B, ns + 1, SA_F]
-    new_bk, act_hist, new_sc, comp = _step_math(
-        policy, t, refresh_mode, bk, state["act_hist"], state["scalars"], req,
-        closed_row=closed_row)
-    sa[lanes, b] = new_bk
-    state["act_hist"], state["scalars"] = act_hist, new_sc
-    return comp
+    out = _step_math(policy, t, refresh_mode, bk, state["act_hist"],
+                     state["scalars"], req, closed_row=closed_row, emit=emit)
+    sa[lanes, b] = out[0]
+    state["act_hist"], state["scalars"] = out[1], out[2]
+    return (out[3], out[4]) if emit else out[3]
 
 
 def _controller_args(policy: Policy, config: SimConfig):
@@ -417,6 +457,8 @@ def result_from_state(n_requests: int, scalars, vis_prev) -> SimResult:
     )
 
 
+#: The reference's refusal, word for word (the tests compare the two); the
+#: port's export is :func:`repro_torch.core.dram.commands.simulate_commands`.
 _EMIT_ERROR = (
     "SimConfig.emit_commands is consumed by the command-export entry "
     "points — use repro.core.dram.commands.simulate_commands "
@@ -521,9 +563,8 @@ def simulate(trace: Trace, policy: Policy, config: SimConfig = SimConfig(),
     the counters come back as 0-d int32 tensors."""
     if config.emit_commands:
         raise ValueError(_EMIT_ERROR)
-    res = simulate_stacked(stack_traces([trace]), policy, config, device)
-    return SimResult(**{f.name: getattr(res, f.name)[0]
-                        for f in dataclasses.fields(SimResult)})
+    return simulate_stacked(stack_traces([trace]), policy, config,
+                            device).lane(0)
 
 
 def simulate_batch(traces: list[Trace], policy: Policy,

@@ -123,10 +123,8 @@ def simulate_multicore_batch(mixes: list[list[Trace]], policy: Policy,
     core_host = core_cycles.cpu().numpy().astype(np.float64)
     out, pos = [], 0
     for i, m in enumerate(mixes):
-        res_i = SimResult(**{f.name: getattr(shared, f.name)[i]
-                             for f in dataclasses.fields(SimResult)})
         out.append(MulticoreResult(
-            shared=res_i, core_cycles=core_host[i],
+            shared=shared.lane(i), core_cycles=core_host[i],
             alone_cycles=np.asarray(alone_all[pos:pos + len(m)], np.float64),
             profiles=[t.profile for t in m]))
         pos += len(m)

@@ -6,7 +6,9 @@ of ``tests/test_packed_state.py``, built from ``repro_torch`` alone so that
 ``chip_smoke.py`` can replay ``tests/data/golden_packed_state.json`` and
 ``tests/data/torch_multicore_fixture.json`` on the card without the JAX
 package. ``tests/test_torch_engine.py`` and ``tests/test_torch_multicore.py``
-hold this copy equal to the reference's.
+hold this copy equal to the reference's; the recipe of
+``tests/data/golden_commands.json`` (``tests/make_golden_commands.py``) is
+here too, held to it by ``tests/test_torch_commands.py``.
 
 It also holds the accelerator layer's kernel cases (the sweep shapes and
 tolerances of ``tests/test_kernels.py`` and ``tests/test_flash_attention.py``,
@@ -31,6 +33,8 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN_PATH = os.path.join(DATA, "golden_packed_state.json")
 FIG4_PATH = os.path.join(DATA, "torch_fig4_n8000.json")
 MULTICORE_PATH = os.path.join(DATA, "torch_multicore_fixture.json")
+GOLDEN_COMMANDS_PATH = os.path.join(DATA, "golden_commands.json")
+REFRESH_MEMTECH_PATH = os.path.join(DATA, "torch_refresh_memtech_fixture.json")
 #: The serving fixtures by architecture (tests/make_torch_serve_fixture.py).
 SERVE_PATHS = {
     "mamba2-780m": os.path.join(DATA, "torch_serve_mamba2_780m.json"),
@@ -249,6 +253,29 @@ def golden_groups() -> dict[tuple[str, str], list[dict]]:
 
 def golden_stacked(cells: list[dict]) -> dict:
     return stack_traces([random_trace(c["seed"]) for c in cells])
+
+
+#: tests/make_golden_commands.py's grid: every CONFIGS x policy cell on
+#: random_trace(GOLDEN_COMMANDS_SEED), and the 2-core mix (mcf, lbm x 120
+#: requests, seed GOLDEN_COMMANDS_MIX_SEED) under FR-FCFS in these cells.
+GOLDEN_COMMANDS_SEED, GOLDEN_COMMANDS_MIX_SEED = 3, 5
+GOLDEN_COMMANDS_MIX_CELLS = (("default", "BASELINE"), ("default", "MASA"),
+                             ("darp", "BASELINE"), ("darp", "MASA"))
+
+
+def golden_commands_mix() -> list:
+    return golden_mix(GOLDEN_COMMANDS_MIX_SEED, n=120)
+
+
+def golden_commands_mix_config(config: str) -> SimConfig:
+    return SimConfig(scheduler=Scheduler.FRFCFS, **CONFIGS[config])
+
+
+def refresh_memtech_fixture() -> dict:
+    """The committed JAX run of the refresh and memtech benches
+    (tests/make_torch_refresh_memtech_fixture.py)."""
+    with open(REFRESH_MEMTECH_PATH) as f:
+        return json.load(f)
 
 
 def fig4_fixture() -> dict[tuple[str, str], dict]:
