@@ -1300,7 +1300,9 @@ def phase_commands(smi: str):
         log(f"[commands] {name}_bench.run() on the card: {wall:.2f}s wall, "
             f"launches {launches}; {len(got)} cells and "
             f"{', '.join(slices)} equal the JAX fixture; {msg}")
-    launches = {k: sum(v[k] for v in COMMANDS_LAUNCHES.values())
+    measured = (export_launches, kernel_launches,
+                summary["refresh"]["launches"], summary["memtech"]["launches"])
+    launches = {k: sum(m.get(k, 0) for m in measured)
                 for k in ("lane_step", "mix_step")}
     wall = time.perf_counter() - t_phase
     log(f"[commands] phase {wall:.1f}s; card {smi}")

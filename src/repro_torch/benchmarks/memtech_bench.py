@@ -23,7 +23,7 @@ more, and each PALP mix one mix-kernel launch plus one lane launch for its
 run-alone baselines; the command slices run the plain emitting step on the
 same device and dump under ``artifacts/torch/``.
 
-    python -m repro_torch.benchmarks.memtech_bench [--device cuda|cpu] [--n N]
+    python -m repro_torch.benchmarks.memtech_bench [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -176,8 +176,5 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu for the plain version")
-    ap.add_argument("--n", type=int, default=N,
-                    help=f"requests a workload (default {N})")
     args = ap.parse_args()
-    N = args.n
     run(args.device)

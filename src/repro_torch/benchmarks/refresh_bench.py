@@ -15,6 +15,10 @@ card (33 of them); the command slice (32 Gb DARP under MASA) runs the plain
 emitting step on the same device and dumps under ``artifacts/torch/``.
 
     python -m repro_torch.benchmarks.refresh_bench [--device cuda|cpu] [--n N]
+
+``--n`` cuts the grid's requests a workload (the command slice's trace
+too); the ladder assertion needs about 1000 or more, since with a few
+hundred requests refresh barely fires.
 """
 from __future__ import annotations
 
@@ -135,7 +139,8 @@ if __name__ == "__main__":
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu for the plain version")
     ap.add_argument("--n", type=int, default=N,
-                    help=f"requests a workload (default {N})")
+                    help=f"requests a workload (default {N}; the ladder "
+                         "assertion needs about 1000 or more)")
     args = ap.parse_args()
     N = args.n
     run(args.device)

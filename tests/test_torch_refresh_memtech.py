@@ -4,13 +4,14 @@ package's.
 At a reduced size (2 workloads, 200 requests; the tests set both modules'
 ``N`` / ``SUBSET`` with ``monkeypatch``, nothing under ``benchmarks/``
 changes) the port's ``make_grid()`` runs cell for cell equal to the
-reference's, its ``command_slice`` records and dumps equal the reference's,
+reference's (the refresh grid at its 32 Gb rung), its ``command_slice`` records and dumps equal the reference's,
 and the port's validators give the reference's verdicts, message for
 message, on good and broken artifacts and command dumps. At full size the
 committed JAX fixture (``tests/make_torch_refresh_memtech_fixture.py``),
 which ``chip_smoke.py`` holds the card to, has exactly the port's grid keys.
 """
 import copy
+import dataclasses
 import json
 
 import numpy as np
@@ -64,11 +65,16 @@ def test_reduced_memtech_grid_equals_jax(small):
 
 
 def test_reduced_refresh_run_equals_jax(small, monkeypatch):
-    """The refresh grid through both ``run()``s: at 200 requests refresh
-    barely fires, so both refuse the ladder, with the same table, after
-    sweeping the same cells."""
+    """The refresh grid through both ``run()``s, cut to the 32 Gb rung (11
+    buckets, each a JAX compile; the other densities differ only in their
+    ``_timing``, held equal in :func:`test_bench_constants_equal_jax`, and
+    their keys in :func:`test_fixture_keys_are_the_port_grid_keys`): at 200
+    requests refresh barely fires, so both refuse the ladder, with the same
+    table, after sweeping the same cells."""
     monkeypatch.setattr(R_common, "SWEEPS", [])
     monkeypatch.setattr(P_common, "SWEEPS", [])
+    for mod in (R_refresh, P_refresh):
+        monkeypatch.setattr(mod, "DENSITIES", ("32Gb",))
     with pytest.raises(AssertionError) as r:
         R_refresh.run()
     with pytest.raises(AssertionError) as p:
@@ -76,7 +82,7 @@ def test_reduced_refresh_run_equals_jax(small, monkeypatch):
     assert str(p.value) == str(r.value)
     assert "ladder ordering violated" in str(p.value)
     got, want = P_common.SWEEPS[0]["cells"], R_common.SWEEPS[0]["cells"]
-    assert len(got) == 33 * SMALL_WORKLOADS and got == want
+    assert len(got) == 11 * SMALL_WORKLOADS and got == want
 
 
 #: The benches' command slices, as their run()s call them.
@@ -266,6 +272,9 @@ def test_palp_read_latency_equals_jax(monkeypatch):
 def test_bench_constants_equal_jax():
     for name in ("N", "DENSITIES", "T_REFI_HOT", "LADDER"):
         assert getattr(P_refresh, name) == getattr(R_refresh, name)
+    for gb in P_refresh.DENSITIES:
+        assert dataclasses.asdict(P_refresh._timing(gb)) == \
+            dataclasses.asdict(R_refresh._timing(gb)), gb
     for name in ("N", "PALP_MIX", "PALP_N", "TECHS"):
         assert getattr(P_memtech, name) == getattr(R_memtech, name)
     for ref, port in BENCHES.values():
