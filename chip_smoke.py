@@ -82,7 +82,30 @@ on any mismatch:
                 (made by the JAX package), ``DDR3_PIN_WANT`` holds. Prints
                 the export's ms a step, the checker's µs a command and each
                 bench's wall and launches.
-12. timing    — CUDA-event times of both kernels, each body timed in turns
+12. benches   — the paper's remaining benches through the port's runner
+                (``repro_torch.benchmarks.run.main``, ``--suite
+                paper,sens,system,mapping,accel,smoke``) on the card, from a
+                fresh result cache, each bench's launch counts set to 0 just
+                before it and read just after: every bench returns a
+                summary, and each equals the JAX fixture's
+                (``tests/data/torch_paper_benches_fixture.json``; the
+                kernels entry is held to its tolerance instead); every sweep
+                cell equals the fixtures (Fig. 4 ``torch_fig4_n8000.json``,
+                sched ``torch_multicore_fixture.json``, sens_subarrays,
+                sens_banks, mapping and smoke the new fixture), and so do
+                fig5's and row_policy's ``simulate_batch`` counters and the
+                multicore bench's mixes; the smoke, mapping and kernels
+                suites validate (smoke with ``--check-commands``); exact
+                lane and mix launches per bench, all on the smem body
+                (``BENCH_RUN_LAUNCHES``), and the kernels entry's accelerator
+                launches. Then ``--only perf`` (its launches from its cells,
+                ``perf_launches``) validated with ``--perf-guard``, printing
+                every cell's req/s, the kernel's beside the plain
+                version's; then the smoke drills, each from a fresh cache:
+                ``--inject-faults raise@c4:p`` + ``--expect-quarantine``, a
+                journal run twice + ``--expect-resume``, and ``--shards 2
+                --fragments`` + ``--check-shards`` (``DRILL_LAUNCHES``).
+13. timing    — CUDA-event times of both kernels, each body timed in turns
                 (global, smem, smem, global), at the main paths' shapes and
                 at throughput shapes, with nvidia-smi's SM clock sampled
                 meanwhile: ms, us and cycles a step, req/s, beside the byte
@@ -90,7 +113,7 @@ on any mismatch:
                 one step's critical path as counted by hand from the smem
                 bodies' code, at assumed latencies: not measured, and not
                 in the result line).
-13. ssd       — the SSD-scan kernel vs its plain version on the card, in
+14. ssd       — the SSD-scan kernel vs its plain version on the card, in
                 float32 (rtol = atol = 2e-4) and bfloat16 (2e-2), at
                 tests/test_kernels.py's sweep, mamba2-780m's serve shape,
                 jamba's SSM shape, chunk 256 with ds 128 and the kernel's
@@ -98,7 +121,7 @@ on any mismatch:
                 head 1, ds up to 512), and on bases that are not 16-byte
                 aligned; one launch a call; the decay-bound property and no
                 NaN at a huge dt.
-14. serve     — main path three: ``repro_torch.launch.serve``'s path with
+15. serve     — main path three: ``repro_torch.launch.serve``'s path with
                 the fixture's arguments (mamba2-780m at full width, fp32,
                 4 requests x 256 prompt tokens x 16 new, MASA). Weights equal
                 the fixture's numpy stream (sha256 of every leaf);
@@ -106,14 +129,14 @@ on any mismatch:
                 (made by the JAX package); every request's tokens equal the
                 fixture's up to its first near-tie step (top-1/top-2 gap
                 under 1e-2); exactly 4 x 48 = 192 SSD-scan launches.
-15. logits    — teacher-forced: the fixture's tokens through ``prefill`` and
+16. logits    — teacher-forced: the fixture's tokens through ``prefill`` and
                 ``decode_step``; every step's logits at the fixture's top-8
                 ids within rtol = atol = 1e-3.
-16. profile   — ``torch.profiler`` trace of one request's prefill and its
+17. profile   — ``torch.profiler`` trace of one request's prefill and its
                 16 decode steps: the card's busy and idle share, and the
                 SSD-scan and matmul kernels' device time (reported, not
                 checked: the trace may hold no device activity there).
-17. serve_smollm — main path five: smollm-135m whole (30 layers, 9 query
+18. serve_smollm — main path five: smollm-135m whole (30 layers, 9 query
                 heads on 3 kv heads, tied embeddings), fp32, through
                 ``launch.serve``'s path with the arguments of
                 ``tests/data/torch_serve_smollm_135m.json`` (made by the JAX
@@ -122,23 +145,23 @@ on any mismatch:
                 near tie, teacher-forced top-8 logits within rtol = atol =
                 1e-3, and no kernel launched (attention is plain PyTorch, as
                 the reference's is plain JAX); a profile of one request.
-18. serve_moonshot — main path six: moonshot-v1-16b-a3b at full width cut
+19. serve_moonshot — main path six: moonshot-v1-16b-a3b at full width cut
                 to 2 of its 48 layers (16 heads of 128, 64 experts top-6 and
                 2 shared, F 1408), the same checks against
                 ``tests/data/torch_serve_moonshot_16b_l2.json``; exactly
                 2 layers x 3 products (up, gate, down) moe_gemm launches a
                 prefill and a decode call, each on the simt body, and no
                 other kernel; a profile of one request.
-19. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
+20. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
                 capacity 16 and 8, D 2048, F 1408; the up and the down
                 product), fp32: kernel vs plain within 2e-4, then CUDA-event
                 times of the kernel, its plain version and ``torch.bmm`` on
                 the same capacity buffer, beside the bound.
-20. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
+21. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound
                 (C B^T counted once a batch element and chunk: B and C are
                 shared by the heads).
-21. kernels   — the masa_gemm (both orders, through ops and its fallback),
+22. kernels   — the masa_gemm (both orders, through ops and its fallback),
                 moe_gemm, paged_attention and flash_attention kernels vs
                 their plain versions on the card, in float32 (rtol = atol =
                 2e-4) and bfloat16 (2e-2), at tests/test_kernels.py's and
@@ -161,12 +184,12 @@ on any mismatch:
                 simt otherwise; paged: split for G 1 to 8 and rows of 1
                 to 32 whole 16-byte units, serial otherwise), counted in
                 ``BODIES``.
-22. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
+23. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
                 (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
                 paged_attention 2, flash_attention 1); no DRAM-kernel launch.
-23. kernel_time — the four kernels at jamba-v0.1-52b's full width
+24. kernel_time — the four kernels at jamba-v0.1-52b's full width
                 (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
                 kernel vs plain within the tolerances above, then CUDA-event
                 times of the kernel, its plain version and the one PyTorch
@@ -186,8 +209,8 @@ on any mismatch:
 Each phase prints its seconds. The last lines are nvidia-smi's name and
 power limit, the per-kernel JSON record (all seven kernels; lane_step and
 mix_step also give their body, µs and cycles a step, chain bound, the
-global body's time and their launches by path, the sweep and commands
-phases' included;
+global body's time and their launches by path, the sweep, commands and
+benches phases' included;
 lane_step the sweep phase's wall times; moe_gemm its launches by path,
 moonshot's serve run and its times at moonshot's shapes), and ``{"ok":
 true, "device": {...}}``.
@@ -1314,6 +1337,415 @@ def phase_commands(smi: str):
                 ddr3_pin=benches["memtech"]["ddr3_pin"]["got"])
 
 
+# ---------------------------------------------------------------- benches
+#: run.py's suites the benches phase runs (every registry entry but
+#: refresh, memtech and perf: the commands phase runs the first two; perf
+#: runs on its own), and the lane and mix launches each bench must make,
+#: in that order, from a fresh result cache (counted in a CPU rehearsal
+#: that stands a counting wrapper in for both kernels): one lane launch a
+#: (policy, config) bucket of a sweep (sens_banks: its 8-bank cells are
+#: sens_subarrays' cache hits), one per simulate_batch call (fig5,
+#: row_policy), one mix launch a (policy, scheduler) point and one lane
+#: launch a mix's run-alone baselines (multicore once, sched and smoke's
+#: mix grid once a mix).
+BENCH_SUITES = "paper,sens,system,mapping,accel,smoke"
+BENCH_RUN_LAUNCHES = {
+    "fig4": {"lane_step": 5, "mix_step": 0},
+    "fig5": {"lane_step": 2, "mix_step": 0},
+    "sens_subarrays": {"lane_step": 21, "mix_step": 0},
+    "sens_banks": {"lane_step": 3, "mix_step": 0},
+    "row_policy": {"lane_step": 8, "mix_step": 0},
+    "multicore": {"lane_step": 1, "mix_step": 7},
+    "sched": {"lane_step": 4, "mix_step": 10},
+    "mapping": {"lane_step": 12, "mix_step": 0},
+    "kernels": {"lane_step": 0, "mix_step": 0},
+    "serving": {"lane_step": 0, "mix_step": 0},
+    "smoke": {"lane_step": 8, "mix_step": 4},
+}
+#: The smoke drills' launches, each from a fresh cache (counted in the same
+#: rehearsal): the fault drill (``raise@c4:p``: the faulted bucket's
+#: bisected halves that ran, 7 lane launches for the grid's 6 buckets, and
+#: 2 run-alone), a journal's first run and its replay (grid cells replayed;
+#: the mix grid, which has no cache, runs again: 4 mix and 2 run-alone),
+#: and 2 shards on the one card (6 buckets and 4 mix buckets, each in 2
+#: launches, and 2 run-alone).
+DRILL_LAUNCHES = {
+    "fault": {"lane_step": 9, "mix_step": 4},
+    "journal": {"lane_step": 8, "mix_step": 4},
+    "resume": {"lane_step": 2, "mix_step": 4},
+    "shards": {"lane_step": 14, "mix_step": 8},
+}
+DRILL_FAULT = "raise@c4:p"
+
+
+def perf_launches() -> dict:
+    """perf_bench.run()'s launches on the card, from its cells: every
+    kernel cell and the per-step row make one cold and WARM_REPEATS warm
+    calls; single-core cells (4 geometries x policies, batch32, the
+    per-step row) one lane launch a call, multicore cells one lane (the
+    run-alone baselines) and one mix launch a call; plain cells none."""
+    from repro_torch.benchmarks import perf_bench
+
+    calls = 1 + perf_bench.WARM_REPEATS
+    return {"lane_step": (4 + 1 + 1 + 2) * calls, "mix_step": 2 * calls}
+
+
+class Spy:
+    """Stand a recording wrapper in for ``module.name``: every call's
+    arguments and result, until :meth:`restore`."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.orig, self.calls = getattr(module, name), []
+
+        def spy(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+
+        setattr(module, name, spy)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def counting_benches(keys) -> tuple[dict, list]:
+    """Stand a counting wrapper in for each selected bench's ``run``: its
+    lane and mix launches (counts set to 0 just before it, read just
+    after), smem bodies and wall. Returns the record and the spies to
+    restore."""
+    import importlib
+
+    from repro_torch.benchmarks import run as runner
+    from repro_torch.core.dram import cuda_step
+
+    record, spies = {}, []
+    for b in runner.REGISTRY:
+        if b.key not in keys:
+            continue
+        mod = importlib.import_module(b.module)
+        orig = mod.run
+
+        def counted_run(device=None, _orig=orig, _key=b.key):
+            cuda_step.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                return _orig(device=device)
+            finally:
+                torch.cuda.synchronize()
+                record[_key] = dict(
+                    wall_s=time.perf_counter() - t0,
+                    launches=dict(cuda_step.LAUNCHES),
+                    smem={k: cuda_step.BODIES[k]["smem"]
+                          for k in cuda_step.LAUNCHES})
+
+        mod.run = counted_run
+        spies.append((mod, orig))
+    return record, spies
+
+
+def fixture_cells_equal(doc: dict, fixture: dict) -> dict:
+    """Every sweep cell of a run.py artifact against the JAX fixtures: Fig.
+    4's by (workload, policy), the sched study's by (mix, policy,
+    scheduler), the rest by key (single-core) or mix and overrides.
+    Returns cells compared by sweep; fails on a difference."""
+    import torch_cases as tc
+
+    fig4 = tc.fig4_fixture()
+    sched = {k[1:]: v for k, v in tc.multicore_fixture().items()
+             if k[0] == "sched"}
+    by_grid = {}
+    for c in fixture["cells"]:
+        by_grid.setdefault(c["grid"], []).append(c)
+    compared = {}
+    for s in doc["sweeps"]:
+        name, cells = s["grid"]["name"], s["cells"]
+        if name == "fig4":
+            want = {f"{w}/{p}": v for (w, p), v in fig4.items()}
+            got = {f"{c['workload']}/{c['policy']}": c["counters"]
+                   for c in cells}
+        elif name == "sched":
+            want = {"/".join(k): {f: v[f] for f in ("counters",
+                                                     "core_cycles",
+                                                     "alone_cycles")}
+                    for k, v in sched.items()}
+            got = {f"{c['mix']}/{c['policy']}/{c['overrides']['scheduler']}":
+                   {f: c[f] for f in ("counters", "core_cycles",
+                                      "alone_cycles")} for c in cells}
+        elif name in by_grid:
+            rows = by_grid[name]
+            want = {json.dumps([c.get("key"), c.get("mix"), c["policy"],
+                                c["overrides"]]): c for c in rows}
+            got = {json.dumps([c.get("key"), c.get("mix"), c["policy"],
+                               c["overrides"]]):
+                   {"grid": name, **{k: c[k] for k in rows[0] if k != "grid"}}
+                   for c in cells}
+        else:
+            fail(f"benches: sweep {name!r} has no fixture")
+        bad = [k for k in want if got.get(k) != want[k]]
+        if set(got) != set(want) or bad:
+            fail(f"benches: {name}: {len(bad)} of {len(want)} cells differ "
+                 f"from the JAX fixture (or the cell sets differ), e.g. "
+                 f"{bad[:2]}")
+        compared[name] = len(want)
+    return compared
+
+
+def run_main(argv: list[str], out: str) -> tuple[dict, str]:
+    """``repro_torch.benchmarks.run.main`` with its CSV rows kept in a file
+    beside its artifact: ``(artifact, stdout text)``."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import run as runner
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        doc = runner.main(argv + ["--device", "cuda", "--out", out])
+    Path(out).with_suffix(".csv").write_text(buf.getvalue())
+    return doc, buf.getvalue()
+
+
+def validated(path: str, *flags: str) -> str:
+    """``repro_torch.benchmarks.validate`` on ``path``: its VALID line;
+    fails on any other exit."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import validate
+
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = validate.main([path, *flags])
+    if rc != 0:
+        fail(f"benches: validate {path} {' '.join(flags)}: exit {rc}: "
+             f"{err.getvalue().strip()}")
+    return buf.getvalue().strip().splitlines()[-1]
+
+
+def phase_benches(smi: str):
+    """The paper's remaining benches through the port's runner on the card:
+    every cell and summary against the JAX fixtures, the validators, perf,
+    and the smoke drills, with every bench's lane and mix launches
+    pinned."""
+    import os
+
+    from repro_torch.experiments import artifact
+
+    t_phase = time.perf_counter()
+    sha = tree_id()
+    git_sha = artifact.git_sha
+    artifact.git_sha = lambda cwd=None: sha   # a copy may have no .git
+    os.makedirs("artifacts/torch", exist_ok=True)
+    try:
+        suites = bench_suites(smi)
+        perf = bench_perf(smi)
+        drills = bench_drills()
+    finally:
+        artifact.git_sha = git_sha
+    runs = ([r["launches"] for r in suites["benches"].values()]
+            + [perf["launches"]] + [d["launches"] for d in drills.values()])
+    launches = {k: sum(r.get(k, 0) for r in runs)
+                for k in ("lane_step", "mix_step")}
+    wall = time.perf_counter() - t_phase
+    log(f"[benches] phase {wall:.1f}s; launches {launches}; card {smi}")
+    return dict(wall_s=wall, launches=launches, **suites, perf=perf,
+                drills=drills)
+
+
+def bench_suites(smi: str) -> dict:
+    """``run.py --suite BENCH_SUITES`` from a fresh cache and no memoised
+    trace: summaries, cells and launches against the fixtures."""
+    import torch_cases as tc
+    from repro_torch import kernel_bench, kernels
+    from repro_torch.benchmarks import (fig5_energy, multicore_bench,
+                                        row_policy_bench)
+    from repro_torch.benchmarks import run as runner
+    from repro_torch.experiments import (ResultCache, clear_trace_cache,
+                                         install_global_cache)
+    from repro_torch.paper_repro import mix_cells
+
+    fixture = tc.paper_benches_fixture()
+    keys = [b.key for b in runner.select(BENCH_SUITES, None)]
+    if set(keys) != set(BENCH_RUN_LAUNCHES):
+        fail(f"benches: suites {BENCH_SUITES} select {keys}")
+    install_global_cache(ResultCache())
+    clear_trace_cache()
+    record, wrapped = counting_benches(keys)
+    spies = [Spy(fig5_energy, "simulate_batch"),
+             Spy(row_policy_bench, "simulate_batch"),
+             Spy(multicore_bench, "run_multicore")]
+    kernels.reset_launches()
+    out = "artifacts/torch/bench.json"
+    try:
+        t0 = time.perf_counter()
+        doc, text = run_main(["--suite", BENCH_SUITES], out)
+        suites_s = time.perf_counter() - t0
+    finally:
+        for mod, orig in wrapped:
+            mod.run = orig
+        for s in spies:
+            s.restore()
+    accel = kernels.launches()
+    failed = [line for line in text.splitlines()
+              if ".FAILED," in line or ".SKIPPED," in line]
+    if failed or set(doc["results"]) != set(keys):
+        fail(f"benches: summaries for {sorted(doc['results'])} of {keys}; "
+             f"{failed}")
+    for key, rec in record.items():
+        if rec["launches"] != BENCH_RUN_LAUNCHES[key]:
+            fail(f"benches: {key}: expected launches "
+                 f"{BENCH_RUN_LAUNCHES[key]}, counted {rec['launches']}")
+        if rec["smem"] != rec["launches"]:
+            fail(f"benches: {key}: launches by smem body {rec['smem']} of "
+                 f"{rec['launches']}")
+    if accel != BENCH_LAUNCHES:
+        fail(f"benches: kernels entry launched {accel}, expected "
+             f"{BENCH_LAUNCHES}")
+
+    # ---- every cell and summary against the JAX fixtures
+    compared = fixture_cells_equal(doc, fixture)
+    fig4 = tc.fig4_fixture()
+    fig5 = fig5_counters(spies[0].calls, ["BASELINE", "MASA"])
+    if fig5 != {(w, p): c for (w, p), c in fig4.items()
+                if p in ("BASELINE", "MASA")}:
+        fail("benches: fig5's counters differ from torch_fig4_n8000.json")
+    rows = {(r["row_policy"], r["policy"], r["workload"]): r["counters"]
+            for r in fixture["row_policy"]}
+    got_rows = {}
+    for args, kwargs, res in spies[1].calls:
+        rp = args[2].row_policy
+        for i, p in enumerate(row_policy_bench.SUBSET):
+            got_rows[(rp, args[1].name, p.name)] = lane_counters(res, i)
+    if got_rows != rows:
+        fail(f"benches: row_policy's counters differ from the fixture's "
+             f"{len(rows)} rows")
+    mc = {k: v for k, v in tc.multicore_fixture().items()
+          if k[0] == "multicore"}
+    got_mc = {("multicore",) + k: v
+              for k, v in mix_cells(spies[2].calls[0][2]).items()}
+    if got_mc != {k: {f: v[f] for f in ("counters", "core_cycles",
+                                        "alone_cycles")}
+                  for k, v in mc.items()}:
+        fail("benches: multicore's cells differ from "
+             "torch_multicore_fixture.json")
+    summaries = json.loads(json.dumps(doc["results"]))
+    cmd = summaries["smoke"].pop("commands")
+    kb = summaries.pop("kernels")
+    if summaries != fixture["summaries"]:
+        diff = [k for k in fixture["summaries"]
+                if summaries.get(k) != fixture["summaries"][k]]
+        fail(f"benches: summaries {diff} differ from the JAX fixture's")
+    if {k: v for k, v in cmd.items() if k != "path"} != \
+            fixture["smoke_commands"]:
+        fail(f"benches: smoke's command slice {cmd} differs from the "
+             f"fixture's {fixture['smoke_commands']}")
+    msgs = [validated(out, "--suite", s) for s in ("mapping", "kernels")]
+    msgs.append(validated(out, "--suite", "smoke", "--check-commands",
+                          cmd["path"]))
+    if not (kb["kernels_ok"] and max(kb["errs"].values())
+            < kernel_bench.ERR_TOL):
+        fail(f"benches: kernels {kb['errs']}")
+    log(f"[benches] run.py --suite {BENCH_SUITES} on the card: "
+        f"{suites_s:.2f}s; {len(keys)} summaries equal the JAX fixture's "
+        f"(kernels: errs below {kernel_bench.ERR_TOL}); cells equal the "
+        f"fixtures {compared}; fig5's {len(fig5)} and row_policy's "
+        f"{len(rows)} counter sets, multicore's {len(mc)} cells too; card "
+        f"{smi}")
+    for m in msgs:
+        log(f"[benches]   {m}")
+    for key in keys:
+        rec = record[key]
+        log(f"[benches]   {key}: {rec['wall_s']:.3f}s wall, launches "
+            f"{rec['launches']}")
+    return dict(suites_s=suites_s, benches=record)
+
+
+def bench_perf(smi: str) -> dict:
+    """``run.py --only perf``, counted, validated with its guard; every
+    cell's req/s, the kernel's beside the plain version's."""
+    perf, perf_s, perf_launches_ = counted(
+        "benches perf", perf_launches(), run_main,
+        ["--only", "perf"], "artifacts/torch/perf_run.json")
+    p = perf[0]["results"]["perf"]
+    msgs = [validated("artifacts/torch/BENCH_perf.json", "--perf-guard")]
+    cells = {c["name"]: c for c in p["cells"]}
+    if set(p["backends"]) != {"cuda", "plain"}:
+        fail(f"benches: perf backends {sorted(p['backends'])}")
+    for name, c in cells.items():
+        log(f"[benches] perf {name}: {c['req_per_s']:.1f} req/s (warm "
+            f"{c['warm_s']:.6f}s, best of {c['repeats']}; cold "
+            f"{c['cold_s']:.4f}s); card {smi}")
+    log(f"[benches] perf ns a step {p['per_step_ns']}; kernel_vs_plain "
+        f"{p['kernel_vs_plain']}; {perf_s:.2f}s; launches {perf_launches_}; "
+        f"{msgs[0]}")
+    return dict(perf_s=perf_s, launches=perf_launches_,
+                req_per_s={n: c["req_per_s"] for n, c in cells.items()},
+                **{k: p[k] for k in ("backends", "per_step_ns",
+                                     "kernel_vs_plain")})
+
+
+def bench_drills() -> dict:
+    """The smoke drills, each from a fresh cache, each validated: a fault
+    drill, a journal's resume and a sharded run's fragments. Their
+    artifacts, journal and fragments go under ``artifacts/torch/drills/``
+    (emptied first)."""
+    import os
+    import shutil
+
+    from repro_torch.experiments import ResultCache, install_global_cache
+
+    root = "artifacts/torch/drills"
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    drills = {}
+
+    def drill(name, *flags):
+        install_global_cache(ResultCache())
+        path = os.path.join(root, f"{name}.json")
+        _, wall, launches = counted(
+            f"benches drill {name}", DRILL_LAUNCHES[name], run_main,
+            ["--suite", "smoke", *flags], path)
+        drills[name] = dict(wall_s=wall, launches=launches)
+        return path
+
+    msgs = [validated(drill("fault", "--inject-faults", DRILL_FAULT),
+                      "--expect-quarantine")]
+    journal = os.path.join(root, "cache.jsonl")
+    drill("journal", "--journal", journal)
+    msgs.append(validated(drill("resume", "--journal", journal),
+                          "--expect-resume"))
+    frags = os.path.join(root, "fragments")
+    msgs.append(validated(drill("shards", "--shards", "2", "--fragments",
+                                frags), "--check-shards", frags))
+    for m in msgs:
+        log(f"[benches] drill: {m}")
+    log(f"[benches] drills {drills}")
+    install_global_cache(ResultCache())
+    return drills
+
+
+def fig5_counters(calls, policies) -> dict:
+    """``{(workload, policy): counters}`` of fig5's simulate_batch calls
+    over the 32 suite traces, one call a policy in ``policies``' order."""
+    from repro_torch.core.dram import PAPER_WORKLOADS
+
+    out = {}
+    for (args, kwargs, res), pol in zip(calls, policies):
+        if args[1].name != pol:
+            fail(f"benches: fig5 called {args[1].name}, expected {pol}")
+        for i, p in enumerate(PAPER_WORKLOADS):
+            out[(p.name, pol)] = lane_counters(res, i)
+    return out
+
+
+def lane_counters(res, i: int) -> dict:
+    """Lane ``i``'s counters of a batched result, as plain ints."""
+    from repro_torch.paper_repro import COUNTERS
+
+    return {f: int(getattr(res, f)[i]) for f in COUNTERS}
+
+
 def phase_ssd():
     import torch_cases as tc
     from repro_torch.kernels import ssd_scan
@@ -2227,6 +2659,7 @@ def main() -> None:
     sw = run_phase("sweep", phase_sweep, smi, fig4["wall_s"],
                    mc["sched_wall_s"])
     cmds = run_phase("commands", phase_commands, smi)
+    benches = run_phase("benches", phase_benches, smi)
     thr = run_phase("timing", phase_throughput, smi)
     ssd_err = run_phase("ssd", phase_ssd)
     serve, model, fixture = run_phase("serve", phase_serve, smi)
@@ -2259,10 +2692,12 @@ def main() -> None:
     lane_launches = {"fig4": fig4["launches"],
                      "multicore": mc["launches"]["lane_step"],
                      "sweep": sw["launches"]["lane_step"],
-                     "commands": cmds["launches"]["lane_step"]}
+                     "commands": cmds["launches"]["lane_step"],
+                     "benches": benches["launches"]["lane_step"]}
     mix_launches = {"multicore": mc["launches"]["mix_step"],
                     "sweep": sw["launches"]["mix_step"],
-                    "commands": cmds["launches"]["mix_step"]}
+                    "commands": cmds["launches"]["mix_step"],
+                    "benches": benches["launches"]["mix_step"]}
     record = {"kernels": [{
         "name": "lane_step", "route": "cuda",
         "source": "src/repro_torch/core/dram/csrc/lane_step.cu",
@@ -2276,7 +2711,8 @@ def main() -> None:
                                 "clock_mhz", "req_per_s")},
         "shape": f"B={fig4['B']} N={fig4['N']} (Fig. 4, mean of 5 policies; "
                  f"ms the smem body, global_ms the global body, in turns)",
-        "throughput": thr, "sweep": sw, "commands": cmds}, {
+        "throughput": thr, "sweep": sw, "commands": cmds,
+        "benches": benches}, {
         "name": "mix_step", "route": "cuda",
         "source": "src/repro_torch/core/dram/csrc/mix_step.cu",
         "replaces": "src/repro/core/dram/pallas_step.py:160",

@@ -35,6 +35,7 @@ FIG4_PATH = os.path.join(DATA, "torch_fig4_n8000.json")
 MULTICORE_PATH = os.path.join(DATA, "torch_multicore_fixture.json")
 GOLDEN_COMMANDS_PATH = os.path.join(DATA, "golden_commands.json")
 REFRESH_MEMTECH_PATH = os.path.join(DATA, "torch_refresh_memtech_fixture.json")
+PAPER_BENCHES_PATH = os.path.join(DATA, "torch_paper_benches_fixture.json")
 #: The serving fixtures by architecture (tests/make_torch_serve_fixture.py).
 SERVE_PATHS = {
     "mamba2-780m": os.path.join(DATA, "torch_serve_mamba2_780m.json"),
@@ -275,6 +276,13 @@ def refresh_memtech_fixture() -> dict:
     """The committed JAX run of the refresh and memtech benches
     (tests/make_torch_refresh_memtech_fixture.py)."""
     with open(REFRESH_MEMTECH_PATH) as f:
+        return json.load(f)
+
+
+def paper_benches_fixture() -> dict:
+    """The committed JAX run of the remaining paper benches
+    (tests/make_torch_paper_benches_fixture.py)."""
+    with open(PAPER_BENCHES_PATH) as f:
         return json.load(f)
 
 
