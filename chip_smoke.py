@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
@@ -152,16 +151,42 @@ on any mismatch:
                 2 layers x 3 products (up, gate, down) moe_gemm launches a
                 prefill and a decode call, each on the simt body, and no
                 other kernel; a profile of one request.
-20. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
+20. train     — main path seven: training on the card, the train route
+                (no kernel: ``Model.loss`` runs ``ssd_chunked`` and the
+                einsum experts in autograd, as the reference does). Every
+                kernel's count is 0 before each part and still 0 after it.
+                mamba2-780m whole in fp32 on the serve phase's weights
+                (``numpy_reference_params(cfg, 0)``, drawn once in the run;
+                sha256 of every leaf as the fixture's), 4 steps of
+                ``make_train_step`` on ``DataPipeline(cfg, 2, 128, seed=0)``
+                and AdamW (lr 1e-3, warmup 2, total 4) against
+                ``tests/data/torch_train_mamba2_780m.json`` (made by the JAX
+                package): loss and ce within rtol 1e-4, grad_norm 1e-3, lr,
+                and five named leaves after each step within a relative norm
+                of difference of 1e-4 (sampled values and whole-leaf norm);
+                where the fixture holds NaN (the reference's step-3
+                gradient), the port's number must be finite. Then the loss
+                and gradient, the whole step and one profiled step (busy and
+                idle share). ``python -m repro_torch.launch.train --arch
+                mamba2-780m --steps 10`` (bf16, batch 8, seq 128, on the same
+                weights): step ms after 2 steps, tokens/s, peak memory,
+                finite first and last loss. ``launch.train --reduced`` 4
+                steps with a checkpoint every 2 and a crash at step 2: the
+                losses equal an uninterrupted run's. Every registry
+                architecture at ``reduced()``: loss and every gradient leaf
+                on the card against the CPU's plain path (rtol 1e-4; rtol =
+                atol 2e-4), then one finite step. The numbers print on
+                ``[train]`` lines.
+21. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
                 capacity 16 and 8, D 2048, F 1408; the up and the down
                 product), fp32: kernel vs plain within 2e-4, then CUDA-event
                 times of the kernel, its plain version and ``torch.bmm`` on
                 the same capacity buffer, beside the bound.
-21. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
+22. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound
                 (C B^T counted once a batch element and chunk: B and C are
                 shared by the heads).
-22. kernels   — the masa_gemm (both orders, through ops and its fallback),
+23. kernels   — the masa_gemm (both orders, through ops and its fallback),
                 moe_gemm, paged_attention and flash_attention kernels vs
                 their plain versions on the card, in float32 (rtol = atol =
                 2e-4) and bfloat16 (2e-2), at tests/test_kernels.py's and
@@ -184,12 +209,12 @@ on any mismatch:
                 simt otherwise; paged: split for G 1 to 8 and rows of 1
                 to 32 whole 16-byte units, serial otherwise), counted in
                 ``BODIES``.
-23. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
+24. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
                 (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
                 paged_attention 2, flash_attention 1); no DRAM-kernel launch.
-24. kernel_time — the four kernels at jamba-v0.1-52b's full width
+25. kernel_time — the four kernels at jamba-v0.1-52b's full width
                 (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
                 kernel vs plain within the tolerances above, then CUDA-event
                 times of the kernel, its plain version and the one PyTorch
@@ -2628,6 +2653,342 @@ def layer_records(sweep, bench, ktime) -> list[dict]:
     return out
 
 
+#: The train phase's tolerances: a step's loss and ce (rtol), its
+#: grad_norm (rtol), a named leaf's relative norm of difference, and the
+#: registry's card-vs-CPU step (loss rtol; gradients rtol = atol).
+TRAIN_TOL = dict(loss=1e-4, grad_norm=1e-3, leaf=1e-4, grad=2e-4)
+#: ``python -m repro_torch.launch.train`` at its own defaults (bf16, batch
+#: 8, seq 128), and the steps left out of its step time as warm-up.
+TRAIN_LAUNCH = ["--arch", "mamba2-780m", "--steps", "10"]
+TRAIN_WARM = 2
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_all_launches() -> None:
+    from repro_torch import kernels
+    from repro_torch.core.dram import cuda_step
+
+    kernels.reset_launches()
+    cuda_step.reset_launches()
+
+
+def no_launches(tag: str) -> None:
+    """Fail unless no kernel launched since ``reset_all_launches``: the
+    train route runs none."""
+    from repro_torch import kernels
+    from repro_torch.core.dram import cuda_step
+
+    got = {**kernels.launches(), **cuda_step.LAUNCHES}
+    if any(got.values()):
+        fail(f"{tag}: the train route launched kernels {got}")
+
+
+def rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def train_parity(fixture: dict, cfg, tree: dict, device="cuda") -> list:
+    """The fixture's steps through ``make_train_step`` on ``device`` from
+    ``tree``, each held to the JAX package's: loss and ce, grad_norm, lr,
+    and the named leaves after the step (sampled values by relative norm
+    of difference, and the whole leaf's norm). Where the reference's
+    number is NaN (its ``ssd_chunked`` gradient; see
+    tests/make_torch_train_fixture.py), the port's must be finite."""
+    from repro_torch import interop
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    a = fixture["args"]
+    model = build_model(cfg, interop.params_from_reference(cfg, tree),
+                        dtype=torch.float32, device=device)
+    opt = make_optimizer(a["optimizer"], lr=a["lr"], warmup=a["warmup"],
+                         total_steps=a["total_steps"])
+    pipe = DataPipeline(cfg, a["batch"], a["seq"], seed=a["data_seed"],
+                        device=device)
+    step_fn = make_train_step(model, opt)
+    params = model.param_tree()
+    state = opt.init(params)
+    index = {k: torch.tensor(v, device=device)
+             for k, v in fixture["index"].items()}
+    rows = []
+    for step, want in enumerate(fixture["steps"]):
+        sync(device)
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, pipe.batch_at(step), step)
+        got = {k: float(m[k]) for k in ("loss", "ce", "aux", "grad_norm",
+                                         "lr")}
+        sync(device)
+        row = dict(step=step, ms=1e3 * (time.perf_counter() - t0), **got,
+                   leaves={})
+        for k, tol in (("loss", "loss"), ("ce", "loss"),
+                       ("grad_norm", "grad_norm")):
+            if not np.isfinite(got[k]):
+                fail(f"train: step {step} {k} is {got[k]}")
+            if not np.isfinite(want[k]):
+                row[f"reference_{k}"] = "nan"
+            elif rel(got[k], want[k]) > TRAIN_TOL[tol]:
+                fail(f"train: step {step} {k} {got[k]!r} vs the fixture's "
+                     f"{want[k]!r} (rtol {TRAIN_TOL[tol]})")
+        if abs(got["aux"] - want["aux"]) > 1e-7 or rel(got["lr"],
+                                                        want["lr"]) > 1e-6:
+            fail(f"train: step {step} aux / lr {got} vs {want}")
+        for path, w in want["params"].items():
+            leaf = params
+            for k in path.split("/"):
+                leaf = leaf[k]
+            leaf = leaf.detach()
+            if not bool(torch.isfinite(leaf).all()):
+                fail(f"train: step {step} {path} is not finite")
+            if not np.isfinite(w["norm"]):
+                row["leaves"][path] = "reference nan"
+                continue
+            vals = leaf.reshape(-1)[index[path]].double().cpu().numpy()
+            ref = np.asarray(w["values"])
+            d_sample = float(np.linalg.norm(vals - ref) / np.linalg.norm(ref))
+            d_norm = rel(float(leaf.double().norm()), w["norm"])
+            row["leaves"][path] = dict(sample=d_sample, norm=d_norm)
+            if max(d_sample, d_norm) > TRAIN_TOL["leaf"]:
+                fail(f"train: step {step} {path}: relative difference "
+                     f"{d_sample:.3e} (sampled), {d_norm:.3e} (norm) over "
+                     f"{TRAIN_TOL['leaf']}")
+        rows.append(row)
+    return rows, train_breakdown(model, step_fn, params, state,
+                                 pipe.batch_at(0), len(rows), device)
+
+
+def train_breakdown(model, step_fn, params, state, batch, step: int,
+                    device="cuda", reps: int = 3) -> dict:
+    """Where a step's time goes, after the checked steps: the loss and its
+    gradient (``value_and_grad``) and the whole step, host clock after a
+    sync, mean of ``reps``; the optimizer's share is their difference.
+    Then a ``torch.profiler`` trace of one step: the card's busy time
+    (kernels and copies) and idle share, and the six costliest kernels
+    (None in a trace without device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.step import value_and_grad
+
+    def timed(fn) -> float:
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync(device)
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    vag_ms = timed(lambda: value_and_grad(model, batch))
+    step_ms = timed(lambda: step_fn(params, state, batch, step))
+    out = dict(value_and_grad_ms=vag_ms, step_ms=step_ms,
+               optimizer_ms=step_ms - vag_ms, trace=None)
+    if torch.device(device).type != "cuda":
+        return out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, state, batch, step)
+        sync(device)
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = by_name.setdefault(e.name, [0.0, 0])
+            t[0] += e.time_range.elapsed_us() / 1e3
+            t[1] += 1
+    if by_name:
+        busy = sum(t for t, _ in by_name.values())
+        out["trace"] = dict(
+            wall_ms=wall, device_ms=busy, idle_share=1.0 - busy / wall,
+            device_ops=sum(c for _, c in by_name.values()),
+            top=[(n[:60], t, c) for n, (t, c) in sorted(
+                by_name.items(), key=lambda kv: -kv[1][0])[:6]])
+    return out
+
+
+def train_launcher(tree: dict, device="cuda") -> dict:
+    """``launch.train`` at its defaults (``TRAIN_LAUNCH``), on ``tree``:
+    step ms after ``TRAIN_WARM`` steps, tokens/s, peak memory, first and
+    last loss (both finite)."""
+    from repro_torch.launch import train as launch_train
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    args = launch_train.parse_args(TRAIN_LAUNCH + ["--device", device])
+    res = launch_train.main(TRAIN_LAUNCH + ["--device", device], params=tree)
+    if res.final_step != args.steps or not np.isfinite(res.losses).all():
+        fail(f"train: launch.train ended at {res.final_step} with losses "
+             f"{res.losses}")
+    warm = res.step_s[TRAIN_WARM:]
+    ms = 1e3 * float(np.mean(warm))
+    return dict(
+        argv=TRAIN_LAUNCH, batch=args.batch, seq=args.seq,
+        dtype="float32" if args.reduced else "bfloat16",
+        step_ms=ms, step_ms_median=1e3 * float(np.median(warm)),
+        first_step_ms=1e3 * res.step_s[0],
+        tokens_per_s=args.batch * args.seq / (ms / 1e3),
+        peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                  if torch.device(device).type == "cuda" else None),
+        first_loss=res.losses[0], last_loss=res.losses[-1])
+
+
+def train_resume(device="cuda") -> dict:
+    """Reduced mamba2 through ``launch.train`` for 4 steps, uninterrupted
+    and with a checkpoint every 2 steps and a crash at step 2: the same
+    losses, one restart."""
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    base = ["--arch", "mamba2-780m", "--reduced", "--steps", "4",
+            "--device", device]
+    clean = launch_train.main(base)
+    with tempfile.TemporaryDirectory() as d:
+        failed = launch_train.main(base + ["--ckpt-dir", d, "--ckpt-every",
+                                           "2", "--fail-at-step", "2"])
+    if (failed.restarts, failed.final_step) != (1, 4) or \
+            failed.losses != clean.losses:
+        fail(f"train: the resumed run's losses {failed.losses} (restarts "
+             f"{failed.restarts}) differ from the uninterrupted "
+             f"{clean.losses}")
+    return dict(losses=clean.losses, restarts=failed.restarts)
+
+
+def train_registry(device="cuda") -> dict:
+    """Every registry architecture at ``reduced()``: the loss and every
+    gradient leaf on ``device`` against the CPU's plain path on the same
+    weights and batch, then one ``make_train_step`` step on ``device``
+    (a finite loss and finite parameters). A leaf the graph does not reach
+    raises in ``torch.autograd.grad``; a kernel on the route raises in its
+    wrapper. Neither is caught."""
+    from repro_torch import interop
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step, value_and_grad
+
+    out = {}
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        tree = interop.numpy_reference_params(cfg, 0)
+        batch = make_batch(cfg, 2, 32, seed=3, dtype=torch.float32,
+                           device="cpu")
+        res = {}
+        for dev in ("cpu", device):
+            model = build_model(cfg, interop.params_from_reference(cfg, tree),
+                                dtype=torch.float32, device=dev)
+            model.requires_grad_(True)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            loss, _, grads = value_and_grad(model, b)
+            res[dev] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+        (l_c, g_c), (l_d, g_d) = res["cpu"], res[device]
+        worst = 0.0
+        for k, g in g_c.items():
+            if g_d.get(k) is None:
+                fail(f"train {arch}: no gradient for {k}")
+            tol = TRAIN_TOL["grad"] * (1 + g.abs())
+            worst = max(worst, float(((g_d[k] - g).abs() / tol).max()))
+        opt = make_optimizer(cfg.optimizer_mode, lr=1e-3, warmup=0,
+                             total_steps=10)
+        params, _, m = make_train_step(model, opt)(
+            model.param_tree(), opt.init(model.param_tree()), b, 0)
+        finite = np.isfinite(float(m["loss"])) and all(
+            bool(torch.isfinite(p).all()) for p in model.parameters())
+        out[arch] = dict(loss=l_d, loss_rel=rel(l_d, l_c),
+                         grad_err_over_tol=worst, leaves=len(g_c))
+        if rel(l_d, l_c) > TRAIN_TOL["loss"] or worst > 1.0 or not finite:
+            fail(f"train {arch}: the card's step differs from the CPU's "
+                 f"or is not finite: {out[arch]}")
+    return out
+
+
+def phase_train(smi: str, tree: dict | None = None):
+    """The train route on the card: mamba2-780m whole against the JAX
+    fixture, ``launch.train`` at its defaults, a resumed run, and every
+    architecture's reduced step against the CPU's; no kernel launches.
+    ``tree`` is mamba2-780m's weights as the serve phase had them (numpy,
+    the reference's layout), so that the run draws them once; without it
+    the phase draws them."""
+    import hashlib
+
+    import torch_cases as tc
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+
+    fixture = tc.train_fixture()
+    cfg = get_config(fixture["args"]["arch"])
+    t0 = time.perf_counter()
+    if tree is None:
+        tree = interop.numpy_reference_params(cfg, fixture["args"]["seed"])
+    weights_s = time.perf_counter() - t0
+    digests = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+               for k, v in interop.flatten(tree).items()}
+    if digests != fixture["weights"]["sha256"]:
+        fail("train: the weights differ from the fixture's numpy stream")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    rows, breakdown = train_parity(fixture, cfg, tree)
+    no_launches("train parity")
+    parity_s = time.perf_counter() - t0
+    for r in rows:
+        log(f"[train] mamba2-780m fp32 step {r['step']}: loss {r['loss']:.6f}"
+            f" grad_norm {r['grad_norm']:.4f} lr {r['lr']:.3e} "
+            f"({r['ms']:.1f} ms); leaves {r['leaves']}"
+            + (f"; the fixture's grad_norm is NaN" if "reference_grad_norm"
+               in r else ""))
+    log(f"[train] mamba2-780m fp32 B 2 x 128, mean of 3: loss and grads "
+        f"{breakdown['value_and_grad_ms']:.1f} ms, the step "
+        f"{breakdown['step_ms']:.1f} ms (optimizer "
+        f"{breakdown['optimizer_ms']:.1f}); card {smi}")
+    tr = breakdown["trace"]
+    if tr is None:
+        log("[train] the trace holds no device activity: idle share not "
+            "measured")
+    else:
+        log(f"[train] one step under the profiler: wall {tr['wall_ms']:.1f}"
+            f" ms, card busy {tr['device_ms']:.1f} ms in {tr['device_ops']}"
+            f" kernels and copies (idle share {tr['idle_share']:.3f})")
+        for n, t, c in tr["top"]:
+            log(f"[train]   {t:9.3f} ms  x{c:<5d} {n}")
+    torch.cuda.empty_cache()
+    reset_all_launches()
+    launcher = train_launcher(tree)
+    no_launches("train launcher")
+    del tree
+    log(f"[train] launch.train {' '.join(TRAIN_LAUNCH)} (bf16, batch "
+        f"{launcher['batch']}, seq {launcher['seq']}): "
+        f"{launcher['step_ms']:.2f} ms a step after {TRAIN_WARM} (median "
+        f"{launcher['step_ms_median']:.2f}, first {launcher['first_step_ms']:.1f}"
+        f"), {launcher['tokens_per_s']:.1f} tokens/s, peak "
+        f"{launcher['peak_gib']:.2f} GiB, loss {launcher['first_loss']:.4f} "
+        f"-> {launcher['last_loss']:.4f}; card {smi}")
+    torch.cuda.empty_cache()
+    reset_all_launches()
+    resume = train_resume()
+    no_launches("train resume")
+    log(f"[train] launch.train --reduced, crash at step 2, resumed from the "
+        f"step-2 checkpoint: losses equal the uninterrupted run's "
+        f"{resume['losses']}")
+    reset_all_launches()
+    registry = train_registry()
+    no_launches("train registry")
+    for arch, r in registry.items():
+        log(f"[train] {arch} reduced: card vs CPU loss rel {r['loss_rel']:.2e}"
+            f", grads {r['leaves']} leaves, max err / tol "
+            f"{r['grad_err_over_tol']:.3f}; a step on the card finite")
+    summary = dict(weights_s=weights_s, parity_s=parity_s, parity=rows,
+                   breakdown=breakdown, launcher=launcher, resume=resume, registry=registry,
+                   card=smi)
+    log("[train] " + json.dumps(summary))
+    return summary
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2665,10 +3026,15 @@ def main() -> None:
     serve, model, fixture = run_phase("serve", phase_serve, smi)
     tf = run_phase("logits", phase_logits, model, fixture)
     prof = run_phase("profile", phase_profile, model, fixture, smi)
+    from repro_torch.tree import unflatten
+    mamba2 = unflatten({k: v.detach().cpu().numpy()
+                        for k, v in model.state_dict().items()}, ".")
     del model
     served = {arch: run_phase(f"serve_{arch.split('-')[0]}",
                               phase_serve_model, arch, smi)
               for arch in SERVE_ARCHS}
+    run_phase("train", phase_train, smi, mamba2)
+    del mamba2
     moe_t = run_phase("moe_time", phase_moe_time, smi)
     ssd_t = run_phase("ssd_time", phase_ssd_time, smi)
     sweep = run_phase("kernels", phase_kernels)

@@ -11,6 +11,8 @@ package's parameter pytree (as numpy) into the port's ``state_dict``, and
 :func:`numpy_reference_params` draws a tree in the reference's layout from
 ``numpy.random.default_rng(seed)``, so a machine without JAX (the card's)
 builds the same weights as a test that hands them to both packages.
+:func:`opt_state_from_reference` and :func:`opt_state_to_numpy` carry an
+optimizer state (either mode) across in both directions.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.core.dram.engine import SimConfig
 from repro_torch.core.dram.schedulers import Scheduler
 from repro_torch.core.dram.timing import DramTiming
 from repro_torch.models.builder import init_params
+from repro_torch.tree import unflatten
 
 #: Fields of stack_traces output that become [B, N] / [B] int32 tensors
 #: (``[M, C, N]`` / ``[M, C]`` for mixes).
@@ -108,3 +111,29 @@ def params_from_reference(cfg: ModelConfig, tree: dict, pad_heads: int = 0
         # np.require copies only an array that is read-only or strided
         out[k] = torch.from_numpy(np.require(a, requirements=["C", "W"]))
     return out
+
+
+def opt_state_from_reference(optimizer, params: dict, tree: dict) -> dict:
+    """The port's optimizer state from the JAX package's (as numpy, the
+    same nested layout), for ``params`` (the model's ``param_tree()``):
+    ``optimizer.init(params)`` filled leaf by leaf, names and shapes
+    checked, on the parameters' device."""
+    want = flatten(optimizer.init(params))
+    got = flatten(tree)
+    if set(got) != set(want):
+        raise ValueError(f"optimizer state names differ: missing "
+                         f"{sorted(set(want) - set(got))[:4]}, unexpected "
+                         f"{sorted(set(got) - set(want))[:4]}")
+    for k, t in want.items():
+        a = np.asarray(got[k])
+        if a.shape != tuple(t.shape):
+            raise ValueError(f"{k}: got {a.shape}, want {tuple(t.shape)}")
+        t.copy_(torch.from_numpy(a.astype(np.float32)))
+    return unflatten(want, ".")
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """An optimizer state as float32 numpy arrays in the same layout (the
+    JAX package's ``Optimizer.update`` takes it as is)."""
+    return {k: opt_state_to_numpy(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy() for k, v in state.items()}

@@ -1,0 +1,84 @@
+"""Training launcher.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --reduced --steps 200 --ckpt-dir /tmp/ckpt --device cpu
+
+The port of ``repro.launch.train``, with the same flags plus ``--device``
+(default: the card; with no card only ``--device cpu`` runs). The
+reference's ``--distributed`` waits for the port's distributed slice. A
+``--reduced`` run is float32, a full config takes bfloat16 activations
+(parameters and optimizer state stay float32), as in the reference. The
+weights are ``repro_torch.interop.numpy_reference_params(cfg, seed)``.
+Bounded restarts from the latest checkpoint and the step-keyed data
+pipeline make restarts exact.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch import interop
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataPipeline
+from repro_torch.models import build_model
+from repro_torch.train.loop import TrainResult, train
+from repro_torch.train.optimizer import make_optimizer
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced same-family config (CPU-scale)")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", type=str, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--width", type=int, default=128,
+                    help="reduced-config width")
+    ap.add_argument("--fail-at-step", type=int, default=None,
+                    help="inject one crash (fault-tolerance demo)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    return ap.parse_args(argv)
+
+
+def main(argv=None, *, params: dict | None = None) -> TrainResult:
+    """Run the launcher; ``params`` is the tree
+    ``numpy_reference_params(cfg, seed)`` gives, for a caller that has
+    drawn it already."""
+    args = parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced(args.width)
+    dtype = torch.float32 if args.reduced else torch.bfloat16
+    tree = (params if params is not None
+            else interop.numpy_reference_params(cfg, args.seed))
+    model = build_model(cfg, interop.params_from_reference(cfg, tree),
+                        dtype=dtype, device=args.device)
+    opt = make_optimizer(cfg.optimizer_mode, lr=args.lr,
+                         warmup=min(50, args.steps // 10 + 1),
+                         total_steps=args.steps)
+    pipe = DataPipeline(cfg, args.batch, args.seq, seed=args.seed,
+                        dtype=dtype, device=args.device)
+
+    res = train(model, opt, pipe, total_steps=args.steps,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                grad_accum=args.grad_accum, seed=args.seed,
+                fail_at_step=args.fail_at_step, params=tree)
+    first = sum(res.losses[:10]) / max(len(res.losses[:10]), 1)
+    last = sum(res.losses[-10:]) / max(len(res.losses[-10:]), 1)
+    print(f"[train] done: {res.final_step} steps, loss {first:.3f} -> {last:.3f}, "
+          f"restarts={res.restarts}, stragglers={res.straggler_events}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

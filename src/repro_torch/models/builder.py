@@ -1,4 +1,4 @@
-"""Model assembly: config -> an ``nn.Module`` with forward, prefill,
+"""Model assembly: config -> an ``nn.Module`` with forward, loss, prefill,
 decode_step and init_cache.
 
 The counterpart of ``repro.models.builder``, for every architecture of the
@@ -15,12 +15,24 @@ joined with dots (``dec.pos0.mixer.wq``), so
 package's weights across leaf for leaf. As the reference splits ``init``
 from ``apply``, the model is built from a parameter state and draws none
 of its own. Where the reference scans over the repeats, the port loops
-over them in Python and takes layer ``r`` as a view of row ``r``.
+over them in Python and takes layer ``r`` as row ``r`` of one ``unbind``
+of each stacked leaf: its backward stacks the rows' gradients once,
+where a view a row would add a zero-filled gradient of the whole stacked
+leaf for every row.
 ``prefill``, ``decode_step`` and ``init_cache`` take and return the
 reference's cache layout: ``{"pos{i}": SSMState or KVCache}`` with the
 leading ``[n_repeats]`` axis. ``forward`` returns the MoE positions' aux
-loss; ``loss`` waits for the train slice. The reference's JAX-only fields
-``carry_spec`` and ``scan_unroll`` are dropped.
+loss. The reference's JAX-only fields ``carry_spec`` and ``scan_unroll``
+are dropped.
+
+``forward``, ``prefill`` and ``decode_step`` run without autograd and
+launch the kernels on the card. ``loss`` is the train route, with
+gradients: the reference's own path, which calls no Pallas kernel (the SSM
+through ``ssd_chunked``, the MoE's expert products as ``einsum``), so it
+launches none. With ``cfg.remat != "none"`` each decoder block runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), which
+saves memory and changes no number. Parameters are built with
+``requires_grad=False``; ``repro_torch.train.step`` turns it on.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -104,9 +117,14 @@ def _tree(module: nn.Module) -> Params:
     return {k: _tree(m) for k, m in module.items()}
 
 
-def _row(tree: Params, r: int) -> Params:
-    return {k: _row(v, r) if isinstance(v, dict) else v[r]
-            for k, v in tree.items()}
+def _unbind(tree: Params, n: int) -> list[Params]:
+    """The ``n`` per-repeat trees of a stacked tree (views)."""
+    rows: list[Params] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+        for r in range(n):
+            rows[r][k] = parts[r]
+    return rows
 
 
 def _cache_row(c: NamedTuple, r: int) -> NamedTuple:
@@ -151,16 +169,18 @@ class Model(nn.Module):
         """The parameters as the reference's nested dict (no copies)."""
         return {name: _tree(m) for name, m in self.named_children()}
 
-    def _mixer(self, spec: LayerSpec, p, x, *, enc=None, mode="train"):
+    def _mixer(self, spec: LayerSpec, p, x, *, enc=None, mode="train",
+               use_kernel=True):
         cfg = self.cfg
         if spec.mixer == "ssm":
-            return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm)
+            return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm,
+                                       use_kernel=use_kernel)
         if spec.mixer == "cross":
             return attn_mod.cross_attention(p, x, enc, _noncausal(cfg.attn))
         acfg = cfg.attn if mode != "encoder" else _noncausal(cfg.attn)
         return attn_mod.attention(p, x, acfg, impl=self.attn_impl)
 
-    def _add_ffn(self, spec: LayerSpec, p, x):
+    def _add_ffn(self, spec: LayerSpec, p, x, use_kernel=True):
         """(``x`` plus the position's FFN, if it has one; its aux loss)."""
         cfg = self.cfg
         if spec.ffn == "none":
@@ -168,32 +188,47 @@ class Model(nn.Module):
         h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
         if spec.ffn == "dense":
             return x + mlp(p["ffn"], h, cfg.act, cfg.mlp_glu), 0.0
-        h, aux = moe_mod.moe_ffn(p["ffn"], h, cfg.moe, cfg.act, cfg.mlp_glu)
+        h, aux = moe_mod.moe_ffn(p["ffn"], h, cfg.moe, cfg.act, cfg.mlp_glu,
+                                 use_kernel=use_kernel)
         return x + h, aux
 
     def _stack(self, pattern, repeats: int, stack: Params, x, *, enc=None,
-               mode="train"):
+               mode="train", train=False):
         """The ``repeats`` blocks of ``stack`` over ``x`` -> (x, aux), the
-        aux summed a block at a time as the reference's scan carries it."""
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for r in range(repeats):
-            block_aux = torch.zeros_like(aux)
+        aux summed a block at a time as the reference's scan carries it.
+        ``train`` takes the train route (no kernel; remat as configured)."""
+        rows = [_unbind(stack[f"pos{i}"], repeats)
+                for i in range(len(pattern))]
+
+        def block(x, r):
+            block_aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, spec in enumerate(pattern):
-                p = _row(stack[f"pos{i}"], r)
+                p = rows[i][r]
                 x = x + self._mixer(spec, p["mixer"],
                                     rmsnorm(p["mixer_norm"], x,
                                             self.cfg.norm_eps),
-                                    enc=enc, mode=mode)
-                x, a = self._add_ffn(spec, p, x)
+                                    enc=enc, mode=mode, use_kernel=not train)
+                x, a = self._add_ffn(spec, p, x, use_kernel=not train)
                 block_aux = block_aux + a
-            aux = aux + block_aux
+            return x, block_aux
+
+        remat = train and mode == "train" and self.cfg.remat != "none"
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for r in range(repeats):
+            if remat:
+                x, a = checkpoint(block, x, r, use_reentrant=False)
+            else:
+                x, a = block(x, r)
+            aux = aux + a
         return x, aux
 
     def _layers(self, tree: Params):
         """(r, i, spec, layer params) of the decoder in depth order."""
+        rows = [_unbind(tree["dec"][f"pos{i}"], self.cfg.n_repeats)
+                for i in range(len(self.cfg.pattern))]
         for r in range(self.cfg.n_repeats):
             for i, spec in enumerate(self.cfg.pattern):
-                yield r, i, spec, _row(tree["dec"][f"pos{i}"], r)
+                yield r, i, spec, rows[i][r]
 
     def _embed_inputs(self, tree: Params, batch) -> torch.Tensor:
         txt = embed(tree["embed"], batch["tokens"], self.dtype)
@@ -202,13 +237,13 @@ class Model(nn.Module):
                              dim=1)
         return txt
 
-    def _encode(self, tree: Params, batch):
+    def _encode(self, tree: Params, batch, train=False):
         if not self.cfg.encoder_decoder:
             return None
         enc, _ = self._stack(self.cfg.enc_pattern, self.cfg.enc_repeats,
                              tree["enc"],
                              batch["enc_embeds"].to(self.dtype),
-                             mode="encoder")
+                             mode="encoder", train=train)
         return rmsnorm(tree["enc_norm"], enc, self.cfg.norm_eps)
 
     def _logits(self, tree: Params, x):
@@ -216,16 +251,32 @@ class Model(nn.Module):
         return unembed(head, x, self.cfg.vocab_size)
 
     # ------------------------------------------------------------- train
+    def _forward(self, batch, train: bool):
+        cfg, tree = self.cfg, self.param_tree()
+        x = self._embed_inputs(tree, batch)
+        enc = self._encode(tree, batch, train)
+        x, aux = self._stack(cfg.pattern, cfg.n_repeats, tree["dec"], x,
+                             enc=enc, train=train)
+        x = rmsnorm(tree["final_norm"], x, cfg.norm_eps)
+        return self._logits(tree, x), aux
+
     @torch.no_grad()
     def forward(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward -> (logits [B,S,Vpad], aux_loss)."""
-        cfg, tree = self.cfg, self.param_tree()
-        x = self._embed_inputs(tree, batch)
-        enc = self._encode(tree, batch)
-        x, aux = self._stack(cfg.pattern, cfg.n_repeats, tree["dec"], x,
-                             enc=enc)
-        x = rmsnorm(tree["final_norm"], x, cfg.norm_eps)
-        return self._logits(tree, x), aux
+        return self._forward(batch, train=False)
+
+    def loss(self, batch) -> tuple[torch.Tensor, dict]:
+        """The train objective -> (ce + aux, {"ce", "aux"}), with
+        gradients, on the train route (see the module docstring). Labels
+        below 0 are masked; ``logits[t]`` predicts ``labels[t]``."""
+        logits, aux = self._forward(batch, train=True)
+        labels = batch["labels"]
+        valid = labels >= 0
+        safe = labels.clamp(min=0).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, safe[..., None])[..., 0]
+        ce = (nll * valid).sum() / valid.sum().clamp(min=1)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- prefill
     @torch.no_grad()

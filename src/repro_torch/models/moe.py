@@ -11,7 +11,10 @@ the port runs each through
 :func:`repro_torch.kernels.moe_gemm.ops.grouped_matmul` on the capacity
 buffer flattened to ``[E*C, D]``, one token block per expert (``bt = C``,
 ``block_eids = arange(E)``): on a CPU tensor its plain version, on the card
-the CUDA kernel. Shared experts stay plain matmuls, as in the reference.
+the CUDA kernel. The train route (``Model.loss``) passes
+``use_kernel=False`` and takes the reference's own ``einsum`` in autograd,
+since the kernel has no backward. Shared experts stay plain matmuls, as in
+the reference.
 The top k comes from a stable descending sort, so ties go to the lower
 expert id as ``jax.lax.top_k`` breaks them.
 """
@@ -64,17 +67,24 @@ def route(p: Params, x2d: torch.Tensor, cfg: MoEConfig):
     return w.to(x2d.dtype), ids, aux
 
 
-def _experts(w: torch.Tensor, xs: torch.Tensor, eids: torch.Tensor,
+def _experts(w: torch.Tensor, xs: torch.Tensor, eids: torch.Tensor | None,
              cap: int) -> torch.Tensor:
-    """[E*C, K] @ w[e] for each expert's C rows, through the kernel."""
+    """[E*C, K] @ w[e] for each expert's C rows: through the kernel, or
+    with ``eids`` None as the reference's einsum over ``[E, C, K]``."""
+    if eids is None:
+        e = w.shape[0]
+        return torch.einsum("ecd,edf->ecf", xs.reshape(e, cap, -1),
+                            w.to(xs.dtype)).reshape(e * cap, -1)
     return grouped_matmul(xs, w.to(xs.dtype).contiguous(), eids, bt=cap,
                           bf=math.gcd(w.shape[-1], 128))
 
 
 def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig, act: str = "silu",
-            glu: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+            glu: bool = True, use_kernel: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], aux_loss). Sort-based dispatch with
-    drops."""
+    drops. ``use_kernel=False`` takes the einsum products
+    (differentiable)."""
     b, s, d = x.shape
     t, k, e = b * s, cfg.top_k, cfg.n_experts
     x2d = x.reshape(t, d)
@@ -94,7 +104,8 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig, act: str = "silu",
     buf[dest] = x2d[order // k]                       # dispatch scatter
     xs = buf[:-1]                                     # [E*C, D]
 
-    eids = capacity_block_eids(e, cap, cap, device=x.device)
+    eids = (capacity_block_eids(e, cap, cap, device=x.device) if use_kernel
+            else None)
     h = _experts(p["up"], xs, eids, cap)
     if glu:
         h = ACTS[act](_experts(p["gate"], xs, eids, cap)) * h

@@ -8,11 +8,14 @@ The counterpart of ``repro.models.ssm``, with the same layout [arXiv:2405.21060]
        a_t = exp(dt_t * A), A = -exp(A_log)  (per head)
   gated norm: y = RMSNorm(y * silu(z)); out_proj: di -> d
 
-:func:`ssm_forward` (train/prefill) always runs the SSD scan through
-:func:`repro_torch.kernels.ssd_scan.ssd_scan`, whose tensor's device picks
-the CUDA kernel or its plain version; the reference's ``use_kernel`` flag
-is dropped. :func:`ssd_chunked`, the reference model's default path, is
-kept as a second oracle. :func:`ssm_decode` stays plain PyTorch, as it is
+:func:`ssm_forward` (prefill, and the no-grad forward) runs the SSD scan
+through :func:`repro_torch.kernels.ssd_scan.ssd_scan`, whose tensor's
+device picks the CUDA kernel or its plain version. The train route
+(``Model.loss``) passes ``use_kernel=False`` and runs :func:`ssd_chunked`,
+the reference model's default path, in autograd: the kernel has no
+backward, and the reference trains through ``ssd_chunked`` too. The
+reference's flag defaults to False, the port's to True, since every other
+caller of the port serves. :func:`ssm_decode` stays plain PyTorch, as it is
 plain JAX in the reference. The causal conv is the reference's shifted
 sums, not a cuDNN convolution.
 """
@@ -143,8 +146,9 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 
 
 def ssm_forward(p: Params, x: torch.Tensor, d: int, cfg: SSMConfig,
-                return_state: bool = False):
-    """Train/prefill forward. x [B,L,D] -> y [B,L,D] (+ SSMState)."""
+                return_state: bool = False, use_kernel: bool = True):
+    """Train/prefill forward. x [B,L,D] -> y [B,L,D] (+ SSMState).
+    ``use_kernel=False`` takes :func:`ssd_chunked` (differentiable)."""
     bsz, L, _ = x.shape
     di = cfg.d_inner(d)
     H = cfg.n_heads(d)
@@ -162,7 +166,10 @@ def ssm_forward(p: Params, x: torch.Tensor, d: int, cfg: SSMConfig,
 
     dt = softplus(dt_raw.float() + p["dt_bias"])
     xh = xs.reshape(bsz, L, H, cfg.head_dim)
-    y, hT = ssd_scan(xh, dt, p["A_log"], b, c, p["D"], chunk=cfg.chunk)
+    if use_kernel:
+        y, hT = ssd_scan(xh, dt, p["A_log"], b, c, p["D"], chunk=cfg.chunk)
+    else:
+        y, hT = ssd_chunked(xh, dt, p["A_log"], b, c, p["D"], cfg.chunk)
     y = y.reshape(bsz, L, di)
     y = _gated_norm(y, z, p["norm_scale"])
     out = y @ p["out_proj"].to(dt_)

@@ -779,3 +779,74 @@ def test_accelerator_kernels_refuse_without_falling_back(card):
     with pytest.raises(ValueError, match="inputs on"):
         FK.flash_attention_kernel(f, f.cpu(), f)
     assert not any(kernels.launches().values())
+
+
+def test_kernel_wrappers_refuse_autograd(card):
+    """A kernel has no backward: on the card each wrapper given an input
+    that requires grad under grad mode raises before it launches (its
+    output would leave the autograd graph), and launches under
+    ``torch.no_grad()`` or on inputs that do not require grad."""
+    from repro_torch import kernels
+    from repro_torch.kernels import (flash_attention, grouped_matmul,
+                                     masa_gemm, paged_attention, ssd_scan)
+    from repro_torch.kernels.moe_gemm.ops import capacity_block_eids
+
+    g = torch.Generator(device=card).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=card)
+
+    dt, a_log, b, c, d = r(1, 32, 2).abs(), r(2), r(1, 32, 8), r(1, 32, 8), r(2)
+    w, eids = r(4, 64, 128), capacity_block_eids(4, 64, 64, device=card)
+    q, kp, vp, table, lens = paged_case(tc.PAGED_SHAPES[0], "float32", card)
+    kf, vf, bw = r(1, 128, 2, 64), r(1, 128, 2, 64), r(128, 128)
+    cases = {
+        "ssd_scan": (lambda x: ssd_scan(x, dt, a_log, b, c, d, chunk=16),
+                     r(1, 32, 2, 16)),
+        "masa_gemm": (lambda x: masa_gemm(x, bw), r(128, 128)),
+        "moe_gemm": (lambda x: grouped_matmul(x, w, eids, bt=64, bf=128),
+                     r(256, 64)),
+        "paged_attention": (lambda x: paged_attention(x, kp, vp, table,
+                                                      lens), q),
+        "flash_attention": (lambda x: flash_attention(x, kf, vf),
+                            r(1, 128, 2, 64)),
+    }
+    for name, (fn, x) in cases.items():
+        kernels.reset_launches()
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(x.detach().requires_grad_(True))
+        assert not any(kernels.launches().values()), name
+        with torch.no_grad():
+            fn(x.detach().requires_grad_(True))
+        fn(x.detach())
+        torch.cuda.synchronize()
+        assert sum(kernels.launches().values()) == 2, (name,
+                                                       kernels.launches())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "moonshot-v1-16b-a3b"])
+def test_train_route_launches_no_kernel_on_the_card(card, arch):
+    """``Model.loss`` with a backward on the card: every parameter gets a
+    gradient and no kernel launches; the serving forward of the same
+    model, whose parameters now require grad, still launches its
+    kernels."""
+    from repro_torch import interop, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, interop.params_from_reference(
+        cfg, interop.numpy_reference_params(cfg, 0)), dtype=torch.float32,
+        device=card)
+    model.requires_grad_(True)
+    batch = make_batch(cfg, 2, 32, dtype=torch.float32, device=card)
+    kernels.reset_launches()
+    loss, _ = model.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert all(p.grad is not None for p in model.parameters())
+    assert not any(kernels.launches().values())
+    model.forward(batch)
+    assert sum(kernels.launches().values()) > 0

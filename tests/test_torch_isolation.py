@@ -105,6 +105,12 @@ print(json.dumps(dict(modules=names, leaked=leaked)))
             "repro_torch.benchmarks", "repro_torch.benchmarks.common",
             "repro_torch.benchmarks.fig4_ipc",
             "repro_torch.benchmarks.sched_bench",
+            "repro_torch.tree", "repro_torch.data.synth",
+            "repro_torch.data.pipeline", "repro_torch.train.optimizer",
+            "repro_torch.train.step", "repro_torch.train.loop",
+            "repro_torch.checkpoint.store", "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train", "repro_torch.train_lm",
+            "repro_torch.quickstart",
             } <= set(out["modules"])
 
 

@@ -43,6 +43,8 @@ SERVE_PATHS = {
     "moonshot-v1-16b-a3b": os.path.join(DATA,
                                         "torch_serve_moonshot_16b_l2.json"),
 }
+#: The training fixture (tests/make_torch_train_fixture.py).
+TRAIN_PATH = os.path.join(DATA, "torch_train_mamba2_780m.json")
 
 #: tests/test_kernels.py's SSD sweep: (B, L, H, hd, ds, chunk).
 SSD_SHAPES = ((1, 32, 2, 16, 8, 16), (2, 64, 3, 16, 8, 16),
@@ -359,6 +361,13 @@ def ssd_kernel_inputs(shape, dtype, device, seed: int = 0):
     return (xr.reshape(B * H, L, hd).to(dtype).contiguous(),
             l.reshape(B * H, L).contiguous(), inp["b"].to(dtype),
             inp["c"].to(dtype))
+
+
+def train_fixture() -> dict:
+    """mamba2-780m's 4 training steps by the JAX package (see
+    tests/make_torch_train_fixture.py)."""
+    with open(TRAIN_PATH) as f:
+        return json.load(f)
 
 
 def serve_fixture(arch: str = "mamba2-780m") -> dict:
