@@ -177,16 +177,35 @@ on any mismatch:
                 on the card against the CPU's plain path (rtol 1e-4; rtol =
                 atol 2e-4), then one finite step. The numbers print on
                 ``[train]`` lines.
-21. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
+21. distributed — the distributed stack (``repro_torch.distributed``,
+                ``launch/{train,dryrun}.py``); no kernel launches.
+                mamba2-780m whole in fp32 on the same weights through
+                ``make_sharded_train_step`` on a 1x1 NCCL mesh (every leaf a
+                DTensor): the train phase's 4 fixture steps at its
+                tolerances and NaN rule, step ms and peak memory. ``launch.
+                train --arch mamba2-780m --steps 10 --distributed`` at world
+                1 (torchrun's environment set here, NCCL): its losses equal
+                the train phase's non-distributed run's bit for bit. The
+                cases of ``tests/torch_dist_cases.py`` on 4 gloo ranks (2x2,
+                child processes, on the CPU: ``DIST_RANK_DEVICE`` says
+                why): the sharded AdamW and Adafactor steps and the
+                sharded decode against the single rank's on the same device
+                (loss 1e-5, parameters 5e-4, logits 2e-4; replicas
+                identical), ``collective_matmul`` against x @ w (2e-4),
+                ``compressed_mean`` within 16 quantization steps (error
+                feedback 2) and bit for bit the ring played out in one
+                process. ``python -m repro_torch.launch.dryrun --arch
+                mamba2-780m --shape train_4k`` in a subprocess prints OK.
+22. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
                 capacity 16 and 8, D 2048, F 1408; the up and the down
                 product), fp32: kernel vs plain within 2e-4, then CUDA-event
                 times of the kernel, its plain version and ``torch.bmm`` on
                 the same capacity buffer, beside the bound.
-22. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
+23. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound
                 (C B^T counted once a batch element and chunk: B and C are
                 shared by the heads).
-23. kernels   — the masa_gemm (both orders, through ops and its fallback),
+24. kernels   — the masa_gemm (both orders, through ops and its fallback),
                 moe_gemm, paged_attention and flash_attention kernels vs
                 their plain versions on the card, in float32 (rtol = atol =
                 2e-4) and bfloat16 (2e-2), at tests/test_kernels.py's and
@@ -209,12 +228,12 @@ on any mismatch:
                 simt otherwise; paged: split for G 1 to 8 and rows of 1
                 to 32 whole 16-byte units, serial otherwise), counted in
                 ``BODIES``.
-24. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
+25. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
                 (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
                 paged_attention 2, flash_attention 1); no DRAM-kernel launch.
-25. kernel_time — the four kernels at jamba-v0.1-52b's full width
+26. kernel_time — the four kernels at jamba-v0.1-52b's full width
                 (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
                 kernel vs plain within the tolerances above, then CUDA-event
                 times of the kernel, its plain version and the one PyTorch
@@ -2691,13 +2710,53 @@ def rel(got: float, want: float) -> float:
     return abs(got - want) / max(abs(want), 1e-30)
 
 
+def parity_row(tag: str, step: int, m: dict, want: dict, params: dict,
+               index: dict, ms: float) -> dict:
+    """One step's metrics ``m`` and parameters ``params`` (whole tensors)
+    held to the fixture's step ``want``: loss and ce, grad_norm, lr, and
+    the named leaves after the step (sampled values by relative norm of
+    difference, and the whole leaf's norm). Where the reference's number
+    is NaN (its ``ssd_chunked`` gradient; see
+    tests/make_torch_train_fixture.py), the port's must be finite."""
+    got = {k: float(m[k]) for k in ("loss", "ce", "aux", "grad_norm", "lr")}
+    row = dict(step=step, ms=ms, **got, leaves={})
+    for k, tol in (("loss", "loss"), ("ce", "loss"),
+                   ("grad_norm", "grad_norm")):
+        if not np.isfinite(got[k]):
+            fail(f"{tag}: step {step} {k} is {got[k]}")
+        if not np.isfinite(want[k]):
+            row[f"reference_{k}"] = "nan"
+        elif rel(got[k], want[k]) > TRAIN_TOL[tol]:
+            fail(f"{tag}: step {step} {k} {got[k]!r} vs the fixture's "
+                 f"{want[k]!r} (rtol {TRAIN_TOL[tol]})")
+    if abs(got["aux"] - want["aux"]) > 1e-7 or rel(got["lr"],
+                                                    want["lr"]) > 1e-6:
+        fail(f"{tag}: step {step} aux / lr {got} vs {want}")
+    for path, w in want["params"].items():
+        leaf = params
+        for k in path.split("/"):
+            leaf = leaf[k]
+        leaf = leaf.detach()
+        if not bool(torch.isfinite(leaf).all()):
+            fail(f"{tag}: step {step} {path} is not finite")
+        if not np.isfinite(w["norm"]):
+            row["leaves"][path] = "reference nan"
+            continue
+        vals = leaf.reshape(-1)[index[path]].double().cpu().numpy()
+        ref = np.asarray(w["values"])
+        d_sample = float(np.linalg.norm(vals - ref) / np.linalg.norm(ref))
+        d_norm = rel(float(leaf.double().norm()), w["norm"])
+        row["leaves"][path] = dict(sample=d_sample, norm=d_norm)
+        if max(d_sample, d_norm) > TRAIN_TOL["leaf"]:
+            fail(f"{tag}: step {step} {path}: relative difference "
+                 f"{d_sample:.3e} (sampled), {d_norm:.3e} (norm) over "
+                 f"{TRAIN_TOL['leaf']}")
+    return row
+
+
 def train_parity(fixture: dict, cfg, tree: dict, device="cuda") -> list:
     """The fixture's steps through ``make_train_step`` on ``device`` from
-    ``tree``, each held to the JAX package's: loss and ce, grad_norm, lr,
-    and the named leaves after the step (sampled values by relative norm
-    of difference, and the whole leaf's norm). Where the reference's
-    number is NaN (its ``ssd_chunked`` gradient; see
-    tests/make_torch_train_fixture.py), the port's must be finite."""
+    ``tree``, each held to the JAX package's (``parity_row``)."""
     from repro_torch import interop
     from repro_torch.data import DataPipeline
     from repro_torch.models import build_model
@@ -2721,43 +2780,10 @@ def train_parity(fixture: dict, cfg, tree: dict, device="cuda") -> list:
         sync(device)
         t0 = time.perf_counter()
         params, state, m = step_fn(params, state, pipe.batch_at(step), step)
-        got = {k: float(m[k]) for k in ("loss", "ce", "aux", "grad_norm",
-                                         "lr")}
+        float(m["loss"])
         sync(device)
-        row = dict(step=step, ms=1e3 * (time.perf_counter() - t0), **got,
-                   leaves={})
-        for k, tol in (("loss", "loss"), ("ce", "loss"),
-                       ("grad_norm", "grad_norm")):
-            if not np.isfinite(got[k]):
-                fail(f"train: step {step} {k} is {got[k]}")
-            if not np.isfinite(want[k]):
-                row[f"reference_{k}"] = "nan"
-            elif rel(got[k], want[k]) > TRAIN_TOL[tol]:
-                fail(f"train: step {step} {k} {got[k]!r} vs the fixture's "
-                     f"{want[k]!r} (rtol {TRAIN_TOL[tol]})")
-        if abs(got["aux"] - want["aux"]) > 1e-7 or rel(got["lr"],
-                                                        want["lr"]) > 1e-6:
-            fail(f"train: step {step} aux / lr {got} vs {want}")
-        for path, w in want["params"].items():
-            leaf = params
-            for k in path.split("/"):
-                leaf = leaf[k]
-            leaf = leaf.detach()
-            if not bool(torch.isfinite(leaf).all()):
-                fail(f"train: step {step} {path} is not finite")
-            if not np.isfinite(w["norm"]):
-                row["leaves"][path] = "reference nan"
-                continue
-            vals = leaf.reshape(-1)[index[path]].double().cpu().numpy()
-            ref = np.asarray(w["values"])
-            d_sample = float(np.linalg.norm(vals - ref) / np.linalg.norm(ref))
-            d_norm = rel(float(leaf.double().norm()), w["norm"])
-            row["leaves"][path] = dict(sample=d_sample, norm=d_norm)
-            if max(d_sample, d_norm) > TRAIN_TOL["leaf"]:
-                fail(f"train: step {step} {path}: relative difference "
-                     f"{d_sample:.3e} (sampled), {d_norm:.3e} (norm) over "
-                     f"{TRAIN_TOL['leaf']}")
-        rows.append(row)
+        rows.append(parity_row("train", step, m, want, params, index,
+                               1e3 * (time.perf_counter() - t0)))
     return rows, train_breakdown(model, step_fn, params, state,
                                  pipe.batch_at(0), len(rows), device)
 
@@ -2834,7 +2860,8 @@ def train_launcher(tree: dict, device="cuda") -> dict:
         tokens_per_s=args.batch * args.seq / (ms / 1e3),
         peak_gib=(torch.cuda.max_memory_allocated() / 2**30
                   if torch.device(device).type == "cuda" else None),
-        first_loss=res.losses[0], last_loss=res.losses[-1])
+        first_loss=res.losses[0], last_loss=res.losses[-1],
+        losses=res.losses)
 
 
 def train_resume(device="cuda") -> dict:
@@ -2989,6 +3016,210 @@ def phase_train(smi: str, tree: dict | None = None):
     return summary
 
 
+#: Where the distributed phase's multi-rank cases (``tests/
+#: torch_dist_cases.py``, 4 gloo ranks on a 2x2 mesh, child processes)
+#: run: the CPU. NCCL refuses two ranks on one device and the machine has
+#: one card, so ranks sharing it would talk over gloo. On the H100 machine
+#: (torch 2.11; measured with this phase's first runs) gloo's all_reduce,
+#: all_gather_into_tensor, reduce_scatter_tensor and broadcast took CUDA
+#: tensors alone, but its send / recv failed on them ("writev ... Bad
+#: address"), and 4 ranks running the sharded train and decode cases on
+#: cuda:0 all died of SIGSEGV within 18 s. The card runs the distributed
+#: stack at world 1 over NCCL (``dist_parity``, ``dist_launcher``).
+DIST_RANK_DEVICE = "cpu"
+DIST_RANKS = 4
+#: ``launch.train --distributed`` at world 1: ``TRAIN_LAUNCH`` as the train
+#: phase ran it, whose losses it must equal bit for bit.
+DIST_LAUNCH = TRAIN_LAUNCH + ["--distributed"]
+DRYRUN = ["--arch", "mamba2-780m", "--shape", "train_4k"]
+
+
+def one_rank_env() -> None:
+    """torchrun's environment for a world of one (a free port)."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+
+
+def dist_parity(fixture: dict, cfg, tree: dict) -> dict:
+    """The fixture's steps through ``make_sharded_train_step`` on a 1x1
+    NCCL mesh on the card, each held to the JAX package's
+    (``parity_row``), then the step's time and peak memory."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import interop
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataPipeline
+    from repro_torch.distributed.sharding import (batch_pspecs, gather_tree,
+                                                  param_pspecs, shard_tree)
+    from repro_torch.distributed.step import (make_sharded_train_step,
+                                              shard_opt_state, shard_params)
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import make_optimizer
+
+    a = fixture["args"]
+    one_rank_env()
+    dist.init_process_group("nccl")
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        model = build_model(cfg, interop.params_from_reference(cfg, tree),
+                            dtype=torch.float32, device="cuda")
+        opt = make_optimizer(a["optimizer"], lr=a["lr"], warmup=a["warmup"],
+                             total_steps=a["total_steps"])
+        full = model.param_tree()
+        specs = param_pspecs(cfg, full, mesh)
+        params = shard_params(full, specs, mesh)
+        state = shard_opt_state(opt, full, specs, mesh)
+        step_fn = make_sharded_train_step(model, opt, mesh, specs)
+        pipe = DataPipeline(cfg, a["batch"], a["seq"], seed=a["data_seed"],
+                            device="cuda")
+        bspecs = batch_pspecs(cfg, mesh, ShapeSpec("t", a["seq"], a["batch"],
+                                                   "train"))
+        index = {k: torch.tensor(v, device="cuda")
+                 for k, v in fixture["index"].items()}
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for step, want in enumerate(fixture["steps"]):
+            sync("cuda")
+            t0 = time.perf_counter()
+            params, state, m = step_fn(
+                params, state, shard_tree(pipe.batch_at(step), bspecs, mesh),
+                step)
+            float(m["loss"])
+            sync("cuda")
+            ms = 1e3 * (time.perf_counter() - t0)
+            rows.append(parity_row("distributed", step, m, want,
+                                   gather_tree(params), index, ms))
+        return dict(rows=rows, peak_gib=torch.cuda.max_memory_allocated()
+                    / 2**30, placements=str(params["embed"]["table"]
+                                            .placements))
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_launcher(tree: dict, want: list) -> dict:
+    """``launch.train --distributed`` at world 1 on NCCL (``DIST_LAUNCH``):
+    its losses equal ``want``, the non-distributed run's, bit for bit."""
+    from repro_torch.launch import train as launch_train
+
+    one_rank_env()
+    torch.cuda.reset_peak_memory_stats()
+    res = launch_train.main(DIST_LAUNCH, params=tree)
+    if res.losses != want:
+        fail(f"distributed: launch.train --distributed losses {res.losses} "
+             f"differ from the non-distributed run's {want}")
+    warm = res.step_s[TRAIN_WARM:]
+    return dict(argv=DIST_LAUNCH, step_ms=1e3 * float(np.mean(warm)),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                losses=res.losses)
+
+
+def dist_ranks() -> dict:
+    """The 4-rank cases on ``DIST_RANK_DEVICE``, each held to the
+    single-rank result at the CPU tests' tolerances; the ring's
+    ``compressed_mean`` bit for bit to the same ring played out in one
+    process."""
+    import tempfile
+
+    import torch_dist_cases as tdc
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = tdc.run_ranks(DIST_RANKS, d, DIST_RANK_DEVICE,
+                            [*tdc.TRAIN, "decode", "cmm", "cmean"],
+                            timeout=240)
+    out["wall_s"] = time.perf_counter() - t0
+    for name in tdc.TRAIN:
+        r = out[name]
+        if r["replica_mismatches"] or r["loss_err"] > 1 or r["param_err"] > 1:
+            fail(f"distributed: the sharded {name} step differs from the "
+                 f"single rank's or between replicas: {r}")
+    r = out["decode"]
+    if r["logits_err"] > 1 or r["cache_err"] > 1 or not r["cache_layout_kept"]:
+        fail(f"distributed: the sharded decode differs: {r}")
+    if out["cmm"]["err"] > 1:
+        fail(f"distributed: collective_matmul differs: {out['cmm']}")
+    r = out["cmean"]
+    if r["err_over_scale"] > 16 or r["ef_err_over_scale"] > 2 or \
+            not r["serial_equal"]:
+        fail(f"distributed: compressed_mean out of bounds: {r}")
+    return out
+
+
+def dist_dryrun(run) -> dict:
+    """``python -m repro_torch.launch.dryrun`` on one cell in a subprocess,
+    beside ``run()`` (the rank cases, CPU work too): the dry-run must
+    print its OK line. Returns (its record, ``run()``'s result)."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    try:
+        beside = run()
+        out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+        proc.wait()
+    ok = [l for l in out.splitlines() if l.startswith("[dryrun] OK")]
+    if proc.returncode or not ok:
+        fail(f"distributed: the dry-run failed (rc {proc.returncode}): "
+             f"{out[-2000:]} {err[-2000:]}")
+    return dict(line=ok[-1], wall_s=time.perf_counter() - t0), beside
+
+
+def phase_distributed(smi: str, tree: dict, launcher_losses: list):
+    """The distributed stack on the card: mamba2-780m whole through the
+    sharded step on a 1x1 NCCL mesh against the JAX fixture,
+    ``launch.train --distributed`` at world 1 against the non-distributed
+    run, the 4-rank cases (``DIST_RANK_DEVICE``) and one dry-run cell; no
+    kernel launches."""
+    import torch_cases as tc
+    from repro_torch.configs import get_config
+
+    fixture = tc.train_fixture()
+    cfg = get_config(fixture["args"]["arch"])
+    reset_all_launches()
+    no_launches("distributed (before)")
+    t0 = time.perf_counter()
+    parity = dist_parity(fixture, cfg, tree)
+    for r in parity["rows"]:
+        log(f"[distributed] mamba2-780m fp32 sharded step {r['step']} on a "
+            f"1x1 NCCL mesh: loss {r['loss']:.6f} grad_norm "
+            f"{r['grad_norm']:.4f} ({r['ms']:.1f} ms); leaves {r['leaves']}"
+            + ("; the fixture's grad_norm is NaN" if "reference_grad_norm"
+               in r else ""))
+    log(f"[distributed] sharded step peak {parity['peak_gib']:.2f} GiB "
+        f"(embed table {parity['placements']}); card {smi}")
+    torch.cuda.empty_cache()
+    launcher = dist_launcher(tree, launcher_losses)
+    log(f"[distributed] launch.train {' '.join(DIST_LAUNCH)} at world 1 "
+        f"(NCCL): losses equal the non-distributed run's bit for bit; "
+        f"{launcher['step_ms']:.2f} ms a step after {TRAIN_WARM}, peak "
+        f"{launcher['peak_gib']:.2f} GiB; card {smi}")
+    torch.cuda.empty_cache()
+    no_launches("distributed")
+    dry, ranks = dist_dryrun(dist_ranks)
+    log(f"[distributed] {DIST_RANKS} gloo ranks (2x2) on {DIST_RANK_DEVICE}: "
+        + json.dumps(ranks))
+    log(f"[distributed] {dry['line']} ({dry['wall_s']:.1f} s, beside the "
+        f"ranks)")
+    summary = dict(parity=parity, launcher=launcher, ranks=ranks,
+                   dryrun=dry, wall_s=time.perf_counter() - t0,
+                   rank_device=DIST_RANK_DEVICE, card=smi)
+    log("[distributed] " + json.dumps(summary))
+    return summary
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3033,7 +3264,9 @@ def main() -> None:
     served = {arch: run_phase(f"serve_{arch.split('-')[0]}",
                               phase_serve_model, arch, smi)
               for arch in SERVE_ARCHS}
-    run_phase("train", phase_train, smi, mamba2)
+    trained = run_phase("train", phase_train, smi, mamba2)
+    run_phase("distributed", phase_distributed, smi, mamba2,
+              trained["launcher"]["losses"])
     del mamba2
     moe_t = run_phase("moe_time", phase_moe_time, smi)
     ssd_t = run_phase("ssd_time", phase_ssd_time, smi)

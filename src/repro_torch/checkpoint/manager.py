@@ -1,8 +1,9 @@
 """Checkpoint manager: async saves off the critical path, keep-K retention,
 resume-from-latest.
 
-The counterpart of ``repro.checkpoint.manager``. ``save`` copies the tree
-to host memory before it returns (the trainer updates its parameters in
+The counterpart of ``repro.checkpoint.manager``. ``save`` gathers the
+tree's DTensor leaves (every rank takes part) and copies it to host
+memory before it returns (the trainer updates its parameters in
 place, so the writer thread must not read them), then writes it in a
 thread; ``wait`` joins that thread and raises the error it met, if any.
 ``latest_step`` and ``restore`` join a save in flight first (not raising
@@ -18,6 +19,7 @@ import threading
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.store import (latest_step, load_checkpoint,
                                           save_checkpoint)
@@ -25,6 +27,8 @@ from repro_torch.tree import tree_map
 
 
 def _host_copy(x):
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return x
@@ -41,15 +45,15 @@ class CheckpointManager:
         self._last_error: Exception | None = None
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, tree: Any, *, extra_meta: dict | None = None,
-             block: bool = False) -> None:
+    def save(self, step: int, tree: Any, *, pspecs: Any = None,
+             extra_meta: dict | None = None, block: bool = False) -> None:
         # snapshot to host memory synchronously, write async
         host_tree = tree_map(_host_copy, tree)
 
         def _write():
             try:
                 save_checkpoint(self.directory, step, host_tree,
-                                host_index=self.host_index,
+                                pspecs=pspecs, host_index=self.host_index,
                                 extra_meta=extra_meta)
                 self._gc()
             except Exception as e:  # noqa: BLE001 — surfaced on next wait()

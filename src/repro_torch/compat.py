@@ -21,13 +21,14 @@ REQUIRED_CAPABILITY = (9, 0)
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Without one, only an explicit CPU runs."""
+    """``None`` means the card. Without one, only an explicit CPU runs. An
+    explicit ``"meta"`` (shapes without data: the dry-run) is taken too."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch version")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev
 

@@ -6,8 +6,8 @@ regenerates exactly the stream the failed run would have seen. The seed of
 step k is ``hash((seed, step, host_index)) & 0x7FFFFFFF``, the reference's
 expression (CPython hashes a tuple of ints alike in every process), so both
 packages draw the same batches. Prefetch fills a small queue of ready
-batches from a background thread. ``host_index`` / ``n_hosts`` stay at
-0 / 1 until the port has a distributed launcher.
+batches from a background thread. ``launch.train --distributed`` sets
+``host_index`` / ``n_hosts`` to the rank and the world size.
 """
 from __future__ import annotations
 

@@ -29,7 +29,9 @@ are dropped.
 launch the kernels on the card. ``loss`` is the train route, with
 gradients: the reference's own path, which calls no Pallas kernel (the SSM
 through ``ssd_chunked``, the MoE's expert products as ``einsum``), so it
-launches none. With ``cfg.remat != "none"`` each decoder block runs under
+launches none. On ``meta`` (the dry-run's shapes without data, which no
+kernel takes) ``prefill`` and ``decode_step`` take that path too. With
+``cfg.remat != "none"`` each decoder block runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), which
 saves memory and changes no number. Parameters are built with
 ``requires_grad=False``; ``repro_torch.train.step`` turns it on.
@@ -283,6 +285,7 @@ class Model(nn.Module):
     def prefill(self, batch):
         """Prefill -> (last-position logits [B,1,Vpad], cache)."""
         cfg, tree = self.cfg, self.param_tree()
+        kernels = self.device.type != "meta"
         x = self._embed_inputs(tree, batch)
         enc = self._encode(tree, batch)
         parts: dict[str, list] = {f"pos{i}": []
@@ -291,7 +294,8 @@ class Model(nn.Module):
             xin = rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
             if spec.mixer == "ssm":
                 h, c = ssm_mod.ssm_forward(p["mixer"], xin, cfg.d_model,
-                                           cfg.ssm, return_state=True)
+                                           cfg.ssm, return_state=True,
+                                           use_kernel=kernels)
             elif spec.mixer == "cross":
                 c = attn_mod.cross_kv(p["mixer"], enc, self.dtype)
                 h = attn_mod.cross_attend(p["mixer"], xin, c,
@@ -300,7 +304,7 @@ class Model(nn.Module):
                 h, c = attn_mod.prefill_attention(p["mixer"], xin, cfg.attn,
                                                   impl=self.attn_impl)
             parts[f"pos{i}"].append(c)
-            x, _ = self._add_ffn(spec, p, x + h)
+            x, _ = self._add_ffn(spec, p, x + h, use_kernel=kernels)
         x = rmsnorm(tree["final_norm"], x, cfg.norm_eps)
         return self._logits(tree, x[:, -1:]), _stack_cache(parts)
 
@@ -310,6 +314,7 @@ class Model(nn.Module):
         """One-token decode. tokens [B,1]; cache from prefill/init_cache;
         cur_len: current sequence length (an int, a [] or a [B] tensor)."""
         cfg, tree = self.cfg, self.param_tree()
+        kernels = self.device.type != "meta"
         x = embed(tree["embed"], tokens, self.dtype)
         cur = torch.as_tensor(cur_len, device=x.device)
         parts: dict[str, list] = {k: [] for k in cache}
@@ -327,7 +332,7 @@ class Model(nn.Module):
                                                  c, cur,
                                                  grouped=self.decode_grouped)
             parts[f"pos{i}"].append(c)
-            x, _ = self._add_ffn(spec, p, x + h)
+            x, _ = self._add_ffn(spec, p, x + h, use_kernel=kernels)
         x = rmsnorm(tree["final_norm"], x, cfg.norm_eps)
         return self._logits(tree, x), _stack_cache(parts)
 

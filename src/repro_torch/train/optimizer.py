@@ -10,8 +10,11 @@ arithmetic in the reference's order (float32 throughout):
 Both clip by the global norm and follow a warmup + cosine schedule. Not
 ``torch.optim.AdamW``: its decoupled decay rounds otherwise, and it has no
 Adafactor of this form. ``update`` writes the parameters in place (under
-``torch.no_grad()``) and returns them with the new state. The reference's
-``state_pspecs`` (JAX sharding specs) waits for the distributed slice.
+``torch.no_grad()``) and returns them with the new state. Its leaves may
+be ``DTensor`` shards (``repro_torch.distributed.step``): the global norm
+then sums every shard, and Adafactor's row and column means reduce
+across a sharded dimension. ``state_pspecs`` lays the state out as the
+parameters are (``repro_torch.distributed.sharding``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.sharding import PSpec
 from repro_torch.tree import leaves, tree_map
 
 Params = dict
@@ -72,6 +76,22 @@ class Optimizer:
             return {"full": zeros(p.shape, p)}
 
         return {"v": tree_map(v_factored, params)}
+
+    def state_pspecs(self, param_specs: Params, params_tree: Params) -> Params:
+        """Optimizer-state specs mirroring the parameter specs.
+
+        ``params_tree``: tensors of the parameters' shapes (for leaf
+        ranks; meta tensors serve)."""
+        if self.mode == "adamw":
+            return {"m": param_specs, "v": param_specs}
+
+        def v_spec(spec, p):
+            if p.ndim >= 2:
+                return {"row": PSpec(*spec[:-1]),
+                        "col": PSpec(*(spec[:-2] + spec[-1:]))}
+            return {"full": spec}
+
+        return {"v": tree_map(v_spec, param_specs, params_tree)}
 
     # ------------------------------------------------------------- update
     @torch.no_grad()

@@ -51,6 +51,37 @@ def adopt(model: Model, params: dict) -> None:
             t.copy_(given[k])
 
 
+def loss_and_grads(model: Model, batch: dict, grad_accum: int = 1
+                   ) -> tuple[torch.Tensor, dict, dict[str, torch.Tensor]]:
+    """``value_and_grad`` over ``batch``, or with ``grad_accum > 1`` over
+    that many microbatches of its leading dimension: their losses and
+    gradients summed from zero, in order, and divided by ``grad_accum``;
+    ``{"ce", "aux"}`` the last microbatch's."""
+    if grad_accum == 1:
+        return value_and_grad(model, batch)
+
+    def split(x, i):
+        b = x.shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch {b} does not split into "
+                             f"{grad_accum} microbatches")
+        return x.reshape(grad_accum, b // grad_accum, *x.shape[1:])[i]
+
+    loss = torch.zeros((), dtype=torch.float32, device=model.device)
+    grads = None
+    for i in range(grad_accum):
+        mb = {k: split(v, i) for k, v in batch.items()}
+        l, extras, g = value_and_grad(model, mb)
+        loss = loss + l
+        if grads is None:
+            grads = {k: torch.zeros_like(v, dtype=torch.float32)
+                     for k, v in g.items()}
+        for k, v in g.items():
+            grads[k].add_(v)
+    return (loss / grad_accum, extras,
+            {k: v / grad_accum for k, v in grads.items()})
+
+
 def make_train_step(model: Model, optimizer: Optimizer,
                     grad_accum: int = 1) -> Callable:
     """The step function for ``model``, whose parameters it sets to
@@ -59,29 +90,7 @@ def make_train_step(model: Model, optimizer: Optimizer,
 
     def train_step(params, opt_state, batch, step):
         adopt(model, params)
-        if grad_accum == 1:
-            loss, extras, grads = value_and_grad(model, batch)
-        else:
-            def split(x, i):
-                b = x.shape[0]
-                if b % grad_accum:
-                    raise ValueError(f"batch {b} does not split into "
-                                     f"{grad_accum} microbatches")
-                return x.reshape(grad_accum, b // grad_accum, *x.shape[1:])[i]
-
-            loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = None
-            for i in range(grad_accum):
-                mb = {k: split(v, i) for k, v in batch.items()}
-                l, extras, g = value_and_grad(model, mb)
-                loss = loss + l
-                if grads is None:
-                    grads = {k: torch.zeros_like(v, dtype=torch.float32)
-                             for k, v in g.items()}
-                for k, v in g.items():
-                    grads[k].add_(v)
-            grads = {k: v / grad_accum for k, v in grads.items()}
-            loss = loss / grad_accum
+        loss, extras, grads = loss_and_grads(model, batch, grad_accum)
         params, opt_state, opt_metrics = optimizer.update(
             unflatten(grads), opt_state, model.param_tree(), step)
         return params, opt_state, {"loss": loss, **extras, **opt_metrics}

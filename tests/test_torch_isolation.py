@@ -4,7 +4,8 @@
 Checked twice: statically (every import statement, including the ones
 inside functions) and at run time in a fresh interpreter that imports
 every module of the port (``pkgutil.walk_packages`` reaches every
-subpackage: the sweep layer, ``fault`` and ``benchmarks`` included). The
+subpackage: the sweep layer, ``fault``, ``benchmarks`` and
+``distributed`` included), which must leave no process group up. The
 repo's top-level ``benchmarks`` package imports the JAX package, so the
 port's own ``repro_torch.benchmarks`` must not import it either.
 """
@@ -22,7 +23,8 @@ PORT = ROOT / "src" / "repro_torch"
 def port_sources():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_cases.py",
-        ROOT / "tests" / "check_torch_serve.py"]
+        ROOT / "tests" / "check_torch_serve.py",
+        ROOT / "tests" / "torch_dist_cases.py"]
 
 
 #: Top-level packages the port never imports: JAX, and the JAX package and
@@ -58,10 +60,12 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
     importlib.import_module(n)
-import torch_cases, check_torch_serve, chip_smoke
+import torch_cases, check_torch_serve, chip_smoke, torch_dist_cases
+import torch.distributed as dist
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {FORBIDDEN!r})
-print(json.dumps(dict(modules=names, leaked=leaked)))
+group = dist.is_available() and dist.is_initialized()
+print(json.dumps(dict(modules=names, leaked=leaked, group=group)))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -69,6 +73,7 @@ print(json.dumps(dict(modules=names, leaked=leaked)))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
+    assert out["group"] is False
     assert {"repro_torch.core.dram.cuda_step", "repro_torch.core.dram.engine",
             "repro_torch.core.dram.multicore",
             "repro_torch.core.dram.schedulers",
@@ -110,7 +115,13 @@ print(json.dumps(dict(modules=names, leaked=leaked)))
             "repro_torch.train.step", "repro_torch.train.loop",
             "repro_torch.checkpoint.store", "repro_torch.checkpoint.manager",
             "repro_torch.launch.train", "repro_torch.train_lm",
-            "repro_torch.quickstart",
+            "repro_torch.quickstart", "repro_torch.distributed",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.step",
+            "repro_torch.distributed.collective_matmul",
+            "repro_torch.distributed.compression",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline",
             } <= set(out["modules"])
 
 

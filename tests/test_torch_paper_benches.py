@@ -194,7 +194,7 @@ def test_reduced_mapping_grid_equals_jax(fresh, monkeypatch):
     assert_equal_runs(ref, port, n_cells=SMALL_WORKLOADS * 2 * 3)
 
 
-def test_serving_equals_jax_at_full_size():
+def test_serving_equals_jax_at_full_size(fresh):
     ref, port = run_both(R_serving, P_serving)
     assert_equal_runs(ref, port, n_cells=0)
     assert port[0] == tc.paper_benches_fixture()["summaries"]["serving"]

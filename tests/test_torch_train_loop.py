@@ -259,5 +259,3 @@ def test_launch_train_resumes_exactly(tmp_path, capsys, one_thread):
     assert failed.losses == clean.losses
     assert np.isfinite(clean.losses).all()
     assert "[train] done: 4 steps" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        launch_train.parse_args(args + ["--distributed"])
