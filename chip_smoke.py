@@ -261,6 +261,7 @@ true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3034,16 +3035,29 @@ DIST_LAUNCH = TRAIN_LAUNCH + ["--distributed"]
 DRYRUN = ["--arch", "mamba2-780m", "--shape", "train_4k"]
 
 
-def one_rank_env() -> None:
-    """torchrun's environment for a world of one (a free port)."""
+@contextlib.contextmanager
+def one_rank_env():
+    """torchrun's environment for a world of one (a free port), for the
+    ``with`` block only: the variables are restored on exit, so later
+    phases and their child processes see none of it."""
     import os
     import socket
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def dist_parity(fixture: dict, cfg, tree: dict) -> dict:
@@ -3064,8 +3078,8 @@ def dist_parity(fixture: dict, cfg, tree: dict) -> dict:
     from repro_torch.train.optimizer import make_optimizer
 
     a = fixture["args"]
-    one_rank_env()
-    dist.init_process_group("nccl")
+    with one_rank_env():
+        dist.init_process_group("nccl")
     try:
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
@@ -3109,9 +3123,9 @@ def dist_launcher(tree: dict, want: list) -> dict:
     its losses equal ``want``, the non-distributed run's, bit for bit."""
     from repro_torch.launch import train as launch_train
 
-    one_rank_env()
     torch.cuda.reset_peak_memory_stats()
-    res = launch_train.main(DIST_LAUNCH, params=tree)
+    with one_rank_env():
+        res = launch_train.main(DIST_LAUNCH, params=tree)
     if res.losses != want:
         fail(f"distributed: launch.train --distributed losses {res.losses} "
              f"differ from the non-distributed run's {want}")
@@ -3138,9 +3152,14 @@ def dist_ranks() -> dict:
     out["wall_s"] = time.perf_counter() - t0
     for name in tdc.TRAIN:
         r = out[name]
-        if r["replica_mismatches"] or r["loss_err"] > 1 or r["param_err"] > 1:
-            fail(f"distributed: the sharded {name} step differs from the "
+        if r["replica_mismatches"] or r["state_leaves"] <= 0 or any(
+                r[k] > 1 for k in ("loss_err", "grad_norm_err", "param_err",
+                                   "state_err")):
+            fail(f"distributed: the sharded {name} steps differ from the "
                  f"single rank's or between replicas: {r}")
+        if r["params_moved"] <= tdc.TOLS["param"]:
+            fail(f"distributed: the {name} steps left the parameters "
+                 f"within their tolerance of the start: {r}")
     r = out["decode"]
     if r["logits_err"] > 1 or r["cache_err"] > 1 or not r["cache_layout_kept"]:
         fail(f"distributed: the sharded decode differs: {r}")

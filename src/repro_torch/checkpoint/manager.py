@@ -9,7 +9,10 @@ thread; ``wait`` joins that thread and raises the error it met, if any.
 ``latest_step`` and ``restore`` join a save in flight first (not raising
 its error, which the next ``wait`` does): a restart right after a save
 then resumes from that save, where the reference reads the directory while
-its writer may still run.
+its writer may still run. With a process group up only rank 0 writes and
+prunes (``store.writes``), and ``latest_step`` / ``restore`` end their
+join in a barrier, so every rank reads the directory after rank 0's save
+is done; every rank must then call them together.
 """
 from __future__ import annotations
 
@@ -19,10 +22,11 @@ import threading
 from typing import Any
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.store import (latest_step, load_checkpoint,
-                                          save_checkpoint)
+                                          save_checkpoint, writes)
 from repro_torch.tree import tree_map
 
 
@@ -55,7 +59,8 @@ class CheckpointManager:
                 save_checkpoint(self.directory, step, host_tree,
                                 pspecs=pspecs, host_index=self.host_index,
                                 extra_meta=extra_meta)
-                self._gc()
+                if writes():
+                    self._gc()
             except Exception as e:  # noqa: BLE001 — surfaced on next wait()
                 self._last_error = e
 
@@ -70,6 +75,13 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def _settle(self) -> None:
+        """Join this rank's writer, then (under a process group) wait for
+        every rank's: rank 0's save is then on disk for all."""
+        self._join()
+        if dist.is_initialized():
+            dist.barrier()
 
     def wait(self) -> None:
         self._join()
@@ -86,9 +98,9 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- restore
     def latest_step(self) -> int | None:
-        self._join()
+        self._settle()
         return latest_step(self.directory)
 
     def restore(self, template: Any, step: int | None = None):
-        self._join()
+        self._settle()
         return load_checkpoint(self.directory, step, template=template)

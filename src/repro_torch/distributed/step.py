@@ -5,12 +5,17 @@ The reference writes layouts only (``sharding.py``) and lets XLA's GSPMD
 decide the data movement of the unchanged step. PyTorch has no GSPMD, so
 these steps state it. Every parameter, optimizer-state, batch and cache
 leaf lives on the mesh as a ``DTensor`` laid out by its spec, as the
-reference's arrays are; the steps work ZeRO-3 (FSDP) style:
+reference's arrays are, and the optimizer updates only its shards. The
+parameters are not sharded during compute: each rank's ``model`` holds a
+whole copy of every parameter for as long as the step lives, and the
+steps gather the whole tree into it. A train step:
 
 1. each rank takes its batch rows (the batch's ``batch_pspecs`` layout);
-2. it gathers the parameters in full (an all-gather a sharded leaf);
+2. it gathers every parameter in full (an all-gather of each sharded
+   leaf) and copies the tree into its model;
 3. it runs the port's own ``Model.loss`` and ``torch.autograd.grad`` on
-   its rows (``train.step.loss_and_grads``, with ``grad_accum``);
+   its rows (``train.step.loss_and_grads``, with ``grad_accum``): whole
+   gradients, as many bytes as the parameters;
 4. each gradient becomes a ``Partial("avg")`` DTensor over the mesh
    dimensions that split the batch, replicated over the others;
 5. it is redistributed to its leaf's layout (a reduce-scatter where the
@@ -20,9 +25,14 @@ reference's arrays are; the steps work ZeRO-3 (FSDP) style:
 7. the loss, ``ce`` and ``aux`` are averaged over the batch's mesh
    dimensions.
 
-Compute is therefore replicated over "model" wherever the batch is not
-split over it: tensor-parallel compute inside a layer is not ported (a
-deliberate difference; ROADMAP). Averaging per-rank losses equals the
+So a device holds the whole parameters and, during the backward, the
+whole gradients, beside its shards of the parameters and of the optimizer
+state: the memory of ZeRO stage 1, not of ZeRO-3 / FSDP, which would
+gather a block's parameters at its use and free them after. The
+dry-run's ``memory.model_copy_bytes`` counts the whole copy. Compute is
+replicated over "model" wherever the batch is not split over it:
+tensor-parallel compute inside a layer is not ported (a deliberate
+difference, as is the whole copy; ROADMAP). Averaging per-rank losses equals the
 reference's global mean when every rank's rows hold as many valid labels,
 as every batch of ``data.synth`` does; a MoE's load-balancing ``aux`` is
 the ranks' mean, where the reference's is the whole batch's.

@@ -15,6 +15,9 @@ once, nothing is sent), as rank 0:
   3. records, per device (rank 0, which holds as much as any rank):
      - ``memory.argument_bytes``: the step's arguments, exact, from the
        local shard shapes of parameters, optimizer state, batch and cache;
+     - ``memory.model_copy_bytes``: the whole parameter tree the rank's
+       model holds for compute (the steps gather every parameter into it,
+       ``repro_torch.distributed.step``), which the arguments leave out;
      - ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the
        step (matmuls, convolutions and attention; the backward and its
        recompute included);
@@ -60,9 +63,9 @@ from repro_torch.configs.shapes import shapes_for, skipped_shapes_for
 from repro_torch.data.synth import batch_shapes
 from repro_torch.distributed.sharding import (PSpec, axis_sizes,
                                               batch_pspecs, cache_pspecs,
-                                              dp_axes, is_spec, local_bytes,
-                                              map_tree, pad_heads_for,
-                                              param_pspecs, shard, shard_tree)
+                                              dp_axes, local_bytes,
+                                              pad_heads_for, param_pspecs,
+                                              shard, shard_tree)
 from repro_torch.distributed.step import (make_sharded_decode_step,
                                           make_sharded_prefill_step,
                                           make_sharded_train_step,
@@ -183,11 +186,10 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def build_cell(arch: str, shape_name: str, mesh, attn_impl: str | None = None,
-               params_dtype=None, tp_only: bool = False,
-               smart_batch: bool = False, decode_grouped: bool = False):
-    """(run, arguments) for one cell on ``mesh``: ``run()`` runs the
-    sharded step on the meta arguments and returns its outputs."""
+def build_cell(arch: str, shape_name: str, mesh, attn_impl: str | None = None):
+    """(run, arguments, model) for one cell on ``mesh``: ``run()`` runs
+    the sharded step on the meta arguments and returns its outputs;
+    ``model`` is the rank's compute copy."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if attn_impl is None:
@@ -195,66 +197,52 @@ def build_cell(arch: str, shape_name: str, mesh, attn_impl: str | None = None,
     pad = pad_heads_for(cfg, mesh)
     tree = init_params(cfg, torch.Generator(), device="meta", pad_heads=pad)
     model = build_model(cfg, flatten(tree), pad_heads=pad,
-                        attn_impl=attn_impl, decode_grouped=decode_grouped,
-                        device="meta")
-    if params_dtype is None:
-        params_dtype = (torch.bfloat16 if cfg.optimizer_mode == "adafactor"
-                        else torch.float32)
-    model.to(params_dtype)
+                        attn_impl=attn_impl, device="meta")
+    model.to(torch.bfloat16 if cfg.optimizer_mode == "adafactor"
+             else torch.float32)
     full = model.param_tree()
     specs = param_pspecs(cfg, full, mesh)
-    if tp_only:
-        specs = map_tree(lambda sp: PSpec(*(None if a == "data" else a
-                                            for a in sp)),
-                         specs, is_leaf=is_spec)
     params = shard_tree(full, specs, mesh)
 
     if shape.kind in ("train", "prefill"):
         shapes = batch_shapes(cfg, shape.global_batch, shape.seq_len)
         batch = shard_tree({k: _meta(s, dt) for k, (s, dt) in shapes.items()},
-                           batch_pspecs(cfg, mesh, shape, smart=smart_batch),
-                           mesh)
+                           batch_pspecs(cfg, mesh, shape), mesh)
         if shape.kind == "prefill":
             step = make_sharded_prefill_step(model, mesh)
-            return lambda: step(params, batch), (params, batch)
+            return lambda: step(params, batch), (params, batch), model
         opt = make_optimizer(cfg.optimizer_mode)
         state = shard_opt_state(opt, full, specs, mesh)
         step = make_sharded_train_step(model, opt, mesh, specs)
-        return lambda: step(params, state, batch, 0), (params, state, batch)
+        return (lambda: step(params, state, batch, 0), (params, state, batch),
+                model)
 
     # decode: one new token against a cache of seq_len
     b = shape.global_batch
     enc_len = shape.seq_len if cfg.encoder_decoder else 0
     cache = shard_tree(model.init_cache(b, shape.seq_len, enc_len=enc_len),
-                       cache_pspecs(cfg, mesh, b, smart=smart_batch), mesh)
+                       cache_pspecs(cfg, mesh, b), mesh)
     sizes = axis_sizes(mesh)
     dp = dp_axes(mesh, cfg.pure_dp)
     dp_sz = 1
     for a in dp:
         dp_sz *= sizes[a]
-    tok_spec = PSpec(dp, None) if b % dp_sz == 0 else (
-        PSpec("data", None) if (smart_batch and b % sizes["data"] == 0)
-        else PSpec(None, None))
+    tok_spec = PSpec(dp, None) if b % dp_sz == 0 else PSpec(None, None)
     tokens = shard(_meta((b, 1), torch.int32), tok_spec, mesh)
     step = make_sharded_decode_step(model, mesh)
     return (lambda: step(params, tokens, cache, shape.seq_len),
-            (params, tokens, cache))
+            (params, tokens, cache), model)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             attn_impl: str | None = None, save: bool = True,
-             params_dtype=None, tp_only: bool = False, variant: str = "",
-             smart_batch: bool = False, decode_grouped: bool = False) -> dict:
+             attn_impl: str | None = None, save: bool = True) -> dict:
     mesh_name = "2x16x16" if multi_pod else "16x16"
     t0 = time.time()
-    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "ok": False,
-           "variant": variant}
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "ok": False}
     try:
         with fake_world(multi_pod) as mesh:
-            run, arguments = build_cell(
-                arch, shape_name, mesh, attn_impl, params_dtype=params_dtype,
-                tp_only=tp_only, smart_batch=smart_batch,
-                decode_grouped=decode_grouped)
+            run, arguments, model = build_cell(arch, shape_name, mesh,
+                                               attn_impl)
             t_build = time.time() - t0
             counter = StepCounter()
             with FlopCounterMode(display=False) as flop_counter, counter:
@@ -271,6 +259,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 collectives=counter.collectives(),
                 n_devices=n_dev,
                 memory=dict(argument_bytes=local_bytes(arguments),
+                            model_copy_bytes=local_bytes(model.param_tree()),
                             output_bytes=local_bytes(outputs),
                             temp_bytes=None, peak_bytes=None,
                             generated_code_bytes=None),
@@ -287,10 +276,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         print(f"[dryrun] FAIL {arch} {shape_name} {mesh_name}: {rec['error']}")
     if save:
         RESULTS.mkdir(parents=True, exist_ok=True)
-        tag = f"{arch}_{shape_name}_{mesh_name}"
-        if variant:
-            tag += f"__{variant}"
-        (RESULTS / f"{tag}.json").write_text(json.dumps(rec, indent=1))
+        (RESULTS / f"{arch}_{shape_name}_{mesh_name}.json").write_text(
+            json.dumps(rec, indent=1))
     return rec
 
 

@@ -114,6 +114,16 @@ def expected_argument_bytes(arch: str, shape_name: str) -> int:
     return total
 
 
+def full_params(arch: str) -> int:
+    """Entries of the reference's whole parameter tree at ``arch``'s full
+    width, padded for the 16x16 mesh."""
+    cfg = R.get_config(arch)
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    params = jax.eval_shape(lambda: r_build_model(
+        cfg, pad_heads=r_sh.pad_heads_for(cfg, mesh)).init(jax.random.key(0)))
+    return sum(int(np.prod(p.shape)) for p in jax.tree.leaves(params))
+
+
 def test_full_width_cell_runs_under_a_fake_group():
     code = ("import json; from repro_torch.launch import dryrun; "
             "print('RECORD' + json.dumps(dryrun.run_cell("
@@ -128,6 +138,8 @@ def test_full_width_cell_runs_under_a_fake_group():
     assert rec["n_devices"] == 256 and rec["mesh"] == "16x16"
     assert rec["memory"]["argument_bytes"] == expected_argument_bytes(
         "mamba2-780m", "train_4k")
+    assert rec["memory"]["model_copy_bytes"] == 4 * full_params(
+        "mamba2-780m")                          # fp32, whole on every rank
     assert rec["memory"]["peak_bytes"] is None
     assert rec["flops"] > 0 and rec["flops_corrected"] == rec["flops"]
     assert rec["bytes_accessed"] > 0

@@ -26,6 +26,7 @@ import torch
 
 import repro.configs as R
 import repro_torch.configs as P
+from repro.checkpoint import manager as r_manager
 from repro.data.pipeline import DataPipeline as RPipeline
 from repro.data.synth import make_batch as r_make_batch
 from repro.models import builder as r_builder
@@ -239,6 +240,13 @@ def test_failure_recovers_to_the_uninterrupted_losses_and_the_reference(
 
     monkeypatch.setattr(r_builder.Model, "init",
                         lambda self, key: jax.tree.map(jnp.asarray, tree))
+    # The reference's manager reads the directory while its async writer
+    # may still run, so under load its restart can miss the step-2 save
+    # and start over from 0. The port joins the writer first (ROADMAP,
+    # deliberate differences); hold the reference to that order too.
+    latest = r_manager.CheckpointManager.latest_step
+    monkeypatch.setattr(r_manager.CheckpointManager, "latest_step",
+                        lambda self: (self.wait(), latest(self))[1])
     ref = r_train(r_build_model(r_cfg, dtype=jnp.float32),
                   r_opt.make_optimizer("adamw", **kw),
                   RPipeline(r_cfg, 4, 32, dtype=jnp.float32), total_steps=6,

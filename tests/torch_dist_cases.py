@@ -12,9 +12,10 @@ package, ``chip_smoke.py`` runs the cases on the card. The mesh is 2 x
 WORLD/2 ("data", "model"); ``collective_matmul`` and ``compressed_mean``
 take a 1-D mesh of every rank. Imports the port only, never JAX.
 
-  train_adamw     phi3-mini-3.8b reduced(64), AdamW, B 8 x 32, one step
-  train_adafactor mamba2-780m reduced(64), Adafactor, B 8 x 32, one step
-  train_accum     train_adamw's step with grad_accum 2 on both sides
+  train_adamw     phi3-mini-3.8b reduced(64), AdamW, B 8 x 32, two steps
+                  (no warmup, so the first step's learning rate is not 0)
+  train_adafactor mamba2-780m reduced(64), Adafactor, B 8 x 32, two steps
+  train_accum     train_adamw's steps with grad_accum 2 on both sides
   decode          phi3-mini-3.8b reduced(64): prefill B 4 x 16, the cache
                   padded to 32, one decode step at cur_len 16
   cmm             collective_matmul of x [8 WORLD, 32] @ w [32, 48]
@@ -22,6 +23,9 @@ take a 1-D mesh of every rank. Imports the port only, never JAX.
                   rounds
   elastic         a checkpoint saved on 2 x WORLD/2, restored onto
                   WORLD/2 x 2
+  ckpt_sync       every rank's CheckpointManager on one directory, rank
+                  0's writer slowed: latest_step / restore after async
+                  saves see rank 0's last save on every rank
 """
 from __future__ import annotations
 
@@ -39,16 +43,24 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Shard
 
 #: Tolerances (the reference's tests/test_distributed.py): a sharded
-#: step's loss (rtol = atol) and parameters (rtol = atol), the decode
-#: step's logits and the collective matmul (rtol = atol).
-TOLS = dict(loss=1e-5, param=5e-4, decode=2e-4, cmm=2e-4)
+#: step's loss and gradient norm (rtol = atol) and parameters (rtol =
+#: atol), the decode step's logits and the collective matmul (rtol =
+#: atol). ``state``: an optimizer-state leaf (AdamW's m / v, Adafactor's
+#: row / col / full) within this fraction of the leaf's largest entry;
+#: its entries span decades (v is a squared gradient), so a bound on each
+#: entry alone would say nothing of the small ones.
+TOLS = dict(loss=1e-5, param=5e-4, decode=2e-4, cmm=2e-4, state=1e-4)
 #: Seeds of the cases' inputs (numpy), shared with the tests' JAX side.
 SEEDS = dict(params=0, batch=1, decode=2, cmm=3, cmean=4)
 #: case -> (arch, optimizer, grad_accum)
 TRAIN = {"train_adamw": ("phi3-mini-3.8b", "adamw", 1),
          "train_adafactor": ("mamba2-780m", "adafactor", 1),
          "train_accum": ("phi3-mini-3.8b", "adamw", 2)}
-TRAIN_SHAPE = dict(batch=8, seq=32, lr=1e-3)
+#: The train cases' steps: batch s draws from seed ``SEEDS["batch"] + s``;
+#: ``warmup`` 0 puts the first step at the full learning rate (the
+#: default warmup of 200 gives step 0 a rate of 0: parameters that never
+#: move).
+TRAIN_SHAPE = dict(batch=8, seq=32, lr=1e-3, warmup=0, steps=2)
 DECODE = dict(arch="phi3-mini-3.8b", batch=4, prompt=16, pad=16, token=7)
 CMM_SHAPE = dict(k=32, n=48, rows_per_rank=8)
 CMEAN = dict(width=1024, rounds=30)
@@ -127,16 +139,40 @@ def replica_mismatches(tree) -> int:
     return bad
 
 
-def max_rel(a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
+def _f64(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().double().cpu()
+    return torch.from_numpy(np.array(x, dtype=np.float64))
+
+
+def max_rel(a, b, tol: float) -> float:
     """max |a - b| / (tol (1 + |b|)): at most 1 within rtol = atol = tol."""
-    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    a, b = _f64(a), _f64(b)
     return float(((a - b).abs() / (tol * (1 + b.abs()))).max())
 
 
+def state_err(a, b) -> float:
+    """max |a - b| / (``TOLS["state"]`` max |b|): at most 1 within the
+    state tolerance."""
+    a, b = _f64(a), _f64(b)
+    return float((a - b).abs().max()
+                 / (TOLS["state"] * max(float(b.abs().max()), 1e-30)))
+
+
+def train_batch(cfg, step: int, device: str) -> dict:
+    from repro_torch.data.synth import make_batch
+    return make_batch(cfg, TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"],
+                      seed=SEEDS["batch"] + step, dtype=torch.float32,
+                      device=device)
+
+
 def case_train(name: str, world: int, device: str) -> tuple[dict, dict]:
+    """``TRAIN_SHAPE["steps"]`` sharded steps against as many single-rank
+    steps: loss and gradient norm of each step, then the parameters and
+    the optimizer state. The arrays: the parameters by path, the state as
+    ``opt/<path>``."""
     from repro_torch import interop
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.data.synth import make_batch
     from repro_torch.distributed.sharding import (batch_pspecs, gather_tree,
                                                   param_pspecs, shard_tree)
     from repro_torch.distributed.step import (make_sharded_train_step,
@@ -150,41 +186,62 @@ def case_train(name: str, world: int, device: str) -> tuple[dict, dict]:
     cfg = reduced(arch)
     tree = interop.numpy_reference_params(cfg, SEEDS["params"])
     b, s = TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"]
-    batch = make_batch(cfg, b, s, seed=SEEDS["batch"], dtype=torch.float32,
-                       device=device)
-    opt = make_optimizer(mode, lr=TRAIN_SHAPE["lr"])
+    steps = range(TRAIN_SHAPE["steps"])
+    opt = make_optimizer(mode, lr=TRAIN_SHAPE["lr"],
+                         warmup=TRAIN_SHAPE["warmup"])
 
     def model():
         return build_model(cfg, interop.params_from_reference(cfg, tree),
                            dtype=torch.float32, device=device)
 
     m1 = model()
-    p1, _, met1 = make_train_step(m1, opt, accum)(
-        m1.param_tree(), opt.init(m1.param_tree()), batch, 0)
+    step1 = make_train_step(m1, opt, accum)
+    p1, s1 = m1.param_tree(), opt.init(m1.param_tree())
+    p0 = {k: v.detach().clone() for k, v in leaves_with_paths(p1)}
+    met1 = []
+    for t in steps:
+        p1, s1, m = step1(p1, s1, train_batch(cfg, t, device), t)
+        met1.append(m)
 
     mesh = init_device_mesh(device.split(":")[0], (2, world // 2),
                             mesh_dim_names=("data", "model"))
     m2 = model()
     full = m2.param_tree()
     specs = param_pspecs(cfg, full, mesh)
-    params = shard_params(full, specs, mesh)
-    state = shard_opt_state(opt, full, specs, mesh)
-    batch_sh = shard_tree(batch, batch_pspecs(cfg, mesh,
-                                              ShapeSpec("t", s, b, "train")),
-                          mesh)
-    step = make_sharded_train_step(m2, opt, mesh, specs, accum)
-    p2, s2, met2 = step(params, state, batch_sh, 0)
-    bad = replica_mismatches(p2) + replica_mismatches(s2)
+    p2 = shard_params(full, specs, mesh)
+    s2 = shard_opt_state(opt, full, specs, mesh)
+    bspecs = batch_pspecs(cfg, mesh, ShapeSpec("t", s, b, "train"))
+    step2 = make_sharded_train_step(m2, opt, mesh, specs, accum)
+    met2, bad = [], 0
+    for t in steps:
+        p2, s2, m = step2(p2, s2, shard_tree(train_batch(cfg, t, device),
+                                             bspecs, mesh), t)
+        met2.append(m)
+        bad += replica_mismatches(p2) + replica_mismatches(s2)
     got = dict(leaves_with_paths(gather_tree(p2)))
     want = dict(leaves_with_paths(p1))
-    res = dict(loss_single=float(met1["loss"]), loss=float(met2["loss"]),
-               grad_norm_single=float(met1["grad_norm"]),
-               grad_norm=float(met2["grad_norm"]),
-               loss_err=max_rel(met2["loss"], met1["loss"], TOLS["loss"]),
+    got_s = dict(leaves_with_paths(gather_tree(s2)))
+    want_s = dict(leaves_with_paths(s1))
+    res = dict(loss_single=[float(m["loss"]) for m in met1],
+               loss=[float(m["loss"]) for m in met2],
+               grad_norm_single=[float(m["grad_norm"]) for m in met1],
+               grad_norm=[float(m["grad_norm"]) for m in met2],
+               loss_err=max(max_rel(x["loss"], y["loss"], TOLS["loss"])
+                            for x, y in zip(met2, met1)),
+               grad_norm_err=max(max_rel(x["grad_norm"], y["grad_norm"],
+                                         TOLS["loss"])
+                                 for x, y in zip(met2, met1)),
                param_err=max(max_rel(got[k], want[k], TOLS["param"])
                              for k in want),
+               params_moved=max(float((want[k] - p0[k]).abs().max())
+                                for k in want),
+               state_err=max(state_err(got_s[k], want_s[k]) for k in want_s),
+               state_leaves=len(want_s) if set(got_s) == set(want_s) else -1,
                replica_mismatches=bad, leaves=len(want))
-    return res, {k: v.detach().cpu().numpy() for k, v in got.items()}
+    arrays = {k: v.detach().cpu().numpy() for k, v in got.items()}
+    arrays.update({f"opt/{k}": v.detach().cpu().numpy()
+                   for k, v in got_s.items()})
+    return res, arrays
 
 
 def case_decode(world: int, device: str) -> tuple[dict, dict]:
@@ -313,6 +370,38 @@ def case_elastic(world: int, device: str, out_dir: pathlib.Path
                 manifest=str(ckpt / "step_000003" / "manifest.json")), {}
 
 
+def case_ckpt_sync(world: int, device: str, out_dir: pathlib.Path
+                   ) -> tuple[dict, dict]:
+    import time
+
+    from repro_torch.checkpoint import manager
+
+    save = manager.save_checkpoint
+    if dist.get_rank() == 0:
+        def slow_save(*args, **kwargs):
+            time.sleep(1.0)
+            return save(*args, **kwargs)
+        manager.save_checkpoint = slow_save
+    try:
+        mgr = manager.CheckpointManager(str(out_dir / "sync_ckpt"), keep=2)
+        pruned = []
+        gc = mgr._gc
+        mgr._gc = lambda: (pruned.append(1), gc())
+        tree = {"w": torch.arange(6.0, device=device)}
+        for step in (1, 2, 3):
+            mgr.save(step, {"w": tree["w"] * step})
+        latest = mgr.latest_step()
+        _, restored, _ = mgr.restore(tree)
+        mgr.wait()
+    finally:
+        manager.save_checkpoint = save
+    mine = dict(latest=latest, pruned=len(pruned),
+                equal=bool(torch.equal(restored["w"], tree["w"] * 3)))
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    return dict(ranks=every), {}
+
+
 def run_ranks(world: int, out_dir, device: str, cases: list[str],
               timeout: float = 300) -> dict:
     """Run ``cases`` on ``world`` ranks, each a child process of this
@@ -365,6 +454,8 @@ def main(argv: list[str]) -> None:
                 res, arrays = case_train(case, world, device)
             elif case == "elastic":
                 res, arrays = case_elastic(world, device, out_dir)
+            elif case == "ckpt_sync":
+                res, arrays = case_ckpt_sync(world, device, out_dir)
             else:
                 res, arrays = {"decode": case_decode, "cmm": case_cmm,
                                "cmean": case_cmean}[case](world, device)
