@@ -378,6 +378,13 @@ class SmClock:
     def __exit__(self, *exc):
         self.proc.terminate()
         out, _ = self.proc.communicate(timeout=30)
+        if not out.split():
+            # a terminated nvidia-smi can lose its buffered samples: read
+            # the clock once more
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=30).stdout
         vals = sorted(float(x) for x in out.split()
                       if x.replace(".", "", 1).isdigit())
         if not vals:
@@ -3033,6 +3040,9 @@ DIST_RANKS = 4
 #: phase ran it, whose losses it must equal bit for bit.
 DIST_LAUNCH = TRAIN_LAUNCH + ["--distributed"]
 DRYRUN = ["--arch", "mamba2-780m", "--shape", "train_4k"]
+#: The world-1 sharded step's peak when its rank model held a whole copy
+#: of the parameters beside their shards (H100 80GB HBM3, 700 W; PERF.md).
+DIST_PEAK_BEFORE_GIB = 21.35
 
 
 @contextlib.contextmanager
@@ -3063,7 +3073,8 @@ def one_rank_env():
 def dist_parity(fixture: dict, cfg, tree: dict) -> dict:
     """The fixture's steps through ``make_sharded_train_step`` on a 1x1
     NCCL mesh on the card, each held to the JAX package's
-    (``parity_row``), then the step's time and peak memory."""
+    (``parity_row``), then the step's time and peak memory. The rank's
+    model lives on ``meta``: the step reads only its shards."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -3076,6 +3087,7 @@ def dist_parity(fixture: dict, cfg, tree: dict) -> dict:
                                               shard_opt_state, shard_params)
     from repro_torch.models import build_model
     from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.tree import unflatten
 
     a = fixture["args"]
     with one_rank_env():
@@ -3083,14 +3095,15 @@ def dist_parity(fixture: dict, cfg, tree: dict) -> dict:
     try:
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
-        model = build_model(cfg, interop.params_from_reference(cfg, tree),
-                            dtype=torch.float32, device="cuda")
+        weights = interop.params_from_reference(cfg, tree)
+        model = build_model(cfg, weights, dtype=torch.float32, device="meta")
         opt = make_optimizer(a["optimizer"], lr=a["lr"], warmup=a["warmup"],
                              total_steps=a["total_steps"])
-        full = model.param_tree()
+        full = unflatten({k: v.to("cuda") for k, v in weights.items()}, ".")
         specs = param_pspecs(cfg, full, mesh)
         params = shard_params(full, specs, mesh)
         state = shard_opt_state(opt, full, specs, mesh)
+        del full, weights
         step_fn = make_sharded_train_step(model, opt, mesh, specs)
         pipe = DataPipeline(cfg, a["batch"], a["seq"], seed=a["data_seed"],
                             device="cuda")
@@ -3112,8 +3125,8 @@ def dist_parity(fixture: dict, cfg, tree: dict) -> dict:
             rows.append(parity_row("distributed", step, m, want,
                                    gather_tree(params), index, ms))
         return dict(rows=rows, peak_gib=torch.cuda.max_memory_allocated()
-                    / 2**30, placements=str(params["embed"]["table"]
-                                            .placements))
+                    / 2**30, gathered=step_fn.meter.peak,
+                    placements=str(params["embed"]["table"].placements))
     finally:
         dist.destroy_process_group()
 
@@ -3137,9 +3150,10 @@ def dist_launcher(tree: dict, want: list) -> dict:
 
 def dist_ranks() -> dict:
     """The 4-rank cases on ``DIST_RANK_DEVICE``, each held to the
-    single-rank result at the CPU tests' tolerances; the ring's
-    ``compressed_mean`` bit for bit to the same ring played out in one
-    process."""
+    single-rank result at the CPU tests' tolerances (every train case, its
+    gradients leaf by leaf, the prefill and decode of phi3 and jamba and
+    their gathered bytes); the ring's ``compressed_mean`` bit for bit to
+    the same ring played out in one process."""
     import tempfile
 
     import torch_dist_cases as tdc
@@ -3147,22 +3161,33 @@ def dist_ranks() -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         out = tdc.run_ranks(DIST_RANKS, d, DIST_RANK_DEVICE,
-                            [*tdc.TRAIN, "decode", "cmm", "cmean"],
-                            timeout=240)
+                            [*tdc.TRAIN, "grads", *tdc.DECODES, "cmm",
+                             "cmean"], timeout=240)
     out["wall_s"] = time.perf_counter() - t0
     for name in tdc.TRAIN:
         r = out[name]
+        state = ("state_err_first" if name in tdc.STATE_AFTER_FIRST
+                 else "state_err")
         if r["replica_mismatches"] or r["state_leaves"] <= 0 or any(
                 r[k] > 1 for k in ("loss_err", "grad_norm_err", "param_err",
-                                   "state_err")):
+                                   state)):
             fail(f"distributed: the sharded {name} steps differ from the "
                  f"single rank's or between replicas: {r}")
         if r["params_moved"] <= tdc.TOLS["param"]:
             fail(f"distributed: the {name} steps left the parameters "
                  f"within their tolerance of the start: {r}")
-    r = out["decode"]
-    if r["logits_err"] > 1 or r["cache_err"] > 1 or not r["cache_layout_kept"]:
-        fail(f"distributed: the sharded decode differs: {r}")
+    for arch, r in out["grads"].items():
+        if arch not in ("world", "device") and (
+                r["err"] > 1 or not r["same_leaves"]):
+            fail(f"distributed: {arch}'s sharded gradients differ: {r}")
+    for name in tdc.DECODES:
+        r = out[name]
+        if any(r[k] > 1 for k in ("logits_err", "cache_err",
+                                  "prefill_logits_err", "prefill_cache_err")
+               ) or not r["cache_layout_kept"] or not (
+                0 < r["prefill_gathered"] <= 2 * r["block_bytes"]
+                and 0 < r["decode_gathered"] <= 2 * r["whole_block_bytes"]):
+            fail(f"distributed: the sharded {name} differs: {r}")
     if out["cmm"]["err"] > 1:
         fail(f"distributed: collective_matmul differs: {out['cmm']}")
     r = out["cmean"]
@@ -3193,7 +3218,15 @@ def dist_dryrun(run) -> dict:
     if proc.returncode or not ok:
         fail(f"distributed: the dry-run failed (rc {proc.returncode}): "
              f"{out[-2000:]} {err[-2000:]}")
-    return dict(line=ok[-1], wall_s=time.perf_counter() - t0), beside
+    from repro_torch.launch import roofline
+
+    rec = json.loads((roofline.RESULTS / (
+        f"{DRYRUN[1]}_{DRYRUN[3]}_16x16.json")).read_text())
+    mem = rec["memory"]
+    return dict(line=ok[-1], wall_s=time.perf_counter() - t0,
+                peak_bytes=mem["peak_bytes"],
+                gathered_bytes=mem["gathered_bytes"],
+                useful=roofline.analyze(rec)["useful_ratio"]), beside
 
 
 def phase_distributed(smi: str, tree: dict, launcher_losses: list):
@@ -3218,7 +3251,10 @@ def phase_distributed(smi: str, tree: dict, launcher_losses: list):
             + ("; the fixture's grad_norm is NaN" if "reference_grad_norm"
                in r else ""))
     log(f"[distributed] sharded step peak {parity['peak_gib']:.2f} GiB "
-        f"(embed table {parity['placements']}); card {smi}")
+        f"(with a whole copy beside the shards it was "
+        f"{DIST_PEAK_BEFORE_GIB:.2f} GiB; embed table "
+        f"{parity['placements']}, gathered {parity['gathered']} B); "
+        f"card {smi}")
     torch.cuda.empty_cache()
     launcher = dist_launcher(tree, launcher_losses)
     log(f"[distributed] launch.train {' '.join(DIST_LAUNCH)} at world 1 "
@@ -3231,7 +3267,8 @@ def phase_distributed(smi: str, tree: dict, launcher_losses: list):
     log(f"[distributed] {DIST_RANKS} gloo ranks (2x2) on {DIST_RANK_DEVICE}: "
         + json.dumps(ranks))
     log(f"[distributed] {dry['line']} ({dry['wall_s']:.1f} s, beside the "
-        f"ranks)")
+        f"ranks): peak_bytes {dry['peak_bytes']}, gathered_bytes "
+        f"{dry['gathered_bytes']}, useful {dry['useful']:.4f}")
     summary = dict(parity=parity, launcher=launcher, ranks=ranks,
                    dryrun=dry, wall_s=time.perf_counter() - t0,
                    rank_device=DIST_RANK_DEVICE, card=smi)

@@ -2,45 +2,38 @@
 ``jax.jit`` on sharded inputs.
 
 The reference writes layouts only (``sharding.py``) and lets XLA's GSPMD
-decide the data movement of the unchanged step. PyTorch has no GSPMD, so
-these steps state it. Every parameter, optimizer-state, batch and cache
-leaf lives on the mesh as a ``DTensor`` laid out by its spec, as the
-reference's arrays are, and the optimizer updates only its shards. The
-parameters are not sharded during compute: each rank's ``model`` holds a
-whole copy of every parameter for as long as the step lives, and the
-steps gather the whole tree into it. A train step:
+partition the unchanged step. PyTorch has no GSPMD, so these steps state
+it (``partition.Partitioned``). Every parameter, optimizer-state, batch
+and cache leaf lives on the mesh as a ``DTensor`` laid out by its spec,
+as the reference's arrays are, and no rank ever holds the whole parameter
+tree: a block's leaves are gathered over "data" at their use and freed
+after it (FSDP, ZeRO-3), and where a spec splits a leaf over "model" the
+rank computes only its slice (tensor, expert and vocabulary parallelism,
+with the sequence-parallel carry between blocks). ``pure_dp``
+architectures (smollm) keep every parameter replicated and split the
+batch over ("data", "model"). A train step:
 
-1. each rank takes its batch rows (the batch's ``batch_pspecs`` layout);
-2. it gathers every parameter in full (an all-gather of each sharded
-   leaf) and copies the tree into its model;
-3. it runs the port's own ``Model.loss`` and ``torch.autograd.grad`` on
-   its rows (``train.step.loss_and_grads``, with ``grad_accum``): whole
-   gradients, as many bytes as the parameters;
-4. each gradient becomes a ``Partial("avg")`` DTensor over the mesh
-   dimensions that split the batch, replicated over the others;
-5. it is redistributed to its leaf's layout (a reduce-scatter where the
-   leaf is sharded, an all-reduce where it is not);
-6. ``Optimizer.update`` runs on the shards, and the new state is laid out
-   by ``Optimizer.state_pspecs``;
-7. the loss, ``ce`` and ``aux`` are averaged over the batch's mesh
-   dimensions.
+1. each rank takes its batch rows (the batch's ``batch_pspecs`` layout;
+   with ``grad_accum > 1``, microbatch i is the batch's rows ``[i B / a,
+   (i + 1) B / a)`` split over the same ranks, as the reference's reshape
+   of the global batch takes them);
+2. it runs ``Model.loss`` through the partitioned layout: the whole
+   batch's cross-entropy and MoE capacity, drop order and aux loss, on
+   every rank alike;
+3. its backward, seeded with ``loss / N`` (N ranks), reduce-scatters
+   each split leaf's gradient into its shard and sums a replicated leaf's
+   over the dimensions that replicate it (``Partitioned.grads``);
+4. ``Optimizer.update`` runs on the shards, and the new state is laid out
+   by ``Optimizer.state_pspecs``.
 
-So a device holds the whole parameters and, during the backward, the
-whole gradients, beside its shards of the parameters and of the optimizer
-state: the memory of ZeRO stage 1, not of ZeRO-3 / FSDP, which would
-gather a block's parameters at its use and free them after. The
-dry-run's ``memory.model_copy_bytes`` counts the whole copy. Compute is
-replicated over "model" wherever the batch is not split over it:
-tensor-parallel compute inside a layer is not ported (a deliberate
-difference, as is the whole copy; ROADMAP). Averaging per-rank losses equals the
-reference's global mean when every rank's rows hold as many valid labels,
-as every batch of ``data.synth`` does; a MoE's load-balancing ``aux`` is
-the ranks' mean, where the reference's is the whole batch's.
-
-The decode step gathers the parameters and the cache rows of the rank's
-batch rows (the sequence and heads in full), runs ``Model.decode_step``
-and writes the updated rows back into the cache's own layout; the prefill
-step runs ``Model.prefill`` on the rank's rows. Every rank of a mesh must
+The prefill step runs the same partitioned forward without the carry and
+returns the cache split over the batch's mesh dimensions (the cache's
+batch is its dimension 1), its heads whole; the decode step gathers one
+block at a time over every axis, runs ``Model.decode_step`` on the rank's
+cache rows and writes them back into the cache's own layout. Neither
+launches a kernel: the sharded steps take the reference's own operations.
+Each step function carries ``meter`` (``partition.GatherMeter``): the
+most gathered parameter bytes it held at once. Every rank of a mesh must
 call a step together: each holds collectives.
 """
 from __future__ import annotations
@@ -48,31 +41,40 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.distributed.sharding import (gather_tree, is_spec,
-                                              map_tree, placements,
+from repro_torch.distributed.partition import (GatherMeter, MeshBatch,
+                                               Partitioned)
+from repro_torch.distributed.sharding import (is_spec, map_tree, placements,
                                               shard_tree)
 from repro_torch.models.builder import Model
 from repro_torch.train.optimizer import Optimizer
-from repro_torch.train.step import adopt, loss_and_grads
-from repro_torch.tree import leaves_with_paths, unflatten
+from repro_torch.tree import unflatten
+
+
+def _own(tree: dict) -> dict:
+    """Each DTensor's local shard copied into memory of its own, so that
+    it holds no view of the whole tensor it was cut from."""
+    return map_tree(lambda t: DTensor.from_local(
+        t.to_local().detach().clone(), t.device_mesh, t.placements,
+        run_check=False, shape=t.shape, stride=t.stride()), tree)
 
 
 def shard_params(params: dict, specs: dict, mesh) -> dict:
     """The parameter tree (whole tensors, alike on every rank) sharded by
-    ``specs`` (``param_pspecs``), into memory of its own: a rank's shard
-    never aliases the model's parameter it came from."""
-    return shard_tree(map_tree(lambda t: t.detach().clone(), params), specs,
-                      mesh)
+    ``specs`` (``param_pspecs``), each shard in memory of its own: it
+    never aliases the model's parameter it came from, nor keeps the whole
+    tensor alive."""
+    return _own(shard_tree(params, specs, mesh))
 
 
 def shard_opt_state(optimizer: Optimizer, params: dict, specs: dict,
                     mesh) -> dict:
     """``optimizer.init`` of the whole ``params``, sharded by
-    ``optimizer.state_pspecs(specs, params)``."""
-    return shard_tree(optimizer.init(params),
-                      optimizer.state_pspecs(specs, params), mesh)
+    ``optimizer.state_pspecs(specs, params)``, each shard in memory of its
+    own."""
+    return _own(shard_tree(optimizer.init(params),
+                           optimizer.state_pspecs(specs, params), mesh))
 
 
 def _rows(t: DTensor, dim: int) -> list:
@@ -85,61 +87,93 @@ def _local(t: DTensor, pl: list) -> torch.Tensor:
     return t.redistribute(t.device_mesh, pl).to_local()
 
 
-def _mean_over(x: torch.Tensor, mesh, batch_pl: list) -> torch.Tensor:
-    """This rank's ``x`` averaged over the mesh dimensions that split the
-    batch (a whole tensor on every rank)."""
-    pl = [Partial("avg") if p == Shard(0) else Replicate() for p in batch_pl]
-    return DTensor.from_local(x, mesh, pl, run_check=False).full_tensor()
+def _batch_dims(pl: list, dim: int = 0) -> list[int]:
+    return [d for d, p in enumerate(pl) if p == Shard(dim)]
+
+
+def _microbatches(batch: dict, mesh, dims: list[int], n: int) -> list[dict]:
+    """The rank's rows of each of ``n`` microbatches: microbatch i is the
+    global batch's rows ``[i B / n, (i + 1) B / n)``, split over the
+    batch's ranks in order."""
+    if n == 1:
+        return [{k: v.to_local() for k, v in batch.items()}]
+    group = MeshBatch(mesh, dims)
+    whole = {k: v.full_tensor() for k, v in batch.items()}
+    rows = next(iter(whole.values())).shape[0]
+    if rows % (n * group.size):
+        raise ValueError(f"batch {rows} does not split into {n} "
+                         f"microbatches over {group.size} ranks")
+    per = rows // n
+    return [{k: v[i * per:(i + 1) * per].tensor_split(group.size)[
+        group.index] for k, v in whole.items()} for i in range(n)]
 
 
 def make_sharded_train_step(model: Model, optimizer: Optimizer, mesh,
                             param_specs: dict, grad_accum: int = 1
                             ) -> Callable:
-    """The sharded step for ``model`` (the rank's compute copy, whose
-    parameters it sets to require grad) on ``mesh``: ``(params,
-    opt_state, batch, step) -> (params, opt_state, metrics)`` with
-    ``params`` / ``opt_state`` as ``shard_params`` / ``shard_opt_state``
-    make them and ``batch`` sharded by ``batch_pspecs``. ``params`` is
-    updated in place; ``metrics`` are whole tensors, alike on every
-    rank."""
-    model.requires_grad_(True)
-    spec_of = dict(leaves_with_paths(param_specs))
-    state_specs = optimizer.state_pspecs(param_specs, model.param_tree())
+    """The sharded step for ``model`` (its config and fields; its own
+    parameters are not read, so it may live on ``meta``) on ``mesh``:
+    ``(params, opt_state, batch, step) -> (params, opt_state, metrics)``
+    with ``params`` / ``opt_state`` as ``shard_params`` /
+    ``shard_opt_state`` make them and ``batch`` sharded by
+    ``batch_pspecs``. ``params`` is updated in place; ``metrics`` are
+    whole tensors, alike on every rank. ``train_step.grads(params,
+    batch)`` is steps 1-3 alone: (loss, {"ce", "aux"}, {path: gradient
+    DTensor}); the loss and ``ce`` / ``aux`` as ``train.step.
+    loss_and_grads`` returns them."""
+    meter = GatherMeter()
+    n = mesh.size()
+
+    def grads(params, batch):
+        dims = _batch_dims(next(iter(batch.values())).placements)
+        loss = total = None
+        for mb in _microbatches(batch, mesh, dims, grad_accum):
+            layout = Partitioned(model.cfg, params, mesh, dims, "train",
+                                 meter)
+            l, extras = model.loss(mb, layout=layout)
+            g = layout.grads(l / n)
+            loss = l.detach() if loss is None else loss + l.detach()
+            total = g if total is None else {k: total[k] + v
+                                             for k, v in g.items()}
+        extras = {k: v.detach() for k, v in extras.items()}
+        if grad_accum == 1:
+            return loss, extras, total
+        return (loss / grad_accum, extras,
+                {k: v / grad_accum for k, v in total.items()})
 
     def train_step(params, opt_state, batch, step):
-        adopt(model, gather_tree(params))
-        batch_pl = next(iter(batch.values())).placements
-        local = {k: v.to_local() for k, v in batch.items()}
-        loss, extras, grads = loss_and_grads(model, local, grad_accum)
-        partial = [Partial("avg") if p == Shard(0) else Replicate()
-                   for p in batch_pl]
-        grads = {k: DTensor.from_local(g, mesh, partial, run_check=False)
-                 .redistribute(mesh, placements(spec_of[k], mesh))
-                 for k, g in grads.items()}
-        params, opt_state, m = optimizer.update(unflatten(grads), opt_state,
+        loss, extras, g = grads(params, batch)
+        params, opt_state, m = optimizer.update(unflatten(g), opt_state,
                                                 params, step)
+        state_specs = optimizer.state_pspecs(param_specs, params)
         opt_state = map_tree(
             lambda s, t: t.redistribute(mesh, placements(s, mesh)),
             state_specs, opt_state, is_leaf=is_spec)
-        metrics = {"loss": _mean_over(loss, mesh, batch_pl),
-                   **{k: _mean_over(v, mesh, batch_pl)
-                      for k, v in extras.items()},
-                   "grad_norm": gather_tree(m["grad_norm"]), "lr": m["lr"]}
+        metrics = {"loss": loss, **extras,
+                   "grad_norm": _whole(m["grad_norm"]), "lr": m["lr"]}
         return params, opt_state, metrics
 
+    train_step.grads, train_step.meter = grads, meter
     return train_step
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_sharded_prefill_step(model: Model, mesh) -> Callable:
     """``(params, batch) -> (logits, cache)`` on the rank's batch rows:
     logits ``[B, 1, V]`` and the cache as DTensors split over the batch's
     mesh dimensions (the cache's batch is its dimension 1)."""
+    meter = GatherMeter()
 
     def prefill(params, batch):
-        adopt(model, gather_tree(params))
         batch_pl = next(iter(batch.values())).placements
+        layout = Partitioned(model.cfg, params, mesh, _batch_dims(batch_pl),
+                             "prefill", meter)
         logits, cache = model.prefill({k: v.to_local()
-                                       for k, v in batch.items()})
+                                       for k, v in batch.items()},
+                                      layout=layout)
         cache_pl = [Shard(1) if p == Shard(0) else Replicate()
                     for p in batch_pl]
         return (DTensor.from_local(logits, mesh, batch_pl, run_check=False),
@@ -147,6 +181,7 @@ def make_sharded_prefill_step(model: Model, mesh) -> Callable:
                                                       run_check=False),
                          cache))
 
+    prefill.meter = meter
     return prefill
 
 
@@ -154,17 +189,20 @@ def make_sharded_decode_step(model: Model, mesh) -> Callable:
     """``(params, tokens, cache, cur_len) -> (logits, cache)``: ``cache``
     laid out by ``cache_pspecs`` and returned so, ``tokens`` ``[B, 1]``
     in any layout; logits ``[B, 1, V]`` split as the cache's batch."""
+    meter = GatherMeter()
 
     def decode(params, tokens, cache, cur_len):
-        adopt(model, gather_tree(params))
         rows = _rows(next(iter(cache.values()))[0], 1)
         tok_pl = [Shard(0) if p == Shard(1) else Replicate() for p in rows]
+        layout = Partitioned(model.cfg, params, mesh, _batch_dims(rows, 1),
+                             "decode", meter)
         local = map_tree(lambda c: _local(c, _rows(c, 1)), cache)
         logits, new = model.decode_step(_local(tokens, tok_pl), local,
-                                        cur_len)
+                                        cur_len, layout=layout)
         new = map_tree(lambda n, c: DTensor.from_local(
             n, mesh, _rows(c, 1), run_check=False).redistribute(
                 mesh, c.placements), new, cache)
         return DTensor.from_local(logits, mesh, tok_pl, run_check=False), new
 
+    decode.meter = meter
     return decode

@@ -15,9 +15,17 @@ once, nothing is sent), as rank 0:
   3. records, per device (rank 0, which holds as much as any rank):
      - ``memory.argument_bytes``: the step's arguments, exact, from the
        local shard shapes of parameters, optimizer state, batch and cache;
-     - ``memory.model_copy_bytes``: the whole parameter tree the rank's
-       model holds for compute (the steps gather every parameter into it,
-       ``repro_torch.distributed.step``), which the arguments leave out;
+     - ``memory.gathered_bytes``: the most gathered parameter bytes alive
+       at once, counted by the step's gathers (``partition.GatherMeter``;
+       the steps gather a block at its use and free it after);
+     - ``memory.peak_bytes``: the high-water mark of live tensor storage
+       over the step (``LiveBytes``): the arguments, then every storage an
+       operation creates, held by a weak reference and dropped from the
+       count when freed, summed after each operation; gathered blocks,
+       activations, saved carries, gradients and the new optimizer state
+       all count, as they would on the card (no allocator rounding, no
+       fragmentation, no CUDA workspace); ``temp_bytes`` is ``peak_bytes``
+       less the arguments;
      - ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the
        step (matmuls, convolutions and attention; the backward and its
        recompute included);
@@ -35,9 +43,11 @@ once, nothing is sent), as rank 0:
 
 Execution runs every layer, so no loop correction is needed:
 ``flops_corrected`` / ``bytes_corrected`` equal the counts and the record
-says so. ``peak_bytes`` is null: nothing runs on a device. The
-reference's ``carry_spec``, ``scan_unroll`` and ``no_seq_parallel`` are XLA
-directives with no counterpart here.
+says so. A MoE layer's expert products take the balanced load on meta
+(no routing to read; ``models.moe._moe_split``). The reference's
+``carry_spec`` is the partitioned step's sequence-parallel carry;
+``scan_unroll`` and ``no_seq_parallel`` are XLA directives with no
+counterpart here.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b --shape train_4k
@@ -55,6 +65,7 @@ import traceback
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -63,13 +74,13 @@ from repro_torch.configs.shapes import shapes_for, skipped_shapes_for
 from repro_torch.data.synth import batch_shapes
 from repro_torch.distributed.sharding import (PSpec, axis_sizes,
                                               batch_pspecs, cache_pspecs,
-                                              dp_axes, local_bytes,
+                                              dp_axes, local_bytes, map_tree,
                                               pad_heads_for, param_pspecs,
                                               shard, shard_tree)
 from repro_torch.distributed.step import (make_sharded_decode_step,
                                           make_sharded_prefill_step,
                                           make_sharded_train_step,
-                                          shard_opt_state)
+                                          shard_opt_state, shard_params)
 from repro_torch.interop import flatten
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model
@@ -164,6 +175,102 @@ class StepCounter(TorchDispatchMode):
         return out
 
 
+class LiveBytes(TorchDispatchMode):
+    """The high-water mark of live tensor storage over what runs under
+    it, on the local tensors (an op on DTensors is left to DTensor, as in
+    :class:`StepCounter`). ``seed``: tensors alive before (the step's
+    arguments), counted at their own size. Every op's outputs add their
+    storage once; a storage leaves the count when its weak reference has
+    expired, checked whenever the count would pass the peak (so the
+    peak is exact: a count with freed storages in it is only higher).
+    DTensor works out an op's output layout by running the op on
+    stand-ins of the whole (global) tensors, which on ``meta`` look like
+    allocations: ops run while ``paused`` (:func:`dtensor_propagation`)
+    are not counted."""
+
+    def __init__(self, seed=()):
+        super().__init__()
+        self._live: dict[int, tuple] = {}
+        self.current = self.peak = self.paused = 0
+        for t in seed:
+            self._add(t, t.numel() * t.element_size())
+        self.peak = self.current
+
+    def _add(self, t: torch.Tensor, nbytes: int | None = None) -> None:
+        s = t.untyped_storage()
+        key = s._cdata
+        old = self._live.get(key)
+        if old is not None and not old[0].expired():
+            if nbytes is not None:      # another argument on this storage
+                self._live[key] = (old[0], old[1] + nbytes)
+                self.current += nbytes
+            return
+        if old is not None:
+            self.current -= old[1]
+        n = s.nbytes() if nbytes is None else nbytes
+        self._live[key] = (StorageWeakRef(s), n)
+        self.current += n
+
+    def _sweep(self) -> None:
+        for key in [k for k, (w, _) in self._live.items() if w.expired()]:
+            self.current -= self._live.pop(key)[1]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if self.paused:
+            return out
+        for t in _tensors((out,)):
+            self._add(t)
+        if self.current > self.peak:   # freed storages may still count
+            self._sweep()
+            self.peak = max(self.peak, self.current)
+        return out
+
+
+@contextlib.contextmanager
+def dtensor_propagation(live: LiveBytes):
+    """Pause ``live`` while DTensor's sharding propagator runs an op on
+    global stand-ins (``ShardingPropagator._propagate_tensor_meta*``,
+    where this release of torch has them)."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    names = [n for n in ("_propagate_tensor_meta",
+                         "_propagate_tensor_meta_non_cached")
+             if hasattr(ShardingPropagator, n)]
+    saved = {n: getattr(ShardingPropagator, n) for n in names}
+
+    def paused(fn):
+        def run(*args, **kwargs):
+            live.paused += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                live.paused -= 1
+        return run
+
+    for n in names:
+        setattr(ShardingPropagator, n, paused(saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ShardingPropagator, n, fn)
+
+
+def _locals(tree) -> list[torch.Tensor]:
+    """The local tensors of a tree of (D)tensors (a tuple of trees counts
+    each)."""
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        return [t for part in tree for t in _locals(part)]
+    out: list = []
+    map_tree(lambda t: out.append(t.to_local() if isinstance(t, DTensor)
+                                  else t)
+             if isinstance(t, torch.Tensor) else None, tree)
+    return out
+
+
 @contextlib.contextmanager
 def fake_world(multi_pod: bool):
     """A fake process group of the production mesh's size, this process
@@ -187,9 +294,10 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 
 def build_cell(arch: str, shape_name: str, mesh, attn_impl: str | None = None):
-    """(run, arguments, model) for one cell on ``mesh``: ``run()`` runs
+    """(run, arguments, step) for one cell on ``mesh``: ``run()`` runs
     the sharded step on the meta arguments and returns its outputs;
-    ``model`` is the rank's compute copy."""
+    ``step`` is the step function (its ``meter`` counts the gathered
+    bytes)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if attn_impl is None:
@@ -202,7 +310,7 @@ def build_cell(arch: str, shape_name: str, mesh, attn_impl: str | None = None):
              else torch.float32)
     full = model.param_tree()
     specs = param_pspecs(cfg, full, mesh)
-    params = shard_tree(full, specs, mesh)
+    params = shard_params(full, specs, mesh)
 
     if shape.kind in ("train", "prefill"):
         shapes = batch_shapes(cfg, shape.global_batch, shape.seq_len)
@@ -210,12 +318,12 @@ def build_cell(arch: str, shape_name: str, mesh, attn_impl: str | None = None):
                            batch_pspecs(cfg, mesh, shape), mesh)
         if shape.kind == "prefill":
             step = make_sharded_prefill_step(model, mesh)
-            return lambda: step(params, batch), (params, batch), model
+            return lambda: step(params, batch), (params, batch), step
         opt = make_optimizer(cfg.optimizer_mode)
         state = shard_opt_state(opt, full, specs, mesh)
         step = make_sharded_train_step(model, opt, mesh, specs)
         return (lambda: step(params, state, batch, 0), (params, state, batch),
-                model)
+                step)
 
     # decode: one new token against a cache of seq_len
     b = shape.global_batch
@@ -231,7 +339,7 @@ def build_cell(arch: str, shape_name: str, mesh, attn_impl: str | None = None):
     tokens = shard(_meta((b, 1), torch.int32), tok_spec, mesh)
     step = make_sharded_decode_step(model, mesh)
     return (lambda: step(params, tokens, cache, shape.seq_len),
-            (params, tokens, cache), model)
+            (params, tokens, cache), step)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -241,14 +349,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "ok": False}
     try:
         with fake_world(multi_pod) as mesh:
-            run, arguments, model = build_cell(arch, shape_name, mesh,
-                                               attn_impl)
+            run, arguments, step = build_cell(arch, shape_name, mesh,
+                                              attn_impl)
             t_build = time.time() - t0
             counter = StepCounter()
-            with FlopCounterMode(display=False) as flop_counter, counter:
+            live = LiveBytes(_locals(arguments))
+            with FlopCounterMode(display=False) as flop_counter, counter, \
+                    live, dtensor_propagation(live):
                 outputs = run()
             flops = float(flop_counter.get_total_flops())
             n_dev = mesh.size()
+            args_b = local_bytes(arguments)
             rec.update(
                 ok=True, build_s=round(t_build, 1),
                 run_s=round(time.time() - t0 - t_build, 1),
@@ -258,10 +369,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 loop_correction="none: the step runs every layer",
                 collectives=counter.collectives(),
                 n_devices=n_dev,
-                memory=dict(argument_bytes=local_bytes(arguments),
-                            model_copy_bytes=local_bytes(model.param_tree()),
+                memory=dict(argument_bytes=args_b,
+                            gathered_bytes=step.meter.peak,
                             output_bytes=local_bytes(outputs),
-                            temp_bytes=None, peak_bytes=None,
+                            temp_bytes=live.peak - args_b,
+                            peak_bytes=live.peak,
                             generated_code_bytes=None),
                 attn_impl=attn_impl or ("chunked" if SHAPES[shape_name].kind
                                         == "prefill" else "naive"),
@@ -269,7 +381,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         print(f"[dryrun] OK  {arch:28s} {shape_name:12s} {mesh_name:8s} "
               f"build={rec['build_s']:5.1f}s run={rec['run_s']:6.1f}s "
               f"flops={rec['flops']:.3e} "
-              f"coll={rec['collectives']['total']:.3e}B")
+              f"coll={rec['collectives']['total']:.3e}B "
+              f"peak={rec['memory']['peak_bytes']:.3e}B "
+              f"gathered={rec['memory']['gathered_bytes']:.3e}B")
     except Exception as e:  # noqa: BLE001 — record the failure, keep sweeping
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-2000:]

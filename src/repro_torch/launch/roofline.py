@@ -17,7 +17,9 @@ compute / dominant is the roofline fraction an ideal overlap could reach
 
 MODEL_FLOPS = 6·N_active·tokens (train) or 2·N_active·tokens (inference);
 ``useful`` = MODEL_FLOPS / (FLOPs x devices) catches remat and redundant
-compute (the port's steps replicate a layer's compute over "model").
+compute (attention's scores, which 6·N·D leaves out, the recompute of
+remat, work a rank repeats). ``peak_gb`` is the dry-run's per-device
+``peak_bytes``.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh 16x16] [--md out.md]
 """
@@ -91,7 +93,7 @@ def analyze(rec: dict) -> dict | None:
 
     fixes = {
         "compute": "already compute-bound: reduce redundant FLOPs (remat "
-                   "policy, padding, tensor-parallel compute over 'model') "
+                   "policy, padding, attention's whole score matrix) "
                    "or quantize",
         "memory": "cut HBM traffic: fuse attention/SSD (the port's CUDA "
                   "kernels), better layouts, fp8/bf16 intermediates",

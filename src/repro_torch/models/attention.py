@@ -10,6 +10,11 @@ reference does; the groups are then ``(H + pad) // Hkv``, so a real query
 head h reads kv head ``h // groups`` of the padded count, which the port
 keeps. Masks are -1e9, the softmax runs in fp32 and is cast to the
 activation dtype before P V, everywhere, as in the reference.
+
+``kv_index`` (tensor parallelism, ``repro_torch.distributed.partition``):
+the kv head each of the given query heads reads, as an index into the
+given keys and values, for a rank that holds a slice of the heads; None
+expands them ``groups`` times as above.
 """
 from __future__ import annotations
 
@@ -54,7 +59,10 @@ def _qkv(p: Params, x: torch.Tensor, cfg: AttnConfig,
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
-def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+def _expand_kv(k: torch.Tensor, groups: int,
+               kv_index: torch.Tensor | None = None) -> torch.Tensor:
+    if kv_index is not None:
+        return k.index_select(2, kv_index)
     return k.repeat_interleave(groups, dim=2)
 
 
@@ -74,14 +82,15 @@ def _full(q, k, v, scale: float, causal: bool) -> torch.Tensor:
 
 def attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
               positions: torch.Tensor | None = None, impl: str = "naive",
-              q_chunk: int = 1024) -> torch.Tensor:
+              q_chunk: int = 1024, kv_index: torch.Tensor | None = None
+              ) -> torch.Tensor:
     """Self-attention over a full sequence (train / prefill)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(p, x, cfg, positions)
     groups = q.shape[2] // cfg.n_kv_heads
-    k, v = _expand_kv(k, groups), _expand_kv(v, groups)
+    k, v = _expand_kv(k, groups, kv_index), _expand_kv(v, groups, kv_index)
     scale = cfg.head_dim ** -0.5
     if impl == "chunked" and s > q_chunk:
         out = _chunked_attention(q, k, v, scale, cfg.causal, q_chunk)
@@ -113,7 +122,8 @@ def _chunked_attention(q, k, v, scale: float, causal: bool, q_chunk: int
 
 
 def prefill_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
-                      impl: str = "chunked"
+                      impl: str = "chunked",
+                      kv_index: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, KVCache]:
     """Prefill: causal self-attention and the KV cache (rotated keys);
     chunked only above 1024 tokens."""
@@ -122,7 +132,7 @@ def prefill_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
     q, k, v = _qkv(p, x, cfg, positions)
     groups = q.shape[2] // cfg.n_kv_heads
     scale = cfg.head_dim ** -0.5
-    ke, ve = _expand_kv(k, groups), _expand_kv(v, groups)
+    ke, ve = _expand_kv(k, groups, kv_index), _expand_kv(v, groups, kv_index)
     if impl == "chunked" and s > 1024:
         out = _chunked_attention(q, ke, ve, scale, cfg.causal, 1024)
     else:
@@ -179,19 +189,22 @@ def cross_kv(p: Params, enc: torch.Tensor, dtype) -> KVCache:
 
 
 def cross_attend(p: Params, x: torch.Tensor, kv: KVCache,
-                 cfg: AttnConfig) -> torch.Tensor:
+                 cfg: AttnConfig, kv_index: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """Decoder cross-attention against the encoder's keys and values
     (:func:`cross_kv`; full, no causal mask)."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     groups = q.shape[2] // cfg.n_kv_heads
-    out = _full(q, _expand_kv(kv.k, groups), _expand_kv(kv.v, groups),
+    out = _full(q, _expand_kv(kv.k, groups, kv_index),
+                _expand_kv(kv.v, groups, kv_index),
                 cfg.head_dim ** -0.5, False)
     return torch.einsum("bqhk,hkd->bqd", out, p["wo"].to(dt))
 
 
 def cross_attention(p: Params, x: torch.Tensor, enc: torch.Tensor,
-                    cfg: AttnConfig) -> torch.Tensor:
+                    cfg: AttnConfig, kv_index: torch.Tensor | None = None
+                    ) -> torch.Tensor:
     """Decoder cross-attention (full; no causal mask; no RoPE on encoder
     keys)."""
-    return cross_attend(p, x, cross_kv(p, enc, x.dtype), cfg)
+    return cross_attend(p, x, cross_kv(p, enc, x.dtype), cfg, kv_index)

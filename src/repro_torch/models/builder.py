@@ -138,11 +138,104 @@ def _stack_cache(parts: dict[str, list]) -> dict[str, NamedTuple]:
             for k, v in parts.items()}
 
 
+class Layout:
+    """Where a model's compute takes its parameters from, and how its
+    activations lie: the hooks the sharded steps
+    (``repro_torch.distributed.partition``) replace. This one is the
+    single-device route: the tree's own leaves (layer ``r`` a row of one
+    ``unbind`` of each stacked leaf), the whole sequence, no collective,
+    the kernels on the card. ``group`` (a
+    :class:`repro_torch.models.layers.BatchGroup`) makes the MoE capacity,
+    the aux loss and the cross-entropy the whole batch's when this batch
+    is one member's rows."""
+
+    kernels = True
+    norm_sum = None
+
+    def __init__(self, tree: Params, group=None):
+        self.tree, self.group = tree, group
+        self._rows: dict = {}
+
+    def prepare(self, stack: str, n_pos: int, repeats: int) -> None:
+        """Called before a stack's blocks run (outside any remat)."""
+        for i in range(n_pos):
+            if (stack, i) not in self._rows:
+                self._rows[stack, i] = _unbind(self.tree[stack][f"pos{i}"],
+                                               repeats)
+
+    def block(self, stack: str, i: int, r: int) -> Params:
+        """Position ``i``'s parameters in repeat ``r`` of ``stack``."""
+        return self._rows[stack, i][r]
+
+    def top(self, name: str) -> Params:
+        return self.tree[name]
+
+    def experts(self, stack: str, i: int):
+        """The ``[e0, e1)`` of experts this rank computes (None: all)."""
+        return None
+
+    def carry(self, x: torch.Tensor, stack: str) -> torch.Tensor:
+        """A stack's input (the whole sequence) as its residual lies."""
+        return x
+
+    def enter(self, x: torch.Tensor, stack: str) -> torch.Tensor:
+        """A mixer's or FFN's input from the residual."""
+        return x
+
+    def exit(self, y: torch.Tensor, stack: str, i: int, part: str
+             ) -> torch.Tensor:
+        """A mixer's or FFN's output (``part``) as the residual lies."""
+        return y
+
+    def whole_seq(self, x: torch.Tensor, stack: str) -> torch.Tensor:
+        """A residual as the whole sequence (the encoder's output)."""
+        return x
+
+    def cache(self, c, stack: str, i: int):
+        """Position ``i``'s prefill cache as the model returns it."""
+        return c
+
+    def embed(self, model: "Model", tokens: torch.Tensor) -> torch.Tensor:
+        return embed(self.top("embed"), tokens, model.dtype)
+
+    def embed_inputs(self, model: "Model", batch) -> torch.Tensor:
+        """The decoder's input, as its residual lies."""
+        txt = self.embed(model, batch["tokens"])
+        if model.cfg.modality is not None and not model.cfg.encoder_decoder:
+            return torch.cat([batch["patch_embeds"].to(model.dtype), txt],
+                             dim=1)
+        return txt
+
+    def logits(self, model: "Model", x: torch.Tensor) -> torch.Tensor:
+        head = (self.top("lm_head") if "lm_head" in self.tree
+                else self.top("embed"))
+        return unembed(head, x, model.cfg.vocab_size)
+
+    def ce(self, model: "Model", x: torch.Tensor, labels: torch.Tensor
+           ) -> torch.Tensor:
+        """Mean cross-entropy of the final-normed ``x`` over the labels
+        at or above 0 (the group's, with a ``group``)."""
+        logits = self.logits(model, x)
+        valid = labels >= 0
+        safe = labels.clamp(min=0).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, safe[..., None])[..., 0]
+        if self.group is None:
+            return (nll * valid).sum() / valid.sum().clamp(min=1)
+        tot = self.group.sum(torch.stack([(nll * valid).sum(),
+                                          valid.sum().float()]))
+        return tot[0] / tot[1].clamp(min=1)
+
+
 class Model(nn.Module):
     """A registry architecture; parameters in the reference's tree (see
     the module docstring), copied from ``params`` into memory on
     ``device`` that nothing else initialises. ``pad_heads``, ``attn_impl``
-    and ``decode_grouped`` are the reference's fields of the same names."""
+    and ``decode_grouped`` are the reference's fields of the same names.
+
+    ``loss``, ``prefill`` and ``decode_step`` take an optional
+    :class:`Layout`: the parameters then come from it, block by block,
+    and the model's own are not read (a model on ``meta`` serves)."""
 
     def __init__(self, cfg: ModelConfig, params: dict[str, torch.Tensor],
                  *, pad_heads: int = 0, attn_impl: str = "naive",
@@ -171,46 +264,62 @@ class Model(nn.Module):
         """The parameters as the reference's nested dict (no copies)."""
         return {name: _tree(m) for name, m in self.named_children()}
 
+    def layout(self, group=None) -> Layout:
+        """The single-device :class:`Layout` over this model's own
+        parameters."""
+        return Layout(self.param_tree(), group)
+
     def _mixer(self, spec: LayerSpec, p, x, *, enc=None, mode="train",
-               use_kernel=True):
+               use_kernel=True, norm_sum=None):
         cfg = self.cfg
         if spec.mixer == "ssm":
             return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm,
-                                       use_kernel=use_kernel)
+                                       use_kernel=use_kernel,
+                                       norm_sum=norm_sum)
         if spec.mixer == "cross":
-            return attn_mod.cross_attention(p, x, enc, _noncausal(cfg.attn))
+            return attn_mod.cross_attention(p, x, enc, _noncausal(cfg.attn),
+                                            p.get("kv_index"))
         acfg = cfg.attn if mode != "encoder" else _noncausal(cfg.attn)
-        return attn_mod.attention(p, x, acfg, impl=self.attn_impl)
+        return attn_mod.attention(p, x, acfg, impl=self.attn_impl,
+                                  kv_index=p.get("kv_index"))
 
-    def _add_ffn(self, spec: LayerSpec, p, x, use_kernel=True):
+    def _add_ffn(self, spec: LayerSpec, p, x, layout: Layout, stack: str,
+                 i: int, use_kernel=True):
         """(``x`` plus the position's FFN, if it has one; its aux loss)."""
         cfg = self.cfg
         if spec.ffn == "none":
             return x, 0.0
-        h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+        h = layout.enter(rmsnorm(p["ffn_norm"], x, cfg.norm_eps), stack)
         if spec.ffn == "dense":
-            return x + mlp(p["ffn"], h, cfg.act, cfg.mlp_glu), 0.0
+            return x + layout.exit(mlp(p["ffn"], h, cfg.act, cfg.mlp_glu),
+                                   stack, i, "ffn"), 0.0
         h, aux = moe_mod.moe_ffn(p["ffn"], h, cfg.moe, cfg.act, cfg.mlp_glu,
-                                 use_kernel=use_kernel)
-        return x + h, aux
+                                 use_kernel=use_kernel, group=layout.group,
+                                 experts=layout.experts(stack, i))
+        return x + layout.exit(h, stack, i, "ffn"), aux
 
-    def _stack(self, pattern, repeats: int, stack: Params, x, *, enc=None,
-               mode="train", train=False):
-        """The ``repeats`` blocks of ``stack`` over ``x`` -> (x, aux), the
-        aux summed a block at a time as the reference's scan carries it.
-        ``train`` takes the train route (no kernel; remat as configured)."""
-        rows = [_unbind(stack[f"pos{i}"], repeats)
-                for i in range(len(pattern))]
+    def _stack(self, pattern, repeats: int, stack: str, x, layout: Layout,
+               *, enc=None, mode="train", train=False):
+        """The ``repeats`` blocks of ``stack`` ("dec" or "enc") over ``x``
+        -> (x, aux), the aux summed a block at a time as the reference's
+        scan carries it. ``train`` takes the train route (no kernel; remat
+        as configured)."""
+        layout.prepare(stack, len(pattern), repeats)
+        use_kernel = not train and layout.kernels
 
         def block(x, r):
             block_aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, spec in enumerate(pattern):
-                p = rows[i][r]
-                x = x + self._mixer(spec, p["mixer"],
-                                    rmsnorm(p["mixer_norm"], x,
-                                            self.cfg.norm_eps),
-                                    enc=enc, mode=mode, use_kernel=not train)
-                x, a = self._add_ffn(spec, p, x, use_kernel=not train)
+                p = layout.block(stack, i, r)
+                h = layout.enter(rmsnorm(p["mixer_norm"], x,
+                                         self.cfg.norm_eps), stack)
+                x = x + layout.exit(
+                    self._mixer(spec, p["mixer"], h, enc=enc, mode=mode,
+                                use_kernel=use_kernel,
+                                norm_sum=layout.norm_sum),
+                    stack, i, "mixer")
+                x, a = self._add_ffn(spec, p, x, layout, stack, i,
+                                     use_kernel=use_kernel)
                 block_aux = block_aux + a
             return x, block_aux
 
@@ -224,117 +333,114 @@ class Model(nn.Module):
             aux = aux + a
         return x, aux
 
-    def _layers(self, tree: Params):
-        """(r, i, spec, layer params) of the decoder in depth order."""
-        rows = [_unbind(tree["dec"][f"pos{i}"], self.cfg.n_repeats)
-                for i in range(len(self.cfg.pattern))]
-        for r in range(self.cfg.n_repeats):
-            for i, spec in enumerate(self.cfg.pattern):
-                yield r, i, spec, rows[i][r]
-
-    def _embed_inputs(self, tree: Params, batch) -> torch.Tensor:
-        txt = embed(tree["embed"], batch["tokens"], self.dtype)
-        if self.cfg.modality is not None and not self.cfg.encoder_decoder:
-            return torch.cat([batch["patch_embeds"].to(self.dtype), txt],
-                             dim=1)
-        return txt
-
-    def _encode(self, tree: Params, batch, train=False):
+    def _encode(self, layout: Layout, batch, train=False):
         if not self.cfg.encoder_decoder:
             return None
+        x = layout.carry(batch["enc_embeds"].to(self.dtype), "enc")
         enc, _ = self._stack(self.cfg.enc_pattern, self.cfg.enc_repeats,
-                             tree["enc"],
-                             batch["enc_embeds"].to(self.dtype),
-                             mode="encoder", train=train)
-        return rmsnorm(tree["enc_norm"], enc, self.cfg.norm_eps)
-
-    def _logits(self, tree: Params, x):
-        head = tree.get("lm_head", tree["embed"])
-        return unembed(head, x, self.cfg.vocab_size)
+                             "enc", x, layout, mode="encoder", train=train)
+        return layout.whole_seq(rmsnorm(layout.top("enc_norm"), enc,
+                                        self.cfg.norm_eps), "enc")
 
     # ------------------------------------------------------------- train
-    def _forward(self, batch, train: bool):
-        cfg, tree = self.cfg, self.param_tree()
-        x = self._embed_inputs(tree, batch)
-        enc = self._encode(tree, batch, train)
-        x, aux = self._stack(cfg.pattern, cfg.n_repeats, tree["dec"], x,
+    def _trunk(self, batch, train: bool, layout: Layout):
+        """The final-normed decoder output and the summed aux loss."""
+        cfg = self.cfg
+        x = layout.embed_inputs(self, batch)
+        enc = self._encode(layout, batch, train)
+        x, aux = self._stack(cfg.pattern, cfg.n_repeats, "dec", x, layout,
                              enc=enc, train=train)
-        x = rmsnorm(tree["final_norm"], x, cfg.norm_eps)
-        return self._logits(tree, x), aux
+        return rmsnorm(layout.top("final_norm"), x, cfg.norm_eps), aux
 
     @torch.no_grad()
     def forward(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward -> (logits [B,S,Vpad], aux_loss)."""
-        return self._forward(batch, train=False)
+        layout = self.layout()
+        x, aux = self._trunk(batch, False, layout)
+        return layout.logits(self, x), aux
 
-    def loss(self, batch) -> tuple[torch.Tensor, dict]:
+    def loss(self, batch, layout: Layout | None = None
+             ) -> tuple[torch.Tensor, dict]:
         """The train objective -> (ce + aux, {"ce", "aux"}), with
         gradients, on the train route (see the module docstring). Labels
         below 0 are masked; ``logits[t]`` predicts ``labels[t]``."""
-        logits, aux = self._forward(batch, train=True)
-        labels = batch["labels"]
-        valid = labels >= 0
-        safe = labels.clamp(min=0).long()
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -logp.gather(-1, safe[..., None])[..., 0]
-        ce = (nll * valid).sum() / valid.sum().clamp(min=1)
+        layout = layout or self.layout()
+        x, aux = self._trunk(batch, True, layout)
+        ce = layout.ce(self, x, batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- prefill
     @torch.no_grad()
-    def prefill(self, batch):
+    def prefill(self, batch, layout: Layout | None = None):
         """Prefill -> (last-position logits [B,1,Vpad], cache)."""
-        cfg, tree = self.cfg, self.param_tree()
-        kernels = self.device.type != "meta"
-        x = self._embed_inputs(tree, batch)
-        enc = self._encode(tree, batch)
+        cfg = self.cfg
+        layout = layout or self.layout()
+        x = layout.embed_inputs(self, batch)
+        kernels = layout.kernels and x.device.type != "meta"
+        enc = self._encode(layout, batch)
         parts: dict[str, list] = {f"pos{i}": []
                                   for i in range(len(cfg.pattern))}
-        for _, i, spec, p in self._layers(tree):
-            xin = rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
-            if spec.mixer == "ssm":
-                h, c = ssm_mod.ssm_forward(p["mixer"], xin, cfg.d_model,
-                                           cfg.ssm, return_state=True,
-                                           use_kernel=kernels)
-            elif spec.mixer == "cross":
-                c = attn_mod.cross_kv(p["mixer"], enc, self.dtype)
-                h = attn_mod.cross_attend(p["mixer"], xin, c,
-                                          _noncausal(cfg.attn))
-            else:
-                h, c = attn_mod.prefill_attention(p["mixer"], xin, cfg.attn,
-                                                  impl=self.attn_impl)
-            parts[f"pos{i}"].append(c)
-            x, _ = self._add_ffn(spec, p, x + h, use_kernel=kernels)
-        x = rmsnorm(tree["final_norm"], x, cfg.norm_eps)
-        return self._logits(tree, x[:, -1:]), _stack_cache(parts)
+        layout.prepare("dec", len(cfg.pattern), cfg.n_repeats)
+        for r in range(cfg.n_repeats):
+            for i, spec in enumerate(cfg.pattern):
+                p = layout.block("dec", i, r)
+                pm = p["mixer"]
+                xin = layout.enter(rmsnorm(p["mixer_norm"], x, cfg.norm_eps),
+                                   "dec")
+                if spec.mixer == "ssm":
+                    h, c = ssm_mod.ssm_forward(pm, xin, cfg.d_model, cfg.ssm,
+                                               return_state=True,
+                                               use_kernel=kernels,
+                                               norm_sum=layout.norm_sum)
+                elif spec.mixer == "cross":
+                    c = attn_mod.cross_kv(pm, enc, self.dtype)
+                    h = attn_mod.cross_attend(pm, xin, c,
+                                              _noncausal(cfg.attn),
+                                              pm.get("kv_index"))
+                else:
+                    h, c = attn_mod.prefill_attention(
+                        pm, xin, cfg.attn, impl=self.attn_impl,
+                        kv_index=pm.get("kv_index"))
+                parts[f"pos{i}"].append(layout.cache(c, "dec", i))
+                x, _ = self._add_ffn(spec, p,
+                                     x + layout.exit(h, "dec", i, "mixer"),
+                                     layout, "dec", i, use_kernel=kernels)
+        x = rmsnorm(layout.top("final_norm"), x, cfg.norm_eps)
+        return layout.logits(self, x[:, -1:]), _stack_cache(parts)
 
     # ------------------------------------------------------------- decode
     @torch.no_grad()
-    def decode_step(self, tokens, cache, cur_len):
+    def decode_step(self, tokens, cache, cur_len,
+                    layout: Layout | None = None):
         """One-token decode. tokens [B,1]; cache from prefill/init_cache;
         cur_len: current sequence length (an int, a [] or a [B] tensor)."""
-        cfg, tree = self.cfg, self.param_tree()
-        kernels = self.device.type != "meta"
-        x = embed(tree["embed"], tokens, self.dtype)
+        cfg = self.cfg
+        layout = layout or self.layout()
+        x = layout.embed(self, tokens)
+        kernels = layout.kernels and x.device.type != "meta"
         cur = torch.as_tensor(cur_len, device=x.device)
         parts: dict[str, list] = {k: [] for k in cache}
-        for r, i, spec, p in self._layers(tree):
-            c = _cache_row(cache[f"pos{i}"], r)
-            xin = rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
-            if spec.mixer == "ssm":
-                h, c = ssm_mod.ssm_decode(p["mixer"], xin, c, cfg.d_model,
-                                          cfg.ssm)
-            elif spec.mixer == "cross":
-                h = attn_mod.cross_attend(p["mixer"], xin, c,
-                                          _noncausal(cfg.attn))
-            else:
-                h, c = attn_mod.decode_attention(p["mixer"], xin, cfg.attn,
-                                                 c, cur,
-                                                 grouped=self.decode_grouped)
-            parts[f"pos{i}"].append(c)
-            x, _ = self._add_ffn(spec, p, x + h, use_kernel=kernels)
-        x = rmsnorm(tree["final_norm"], x, cfg.norm_eps)
-        return self._logits(tree, x), _stack_cache(parts)
+        layout.prepare("dec", len(cfg.pattern), cfg.n_repeats)
+        for r in range(cfg.n_repeats):
+            for i, spec in enumerate(cfg.pattern):
+                p = layout.block("dec", i, r)
+                c = _cache_row(cache[f"pos{i}"], r)
+                xin = rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
+                if spec.mixer == "ssm":
+                    h, c = ssm_mod.ssm_decode(p["mixer"], xin, c,
+                                              cfg.d_model, cfg.ssm)
+                elif spec.mixer == "cross":
+                    h = attn_mod.cross_attend(p["mixer"], xin, c,
+                                              _noncausal(cfg.attn))
+                else:
+                    h, c = attn_mod.decode_attention(
+                        p["mixer"], xin, cfg.attn, c, cur,
+                        grouped=self.decode_grouped)
+                parts[f"pos{i}"].append(c)
+                x, _ = self._add_ffn(spec, p, x + h, layout, "dec", i,
+                                     use_kernel=kernels)
+        x = rmsnorm(layout.top("final_norm"), x, cfg.norm_eps)
+        return layout.logits(self, x), _stack_cache(parts)
 
     # ------------------------------------------------------------- cache init
     def init_cache(self, batch_size: int, max_len: int, *,

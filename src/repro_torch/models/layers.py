@@ -12,12 +12,31 @@ carry weights across with ``repro_torch.interop``).
 from __future__ import annotations
 
 import math
+from typing import Protocol
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 Params = dict
+
+
+class BatchGroup(Protocol):
+    """The members (ranks) that split one batch by its rows, in batch
+    order, as a MoE layer's capacity and the cross-entropy see them
+    (``repro_torch.distributed.partition.MeshBatch`` over a process group;
+    a test may stand in for the other members). Every member holds as many
+    rows."""
+
+    size: int     # members
+    index: int    # this member's place in batch order
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every member's ``x`` stacked in batch order, ``[size, *x.shape]``
+        (no gradient)."""
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the members, with its gradient."""
 #: A source of initial weights: a torch.Generator or a numpy.random.Generator.
 Gen = "torch.Generator | np.random.Generator"
 

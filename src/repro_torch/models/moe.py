@@ -17,6 +17,20 @@ since the kernel has no backward. Shared experts stay plain matmuls, as in
 the reference.
 The top k comes from a stable descending sort, so ties go to the lower
 expert id as ``jax.lax.top_k`` breaks them.
+
+A batch split over ranks (the sharded steps, ``repro_torch.distributed``)
+passes a ``group`` (:class:`repro_torch.models.layers.BatchGroup`): the
+capacity and the drop order are then the whole batch's, as the
+reference's one global program takes them. The capacity is
+``expert_capacity`` of every member's tokens; a member's slots in an
+expert's buffer start after the slots the members before it (in batch
+order) send there, from an all-gather of ``E + 1`` integers a layer; the
+aux loss takes ``density`` and the router mean as sums over the group.
+``experts=(e0, e1)`` (tensor parallelism over "model") pushes the tokens
+through those experts only, whose weights ``p`` then holds, and returns
+their part of the output. That route (:func:`_moe_split`) multiplies each
+expert's kept rows alone, with ``@`` in autograd, and never launches the
+kernel.
 """
 from __future__ import annotations
 
@@ -54,16 +68,27 @@ def expert_capacity(n_tokens: int, cfg: MoEConfig) -> int:
     return max(8, -(-cap // 8) * 8)  # round up to 8
 
 
-def route(p: Params, x2d: torch.Tensor, cfg: MoEConfig):
-    """x2d [T, D] -> (weights [T,k], expert_ids [T,k], aux_loss)."""
+def route(p: Params, x2d: torch.Tensor, cfg: MoEConfig, group=None):
+    """x2d [T, D] -> (weights [T,k], expert_ids [T,k], aux_loss). With a
+    ``group`` the aux loss is the whole batch's: ``density`` and the
+    router mean are summed over the group (one all-reduce, the router
+    mean's gradient carried) and divided by its tokens."""
     logits = (x2d @ p["router"].to(x2d.dtype)).float()             # [T,E]
     probs = torch.softmax(logits, dim=-1)
     w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, ids = w[:, :cfg.top_k], ids[:, :cfg.top_k]
     w = w / w.sum(dim=-1, keepdim=True)
     # Switch-style load-balancing aux loss
-    density = F.one_hot(ids[:, 0], cfg.n_experts).float().mean(dim=0)
-    aux = cfg.n_experts * (density * probs.mean(dim=0)).sum()
+    if group is None:
+        density = F.one_hot(ids[:, 0], cfg.n_experts).float().mean(dim=0)
+        aux = cfg.n_experts * (density * probs.mean(dim=0)).sum()
+    else:
+        sums = group.sum(torch.cat([
+            F.one_hot(ids[:, 0], cfg.n_experts).float().sum(dim=0),
+            probs.sum(dim=0)]))
+        n = float(x2d.shape[0] * group.size)
+        aux = cfg.n_experts * (sums[:cfg.n_experts] / n
+                               * (sums[cfg.n_experts:] / n)).sum()
     return w.to(x2d.dtype), ids, aux
 
 
@@ -80,11 +105,15 @@ def _experts(w: torch.Tensor, xs: torch.Tensor, eids: torch.Tensor | None,
 
 
 def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig, act: str = "silu",
-            glu: bool = True, use_kernel: bool = True
+            glu: bool = True, use_kernel: bool = True, group=None,
+            experts: tuple[int, int] | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], aux_loss). Sort-based dispatch with
     drops. ``use_kernel=False`` takes the einsum products
-    (differentiable)."""
+    (differentiable). ``group`` / ``experts``: see the module docstring
+    (either takes :func:`_moe_split`)."""
+    if group is not None or experts is not None:
+        return _moe_split(p, x, cfg, act, glu, group, experts)
     b, s, d = x.shape
     t, k, e = b * s, cfg.top_k, cfg.n_experts
     x2d = x.reshape(t, d)
@@ -128,4 +157,70 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: MoEConfig, act: str = "silu",
             hs = ACTS[act](hs)
         y = y + hs @ p["shared_down"].to(x.dtype)
 
+    return y.reshape(b, s, d), aux * cfg.aux_loss_coef
+
+
+def _shared(p: Params, x2d: torch.Tensor, act: str, glu: bool
+            ) -> torch.Tensor:
+    hs = x2d @ p["shared_up"].to(x2d.dtype)
+    if glu:
+        hs = ACTS[act](x2d @ p["shared_gate"].to(x2d.dtype)) * hs
+    else:
+        hs = ACTS[act](hs)
+    return hs @ p["shared_down"].to(x2d.dtype)
+
+
+def _moe_split(p: Params, x: torch.Tensor, cfg: MoEConfig, act: str,
+               glu: bool, group, experts: tuple[int, int] | None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` on one member of a batch ``group`` (None: the batch is
+    whole) through experts ``[e0, e1)`` (None: all), whose weights are
+    ``p``'s. A slot's position in its expert's buffer is the slots the
+    earlier members send there plus its rank among this member's, as the
+    reference's stable sort over the whole batch places it; slots at or
+    past the global capacity drop. Each expert's kept rows (a contiguous
+    run of the sorted slots) are multiplied alone, so the work is this
+    member's tokens, not the capacity buffer. On ``meta`` (no routing to
+    read) each expert takes the balanced load, ``T k / E`` rows."""
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.top_k, cfg.n_experts
+    e0, e1 = experts if experts is not None else (0, e)
+    x2d = x.reshape(t, d)
+    w, ids, aux = route(p, x2d, cfg, group)
+    members = 1 if group is None else group.size
+    cap = expert_capacity(t * members, cfg)
+
+    flat_e = ids.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(e, dtype=torch.long, device=x.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    if group is None:
+        before = torch.zeros_like(counts)
+    else:
+        every = group.gather(counts)                           # [n, E]
+        before = every[:group.index].sum(dim=0)
+    kept = (cap - before).clamp(min=0).minimum(counts)         # [E]
+    starts = torch.cumsum(counts, 0) - counts
+    if x.device.type == "meta":
+        sizes = [min(cap, -(-t * k // e))] * (e1 - e0)
+        firsts = [0] * (e1 - e0)
+    else:
+        sizes = kept[e0:e1].tolist()
+        firsts = starts[e0:e1].tolist()
+    slots = torch.cat([order[f:f + n] for f, n in zip(firsts, sizes)])
+    xs = x2d[slots // k]
+    outs, lo = [], 0
+    for j, n in enumerate(sizes):
+        xe, lo = xs[lo:lo + n], lo + n
+        h = xe @ p["up"][j].to(x.dtype)
+        if glu:
+            h = ACTS[act](xe @ p["gate"][j].to(x.dtype)) * h
+        else:
+            h = ACTS[act](h)
+        outs.append(h @ p["down"][j].to(x.dtype))
+    slot_y = torch.zeros((t * k, d), dtype=x.dtype, device=x.device)
+    slot_y = slot_y.index_put((slots,), torch.cat(outs))
+    y = (slot_y.reshape(t, k, d) * w[..., None]).sum(dim=1)
+    if cfg.n_shared_experts:
+        y = y + _shared(p, x2d, act, glu)
     return y.reshape(b, s, d), aux * cfg.aux_loss_coef

@@ -18,6 +18,13 @@ reference's flag defaults to False, the port's to True, since every other
 caller of the port serves. :func:`ssm_decode` stays plain PyTorch, as it is
 plain JAX in the reference. The causal conv is the reference's shifted
 sums, not a cuDNN convolution.
+
+:func:`ssm_forward` reads ``d_inner`` and the head count from the leaves
+it is given, so a rank that holds a slice of the heads (tensor
+parallelism, ``repro_torch.distributed.partition``: ``in_zx`` as the
+slice's z then x columns, ``in_bcdt``'s dt columns the slice's) runs it
+unchanged; ``norm_sum`` then sums the gated norm's squares over the
+ranks, whose mean is over the whole ``d_inner``.
 """
 from __future__ import annotations
 
@@ -138,20 +145,26 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
+                eps: float = 1e-5, norm_sum=None, width: int = 0
+                ) -> torch.Tensor:
     dt = y.dtype
     y32 = y.float() * F.silu(z.float())
-    var = y32.square().mean(dim=-1, keepdim=True)
+    if norm_sum is None:
+        var = y32.square().mean(dim=-1, keepdim=True)
+    else:
+        var = norm_sum(y32.square().sum(dim=-1, keepdim=True)) / width
     return (y32 * torch.rsqrt(var + eps) * scale).to(dt)
 
 
 def ssm_forward(p: Params, x: torch.Tensor, d: int, cfg: SSMConfig,
-                return_state: bool = False, use_kernel: bool = True):
+                return_state: bool = False, use_kernel: bool = True,
+                norm_sum=None):
     """Train/prefill forward. x [B,L,D] -> y [B,L,D] (+ SSMState).
-    ``use_kernel=False`` takes :func:`ssd_chunked` (differentiable)."""
+    ``use_kernel=False`` takes :func:`ssd_chunked` (differentiable);
+    ``norm_sum``: see the module docstring."""
     bsz, L, _ = x.shape
-    di = cfg.d_inner(d)
-    H = cfg.n_heads(d)
+    di = p["conv_x_w"].shape[-1]
+    H = p["A_log"].shape[-1]
     gds = cfg.n_groups * cfg.d_state
     dt_ = x.dtype
 
@@ -171,7 +184,8 @@ def ssm_forward(p: Params, x: torch.Tensor, d: int, cfg: SSMConfig,
     else:
         y, hT = ssd_chunked(xh, dt, p["A_log"], b, c, p["D"], cfg.chunk)
     y = y.reshape(bsz, L, di)
-    y = _gated_norm(y, z, p["norm_scale"])
+    y = _gated_norm(y, z, p["norm_scale"], norm_sum=norm_sum,
+                    width=cfg.d_inner(d))
     out = y @ p["out_proj"].to(dt_)
     if not return_state:
         return out

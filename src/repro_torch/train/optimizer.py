@@ -13,8 +13,10 @@ Adafactor of this form. ``update`` writes the parameters in place (under
 ``torch.no_grad()``) and returns them with the new state. Its leaves may
 be ``DTensor`` shards (``repro_torch.distributed.step``): the global norm
 then sums every shard, and Adafactor's row and column means reduce
-across a sharded dimension. ``state_pspecs`` lays the state out as the
-parameters are (``repro_torch.distributed.sharding``).
+across a sharded dimension; each mean's sum is carried out on the vector
+itself (``_settled``), so the rank-1 ``vhat`` stays sharded as its leaf
+is. ``state_pspecs`` lays the state out as the parameters are
+(``repro_torch.distributed.sharding``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed.sharding import PSpec
 from repro_torch.tree import leaves, tree_map
@@ -41,6 +44,16 @@ def warmup_cosine(base_lr: float, warmup: int, total: int,
                          * (1 + torch.cos(math.pi * t)))
         return torch.where(step < warmup, warm, cos)
     return lr
+
+
+def _settled(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending sums (its ``Partial`` placements) carried out,
+    so that an op combining it with a sharded tensor stays sharded; any
+    other tensor as it is."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        return t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return t
 
 
 def global_norm(tree: Params) -> torch.Tensor:
@@ -128,10 +141,12 @@ class Optimizer:
             g32 = g.float() * scale
             g2 = torch.square(g32) + 1e-30
             if p.ndim >= 2:
-                row = self.b2 * v["row"] + (1 - self.b2) * g2.mean(dim=-1)
-                col = self.b2 * v["col"] + (1 - self.b2) * g2.mean(dim=-2)
+                row = self.b2 * v["row"] + (1 - self.b2) * _settled(
+                    g2.mean(dim=-1))
+                col = self.b2 * v["col"] + (1 - self.b2) * _settled(
+                    g2.mean(dim=-2))
                 # rank-1 reconstruction (Adafactor)
-                denom = row.mean(dim=-1, keepdim=True) + 1e-30
+                denom = _settled(row.mean(dim=-1, keepdim=True)) + 1e-30
                 vhat = row[..., :, None] * col[..., None, :] / denom[..., None]
                 new_v = {"row": row, "col": col}
             else:

@@ -7,8 +7,13 @@ every architecture and shape; ``analyze`` is held to a hand count with the
 H100 constants on a synthetic record. One full-width cell, mamba2-780m
 ``train_4k`` on the 16x16 mesh, runs in a subprocess under a fake process
 group of 256 ranks: ``ok``, argument bytes equal to a count from the
-reference's own specs (parameters, AdamW's m and v, the batch's rows), and
-FLOPs and collective bytes above zero.
+reference's own specs (parameters, AdamW's m and v, the batch's rows); the
+gathered parameter bytes at most two blocks' leaves as the specs split
+them over "model" (the step gathers a block at its use and frees it
+after); a peak at least the arguments and the gathered bytes; FLOPs and
+collective bytes above zero, the FLOPs low enough that ``useful`` is at
+least 8x the 0.049 of the step that computed every layer whole on each
+"model" rank.
 """
 import json
 import os
@@ -114,14 +119,27 @@ def expected_argument_bytes(arch: str, shape_name: str) -> int:
     return total
 
 
-def full_params(arch: str) -> int:
-    """Entries of the reference's whole parameter tree at ``arch``'s full
-    width, padded for the 16x16 mesh."""
+def block_bytes(arch: str) -> int:
+    """fp32 bytes of the largest block (one repeat of one pattern
+    position) of the reference's tree at ``arch``'s full width on the 16x16
+    mesh, each leaf split over "model" where its spec splits it."""
     cfg = R.get_config(arch)
     mesh = AbstractMesh((16, 16), ("data", "model"))
     params = jax.eval_shape(lambda: r_build_model(
         cfg, pad_heads=r_sh.pad_heads_for(cfg, mesh)).init(jax.random.key(0)))
-    return sum(int(np.prod(p.shape)) for p in jax.tree.leaves(params))
+    specs = r_sh.param_pspecs(cfg, params, mesh)
+    sizes: dict = {}
+    for (path, leaf), spec in zip(
+            jax.tree_util.tree_flatten_with_path(params)[0],
+            jax.tree.leaves(specs, is_leaf=lambda x: isinstance(
+                x, jax.sharding.PartitionSpec))):
+        keys = [str(getattr(k, "key", k)) for k in path]
+        if keys[0] in ("dec", "enc"):
+            n = int(np.prod(leaf.shape[1:])) * 4
+            if "model" in tuple(spec):
+                n //= mesh.shape["model"]
+            sizes[tuple(keys[:2])] = sizes.get(tuple(keys[:2]), 0) + n
+    return max(sizes.values())
 
 
 def test_full_width_cell_runs_under_a_fake_group():
@@ -136,11 +154,13 @@ def test_full_width_cell_runs_under_a_fake_group():
     rec = json.loads(line[-1][len("RECORD"):])
     assert rec["ok"], rec.get("traceback")
     assert rec["n_devices"] == 256 and rec["mesh"] == "16x16"
-    assert rec["memory"]["argument_bytes"] == expected_argument_bytes(
+    mem = rec["memory"]
+    assert mem["argument_bytes"] == expected_argument_bytes(
         "mamba2-780m", "train_4k")
-    assert rec["memory"]["model_copy_bytes"] == 4 * full_params(
-        "mamba2-780m")                          # fp32, whole on every rank
-    assert rec["memory"]["peak_bytes"] is None
+    assert 0 < mem["gathered_bytes"] <= 2 * block_bytes("mamba2-780m")
+    assert mem["peak_bytes"] >= mem["argument_bytes"] + mem["gathered_bytes"]
+    assert mem["temp_bytes"] == mem["peak_bytes"] - mem["argument_bytes"]
+    assert roofline.analyze(rec)["useful_ratio"] >= 8 * 0.049
     assert rec["flops"] > 0 and rec["flops_corrected"] == rec["flops"]
     assert rec["bytes_accessed"] > 0
     coll = rec["collectives"]

@@ -16,8 +16,18 @@ take a 1-D mesh of every rank. Imports the port only, never JAX.
                   (no warmup, so the first step's learning rate is not 0)
   train_adafactor mamba2-780m reduced(64), Adafactor, B 8 x 32, two steps
   train_accum     train_adamw's steps with grad_accum 2 on both sides
-  decode          phi3-mini-3.8b reduced(64): prefill B 4 x 16, the cache
-                  padded to 32, one decode step at cur_len 16
+  train_jamba ... train_smollm  the same two steps for jamba (SSM, MoE,
+                  attention with one kv head), moonshot (MoE, kv heads
+                  split over "model"), seamless (encoder, cross-attention),
+                  internvl2 (patches, 2 kv heads over 4 ranks), llama4
+                  (MoE with attention, Adafactor) and smollm (pure_dp)
+  grads           every leaf's gradient of one sharded step (reduce-
+                  scattered, gathered) against the single rank's, for
+                  each train case's architecture
+  decode          phi3-mini-3.8b reduced(64): the sharded prefill of B 4 x
+                  16 against the single rank's (logits, cache), then the
+                  cache padded to 32 and one sharded decode step at cur_len
+                  16; ``decode_jamba`` the same for jamba-v0.1-52b
   cmm             collective_matmul of x [8 WORLD, 32] @ w [32, 48]
   cmean           compressed_mean of x [WORLD, 1024] and 30 error-feedback
                   rounds
@@ -48,14 +58,34 @@ from torch.distributed.tensor import DTensor, Shard
 #: atol). ``state``: an optimizer-state leaf (AdamW's m / v, Adafactor's
 #: row / col / full) within this fraction of the leaf's largest entry;
 #: its entries span decades (v is a squared gradient), so a bound on each
-#: entry alone would say nothing of the small ones.
-TOLS = dict(loss=1e-5, param=5e-4, decode=2e-4, cmm=2e-4, state=1e-4)
+#: entry alone would say nothing of the small ones. ``grad``: every
+#: gradient entry (rtol = atol).
+TOLS = dict(loss=1e-5, param=5e-4, decode=2e-4, cmm=2e-4, state=1e-4,
+            grad=1e-5)
 #: Seeds of the cases' inputs (numpy), shared with the tests' JAX side.
 SEEDS = dict(params=0, batch=1, decode=2, cmm=3, cmean=4)
 #: case -> (arch, optimizer, grad_accum)
 TRAIN = {"train_adamw": ("phi3-mini-3.8b", "adamw", 1),
          "train_adafactor": ("mamba2-780m", "adafactor", 1),
-         "train_accum": ("phi3-mini-3.8b", "adamw", 2)}
+         "train_accum": ("phi3-mini-3.8b", "adamw", 2),
+         "train_jamba": ("jamba-v0.1-52b", "adamw", 1),
+         "train_moonshot": ("moonshot-v1-16b-a3b", "adamw", 1),
+         "train_seamless": ("seamless-m4t-large-v2", "adamw", 1),
+         "train_internvl2": ("internvl2-2b", "adamw", 1),
+         "train_llama4": ("llama4-maverick-400b-a17b", "adafactor", 1),
+         "train_smollm": ("smollm-135m", "adamw", 1)}
+#: Cases whose optimizer state is held after the first step, not the
+#: second. jamba's first AdamW update moves entries whose gradients are at
+#: the level of rounding (1e-9 against a gradient norm of 24) by up to
+#: 6.5e-5, since Adam divides each by its own root mean square; so its
+#: second step's state differs by more than ``TOLS["state"]`` between any
+#: two float32 runs: the port's single rank against the reference by 1.42
+#: of it, the single rank against itself after a relative perturbation of
+#: 1e-7 of its weights by 1.82 (the case's loss, gradient norm and
+#: parameters stay within their tolerances after both steps).
+STATE_AFTER_FIRST = ("train_jamba",)
+#: The decode cases' architectures.
+DECODES = {"decode": "phi3-mini-3.8b", "decode_jamba": "jamba-v0.1-52b"}
 #: The train cases' steps: batch s draws from seed ``SEEDS["batch"] + s``;
 #: ``warmup`` 0 puts the first step at the full learning rate (the
 #: default warmup of 200 gives step 0 a rate of 0: parameters that never
@@ -202,6 +232,8 @@ def case_train(name: str, world: int, device: str) -> tuple[dict, dict]:
     for t in steps:
         p1, s1, m = step1(p1, s1, train_batch(cfg, t, device), t)
         met1.append(m)
+        if t == 0:
+            first_s = {k: v.clone() for k, v in leaves_with_paths(s1)}
 
     mesh = init_device_mesh(device.split(":")[0], (2, world // 2),
                             mesh_dim_names=("data", "model"))
@@ -218,6 +250,9 @@ def case_train(name: str, world: int, device: str) -> tuple[dict, dict]:
                                              bspecs, mesh), t)
         met2.append(m)
         bad += replica_mismatches(p2) + replica_mismatches(s2)
+        if t == 0:      # a replicated leaf's whole is its shard, updated in place
+            got_first = {k: v.detach().clone()
+                         for k, v in leaves_with_paths(gather_tree(s2))}
     got = dict(leaves_with_paths(gather_tree(p2)))
     want = dict(leaves_with_paths(p1))
     got_s = dict(leaves_with_paths(gather_tree(s2)))
@@ -236,25 +271,57 @@ def case_train(name: str, world: int, device: str) -> tuple[dict, dict]:
                params_moved=max(float((want[k] - p0[k]).abs().max())
                                 for k in want),
                state_err=max(state_err(got_s[k], want_s[k]) for k in want_s),
+               state_leaf=max(want_s, key=lambda k: state_err(got_s[k],
+                                                             want_s[k])),
+               state_err_first=max(state_err(got_first[k], first_s[k])
+                                   for k in first_s),
                state_leaves=len(want_s) if set(got_s) == set(want_s) else -1,
                replica_mismatches=bad, leaves=len(want))
     arrays = {k: v.detach().cpu().numpy() for k, v in got.items()}
     arrays.update({f"opt/{k}": v.detach().cpu().numpy()
                    for k, v in got_s.items()})
+    arrays.update({f"opt1/{k}": v.detach().cpu().numpy()
+                   for k, v in got_first.items()})
     return res, arrays
 
 
-def case_decode(world: int, device: str) -> tuple[dict, dict]:
+def block_bytes(cfg, mesh, whole: bool) -> int:
+    """Bytes of the largest block's leaves (one repeat of one pattern
+    position, fp32) as a rank gathers them: split over "model" where the
+    spec splits them (``whole``: every leaf whole)."""
+    from repro_torch.distributed.sharding import param_pspecs
+    from repro_torch.models.builder import init_params
+    from repro_torch.tree import leaves_with_paths
+
+    tree = init_params(cfg, torch.Generator(), device="meta")
+    specs = dict(leaves_with_paths(param_pspecs(cfg, tree, mesh)))
+    tp = mesh.size(list(mesh.mesh_dim_names).index("model"))
+    sizes: dict = {}
+    for path, leaf in leaves_with_paths(tree):
+        if path.startswith(("dec/", "enc/")):
+            n = leaf[0].numel() * 4
+            if not whole and "model" in specs[path]:
+                n //= tp
+            key = tuple(path.split("/")[:2])
+            sizes[key] = sizes.get(key, 0) + n
+    return max(sizes.values())
+
+
+def case_decode(name: str, world: int, device: str) -> tuple[dict, dict]:
     from repro_torch import interop
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.synth import make_batch
-    from repro_torch.distributed.sharding import (PSpec, cache_pspecs, gather,
-                                                  map_tree, param_pspecs,
-                                                  shard, shard_tree)
+    from repro_torch.distributed.sharding import (PSpec, batch_pspecs,
+                                                  cache_pspecs, gather,
+                                                  param_pspecs, shard,
+                                                  shard_tree)
     from repro_torch.distributed.step import (make_sharded_decode_step,
+                                              make_sharded_prefill_step,
                                               shard_params)
     from repro_torch.models import build_model
+    from repro_torch.models.attention import KVCache
 
-    cfg = reduced(DECODE["arch"])
+    cfg = reduced(DECODES[name])
     tree = interop.numpy_reference_params(cfg, SEEDS["params"])
     b = DECODE["batch"]
 
@@ -265,34 +332,93 @@ def case_decode(world: int, device: str) -> tuple[dict, dict]:
     m1 = model()
     batch = make_batch(cfg, b, DECODE["prompt"], seed=SEEDS["decode"],
                        dtype=torch.float32, device=device)
-    _, cache = m1.prefill(batch)
-    cache = map_tree(lambda a: F.pad(a, (0, 0, 0, 0, 0, DECODE["pad"]))
-                     if a.ndim >= 4 else a, cache)
-    tok = torch.full((b, 1), DECODE["token"], dtype=torch.int32,
-                     device=device)
-    ref, ref_cache = m1.decode_step(tok, cache, DECODE["prompt"])
-
+    pre_ref, cache = m1.prefill(batch)
     mesh = init_device_mesh(device.split(":")[0], (2, world // 2),
                             mesh_dim_names=("data", "model"))
     m2 = model()
     full = m2.param_tree()
     params = shard_params(full, param_pspecs(cfg, full, mesh), mesh)
+    prefill = make_sharded_prefill_step(m2, mesh)
+    pre, pre_cache = prefill(params, shard_tree(
+        batch, batch_pspecs(cfg, mesh, ShapeSpec("p", DECODE["prompt"], b,
+                                                 "prefill")), mesh))
+    pre_cache_err = max(max_rel(gather(n), r, TOLS["decode"]) for n, r in zip(
+        (x for c in pre_cache.values() for x in c),
+        (x for c in cache.values() for x in c)))
+
+    cache = {k: KVCache(*(F.pad(a, (0, 0, 0, 0, 0, DECODE["pad"]))
+                          for a in c)) if isinstance(c, KVCache) else c
+             for k, c in cache.items()}
+    tok = torch.full((b, 1), DECODE["token"], dtype=torch.int32,
+                     device=device)
+    ref, ref_cache = m1.decode_step(tok, cache, DECODE["prompt"])
     cache_sh = shard_tree(cache, cache_pspecs(cfg, mesh, b), mesh)
-    out, new = make_sharded_decode_step(m2, mesh)(
-        params, shard(tok, PSpec("data", None), mesh), cache_sh,
-        DECODE["prompt"])
+    decode = make_sharded_decode_step(m2, mesh)
+    out, new = decode(params, shard(tok, PSpec("data", None), mesh), cache_sh,
+                      DECODE["prompt"])
     logits = gather(out)
     cache_err = max(max_rel(gather(n), r, TOLS["decode"]) for n, r in zip(
         (x for c in new.values() for x in c),
         (x for c in ref_cache.values() for x in c)))
     res = dict(logits_err=max_rel(logits, ref, TOLS["decode"]),
                cache_err=cache_err,
+               prefill_logits_err=max_rel(gather(pre), pre_ref,
+                                          TOLS["decode"]),
+               prefill_cache_err=pre_cache_err,
                cache_layout_kept=all(
                    n.placements == c.placements for n, c in zip(
                        (x for c in new.values() for x in c),
-                       (x for c in cache_sh.values() for x in c))))
+                       (x for c in cache_sh.values() for x in c))),
+               prefill_gathered=prefill.meter.peak,
+               decode_gathered=decode.meter.peak,
+               block_bytes=block_bytes(cfg, mesh, whole=False),
+               whole_block_bytes=block_bytes(cfg, mesh, whole=True))
     return res, {"logits": logits.cpu().numpy(),
                  "logits_single": ref.cpu().numpy()}
+
+
+def case_grads(world: int, device: str) -> tuple[dict, dict]:
+    """One sharded step's gradients (``train_step.grads``, gathered)
+    against the single rank's (``train.step.value_and_grad``) on the same
+    batch, for each train case's architecture: {arch: the largest
+    ``max_rel`` over the leaves at ``TOLS["grad"]``, its leaf, the leaves
+    compared}."""
+    from repro_torch import interop
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import (batch_pspecs, gather,
+                                                  param_pspecs, shard_tree)
+    from repro_torch.distributed.step import (make_sharded_train_step,
+                                              shard_params)
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import value_and_grad
+
+    mesh = init_device_mesh(device.split(":")[0], (2, world // 2),
+                            mesh_dim_names=("data", "model"))
+    b, s = TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"]
+    res = {}
+    for arch in dict.fromkeys(a for a, _, _ in TRAIN.values()):
+        cfg = reduced(arch)
+        tree = interop.numpy_reference_params(cfg, SEEDS["params"])
+        model = build_model(cfg, interop.params_from_reference(cfg, tree),
+                            dtype=torch.float32, device=device)
+        batch = train_batch(cfg, 0, device)
+        model.requires_grad_(True)
+        _, _, want = value_and_grad(model, batch)
+        model.requires_grad_(False)
+        full = model.param_tree()
+        specs = param_pspecs(cfg, full, mesh)
+        step = make_sharded_train_step(model, make_optimizer("adamw"), mesh,
+                                       specs)
+        _, _, got = step.grads(shard_params(full, specs, mesh), shard_tree(
+            batch, batch_pspecs(cfg, mesh, ShapeSpec("t", s, b, "train")),
+            mesh))
+        errs = {k: max_rel(gather(got[k]), w, TOLS["grad"])
+                for k, w in want.items()}
+        worst = max(errs, key=errs.get)
+        res[arch] = dict(err=errs[worst], leaf=worst, leaves=len(errs),
+                         same_leaves=set(got) == set(want))
+    return res, {}
 
 
 def case_cmm(world: int, device: str) -> tuple[dict, dict]:
@@ -456,8 +582,10 @@ def main(argv: list[str]) -> None:
                 res, arrays = case_elastic(world, device, out_dir)
             elif case == "ckpt_sync":
                 res, arrays = case_ckpt_sync(world, device, out_dir)
+            elif case in DECODES:
+                res, arrays = case_decode(case, world, device)
             else:
-                res, arrays = {"decode": case_decode, "cmm": case_cmm,
+                res, arrays = {"grads": case_grads, "cmm": case_cmm,
                                "cmean": case_cmean}[case](world, device)
             if rank == 0:
                 (out_dir / f"{case}.json").write_text(json.dumps(
