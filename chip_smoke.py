@@ -3039,7 +3039,13 @@ DIST_RANKS = 4
 #: ``launch.train --distributed`` at world 1: ``TRAIN_LAUNCH`` as the train
 #: phase ran it, whose losses it must equal bit for bit.
 DIST_LAUNCH = TRAIN_LAUNCH + ["--distributed"]
-DRYRUN = ["--arch", "mamba2-780m", "--shape", "train_4k"]
+#: The dry-run's cells (16x16, shapes only): a train cell and a decode
+#: cell, whose cache stays in its ``cache_pspecs`` shards.
+DRYRUNS = (["--arch", "mamba2-780m", "--shape", "train_4k"],
+           ["--arch", "phi3-mini-3.8b", "--shape", "decode_32k"])
+#: The world-1 sharded decode of mamba2-780m whole (fp32): batch, prompt
+#: (one SSD chunk) and greedy steps.
+DIST_DECODE = dict(batch=4, prompt=64, steps=4, seed=2)
 #: The world-1 sharded step's peak when its rank model held a whole copy
 #: of the parameters beside their shards (H100 80GB HBM3, 700 W; PERF.md).
 DIST_PEAK_BEFORE_GIB = 21.35
@@ -3131,6 +3137,88 @@ def dist_parity(fixture: dict, cfg, tree: dict) -> dict:
         dist.destroy_process_group()
 
 
+def dist_decode(cfg, tree: dict) -> dict:
+    """The sharded prefill and ``DIST_DECODE["steps"]`` greedy sharded
+    decode steps of ``cfg`` (mamba2-780m whole, fp32) on a 1x1 NCCL mesh,
+    the cache laid out by ``cache_pspecs``; each decode step's logits and
+    cache held to the unsharded ``decode_step``'s on the same weights,
+    tokens and cache (rtol = atol = ``TOLS["decode"]``), and both timed.
+    Neither launches a kernel: the unsharded model is prefilled by the
+    sharded step (the unsharded prefill would run the SSD-scan kernel)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import torch_dist_cases as tdc
+    from repro_torch import interop
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.synth import make_batch
+    from repro_torch.distributed.sharding import (PSpec, batch_pspecs,
+                                                  cache_pspecs, gather,
+                                                  is_spec, map_tree,
+                                                  param_pspecs, placements,
+                                                  shard, shard_tree)
+    from repro_torch.distributed.step import (make_sharded_decode_step,
+                                              make_sharded_prefill_step,
+                                              shard_params)
+    from repro_torch.models import build_model
+
+    a = DIST_DECODE
+    with one_rank_env():
+        dist.init_process_group("nccl")
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        model = build_model(cfg, interop.params_from_reference(cfg, tree),
+                            dtype=torch.float32, device="cuda")
+        full = model.param_tree()
+        params = shard_params(full, param_pspecs(cfg, full, mesh), mesh)
+        batch = make_batch(cfg, a["batch"], a["prompt"], seed=a["seed"],
+                           dtype=torch.float32, device="cuda")
+        prefill = make_sharded_prefill_step(model, mesh)
+        logits, cache = prefill(params, shard_tree(batch, batch_pspecs(
+            cfg, mesh, ShapeSpec("p", a["prompt"], a["batch"], "prefill")),
+            mesh))
+        cache = map_tree(lambda spec, t: t.redistribute(
+            mesh, placements(spec, mesh)), cache_pspecs(
+                cfg, mesh, a["batch"]), cache, is_leaf=is_spec)
+        whole = map_tree(gather, cache)
+        decode = make_sharded_decode_step(model, mesh)
+        rows, errs, ms, ms_plain = [], [], [], []
+        tok = gather(logits).argmax(-1).int()
+        for step in range(a["steps"]):
+            cur = a["prompt"] + step
+            sync("cuda")
+            t0 = time.perf_counter()
+            got, cache = decode(params, shard(tok, PSpec("data", None),
+                                              mesh), cache, cur)
+            got = gather(got)
+            sync("cuda")
+            ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            want, whole = model.decode_step(tok, whole, cur)
+            sync("cuda")
+            ms_plain.append(1e3 * (time.perf_counter() - t0))
+            errs.append(dict(
+                logits=tdc.max_rel(got, want, tdc.TOLS["decode"]),
+                cache=max(tdc.max_rel(gather(n), w, tdc.TOLS["decode"])
+                          for n, w in zip(
+                              (x for c in cache.values() for x in c),
+                              (x for c in whole.values() for x in c)))))
+            rows.append(tok[:, 0].tolist())
+            tok = want.argmax(-1).int()
+        bad = [e for e in errs if e["logits"] > 1 or e["cache"] > 1]
+        if bad:
+            fail(f"distributed: the sharded decode of {cfg.name} differs "
+                 f"from the unsharded decode_step: {errs}")
+        return dict(errs=errs, tokens=rows, ms=ms, plain_ms=ms_plain,
+                    gathered=decode.meter.peak,
+                    model_gathers=decode.meter.over_model,
+                    placements=[str(p) for p in
+                                cache["pos0"].ssd.placements])
+    finally:
+        dist.destroy_process_group()
+
+
 def dist_launcher(tree: dict, want: list) -> dict:
     """``launch.train --distributed`` at world 1 on NCCL (``DIST_LAUNCH``):
     its losses equal ``want``, the non-distributed run's, bit for bit."""
@@ -3151,9 +3239,11 @@ def dist_launcher(tree: dict, want: list) -> dict:
 def dist_ranks() -> dict:
     """The 4-rank cases on ``DIST_RANK_DEVICE``, each held to the
     single-rank result at the CPU tests' tolerances (every train case, its
-    gradients leaf by leaf, the prefill and decode of phi3 and jamba and
-    their gathered bytes); the ring's ``compressed_mean`` bit for bit to
-    the same ring played out in one process."""
+    gradients leaf by leaf, the prefill and decode cases, their gathered
+    bytes within two blocks split over "model", no leaf gathered over
+    "model" and no cache leaf redistributed in decode); the ring's
+    ``compressed_mean`` bit for bit to the same ring played out in one
+    process."""
     import tempfile
 
     import torch_dist_cases as tdc
@@ -3184,9 +3274,10 @@ def dist_ranks() -> dict:
         r = out[name]
         if any(r[k] > 1 for k in ("logits_err", "cache_err",
                                   "prefill_logits_err", "prefill_cache_err")
-               ) or not r["cache_layout_kept"] or not (
+               ) or not r["cache_layout_kept"] or r["cache_redistributes"] \
+                or r["decode_model_gathers"] or not (
                 0 < r["prefill_gathered"] <= 2 * r["block_bytes"]
-                and 0 < r["decode_gathered"] <= 2 * r["whole_block_bytes"]):
+                and 0 < r["decode_gathered"] <= 2 * r["block_bytes"]):
             fail(f"distributed: the sharded {name} differs: {r}")
     if out["cmm"]["err"] > 1:
         fail(f"distributed: collective_matmul differs: {out['cmm']}")
@@ -3198,42 +3289,51 @@ def dist_ranks() -> dict:
 
 
 def dist_dryrun(run) -> dict:
-    """``python -m repro_torch.launch.dryrun`` on one cell in a subprocess,
-    beside ``run()`` (the rank cases, CPU work too): the dry-run must
-    print its OK line. Returns (its record, ``run()``'s result)."""
+    """``python -m repro_torch.launch.dryrun`` on each of ``DRYRUNS`` in a
+    subprocess, all beside ``run()`` (the rank cases, CPU work too): each
+    must print its OK line. Returns ({cell: its record's figures},
+    ``run()``'s result)."""
     import os
 
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    try:
-        beside = run()
-        out, err = proc.communicate(timeout=300)
-    finally:
-        proc.kill()
-        proc.wait()
-    ok = [l for l in out.splitlines() if l.startswith("[dryrun] OK")]
-    if proc.returncode or not ok:
-        fail(f"distributed: the dry-run failed (rc {proc.returncode}): "
-             f"{out[-2000:]} {err[-2000:]}")
     from repro_torch.launch import roofline
 
-    rec = json.loads((roofline.RESULTS / (
-        f"{DRYRUN[1]}_{DRYRUN[3]}_16x16.json")).read_text())
-    mem = rec["memory"]
-    return dict(line=ok[-1], wall_s=time.perf_counter() - t0,
-                peak_bytes=mem["peak_bytes"],
-                gathered_bytes=mem["gathered_bytes"],
-                useful=roofline.analyze(rec)["useful_ratio"]), beside
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *cell],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        for cell in DRYRUNS]
+    try:
+        beside = run()
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    cells = {}
+    for cell, proc, (out, err) in zip(DRYRUNS, procs, outs):
+        ok = [l for l in out.splitlines() if l.startswith("[dryrun] OK")]
+        if proc.returncode or not ok:
+            fail(f"distributed: the dry-run of {cell} failed (rc "
+                 f"{proc.returncode}): {out[-2000:]} {err[-2000:]}")
+        rec = json.loads((roofline.RESULTS / (
+            f"{cell[1]}_{cell[3]}_16x16.json")).read_text())
+        mem = rec["memory"]
+        cells[f"{cell[1]} {cell[3]}"] = dict(
+            line=ok[-1], peak_bytes=mem["peak_bytes"],
+            gathered_bytes=mem["gathered_bytes"],
+            argument_bytes=mem["argument_bytes"],
+            collective_bytes=rec["collectives"]["total"],
+            useful=roofline.analyze(rec)["useful_ratio"])
+    return dict(cells=cells, wall_s=time.perf_counter() - t0), beside
 
 
 def phase_distributed(smi: str, tree: dict, launcher_losses: list):
     """The distributed stack on the card: mamba2-780m whole through the
-    sharded step on a 1x1 NCCL mesh against the JAX fixture,
+    sharded step on a 1x1 NCCL mesh against the JAX fixture, its sharded
+    prefill and decode against the unsharded ``decode_step``,
     ``launch.train --distributed`` at world 1 against the non-distributed
-    run, the 4-rank cases (``DIST_RANK_DEVICE``) and one dry-run cell; no
+    run, the 4-rank cases (``DIST_RANK_DEVICE``) and the dry-run cells; no
     kernel launches."""
     import torch_cases as tc
     from repro_torch.configs import get_config
@@ -3256,6 +3356,18 @@ def phase_distributed(smi: str, tree: dict, launcher_losses: list):
         f"{parity['placements']}, gathered {parity['gathered']} B); "
         f"card {smi}")
     torch.cuda.empty_cache()
+    dec = dist_decode(cfg, tree)
+    log(f"[distributed] mamba2-780m fp32 sharded prefill and "
+        f"{DIST_DECODE['steps']} decode steps on a 1x1 NCCL mesh (B "
+        f"{DIST_DECODE['batch']}, prompt {DIST_DECODE['prompt']}; ssd "
+        f"{dec['placements']}): logits / cache within "
+        + ", ".join(f"{e['logits']:.4f} / {e['cache']:.4f}"
+                    for e in dec["errs"])
+        + f" of 2e-4 against the unsharded decode_step; sharded "
+        + ", ".join(f"{t:.1f}" for t in dec["ms"]) + " ms, unsharded "
+        + ", ".join(f"{t:.1f}" for t in dec["plain_ms"])
+        + f" ms a step; gathered {dec['gathered']} B; card {smi}")
+    torch.cuda.empty_cache()
     launcher = dist_launcher(tree, launcher_losses)
     log(f"[distributed] launch.train {' '.join(DIST_LAUNCH)} at world 1 "
         f"(NCCL): losses equal the non-distributed run's bit for bit; "
@@ -3266,10 +3378,13 @@ def phase_distributed(smi: str, tree: dict, launcher_losses: list):
     dry, ranks = dist_dryrun(dist_ranks)
     log(f"[distributed] {DIST_RANKS} gloo ranks (2x2) on {DIST_RANK_DEVICE}: "
         + json.dumps(ranks))
-    log(f"[distributed] {dry['line']} ({dry['wall_s']:.1f} s, beside the "
-        f"ranks): peak_bytes {dry['peak_bytes']}, gathered_bytes "
-        f"{dry['gathered_bytes']}, useful {dry['useful']:.4f}")
-    summary = dict(parity=parity, launcher=launcher, ranks=ranks,
+    for c in dry["cells"].values():
+        log(f"[distributed] {c['line']} ({dry['wall_s']:.1f} s, beside the "
+            f"ranks): peak_bytes {c['peak_bytes']} "
+            f"({c['peak_bytes'] / 2**30:.2f} GiB), gathered_bytes "
+            f"{c['gathered_bytes']}, collective bytes "
+            f"{c['collective_bytes']:.4e}, useful {c['useful']:.4f}")
+    summary = dict(parity=parity, decode=dec, launcher=launcher, ranks=ranks,
                    dryrun=dry, wall_s=time.perf_counter() - t0,
                    rank_device=DIST_RANK_DEVICE, card=smi)
     log("[distributed] " + json.dumps(summary))

@@ -17,13 +17,24 @@ rows at a time, no larger than the largest block. No rank ever holds the
 whole tree. "pod" splits no parameter.
 
 Compute over "model" (tensor, expert and vocabulary parallelism) in the
-train and prefill steps, where the leaf's spec splits it:
+train, prefill and decode steps, where the leaf's spec splits it:
 
   attention  wq heads local; wk / wv local where Hkv divides tp, else
              (replicated) sliced to the kv heads the rank's query heads
              read (``kv_index``, under ``pad_heads``' groups (H + pad) //
-             Hkv; prefill keeps every kv head, which its cache needs); wo
-             row-parallel. Cross-attention and the encoder alike.
+             Hkv; prefill and decode keep every kv head, which the cache
+             needs); wo row-parallel. Cross-attention and the encoder
+             alike. Decode attends on the cache as ``cache_pspecs`` lays
+             it out: its rows, its window of the sequence and every kv
+             head (``Window``). The new token's query heads (and its K /
+             V where wk / wv are split) are all-gathered over "model",
+             every head attends over the rank's slots, the partial
+             softmax is merged by an all-reduce of the max, then one of
+             the rescaled sum of exp and output, over the mesh
+             dimensions that split the sequence ("model", or "data" and
+             "model" for a replicated batch); the rank keeps its heads for
+             wo. Cross-attention in decode alike over the encoder's
+             slots, writing nothing.
   dense MLP  up / gate column-parallel over f, down row-parallel; MoE
              shared experts alike.
   MoE        experts split over "model" (``experts()``), router
@@ -34,7 +45,8 @@ train and prefill steps, where the leaf's spec splits it:
              over its 2 d_inner columns, not by heads) re-laid out by an
              all-to-all into the rank's z then x columns; ``in_bcdt`` /
              ``conv_bc`` replicated, dt sliced to the rank's heads; the
-             gated norm's squares summed over "model".
+             gated norm's squares summed over "model". In decode the
+             state's ``conv_x`` and ``ssd`` are the rank's shards.
   vocab      embed a masked lookup of the rank's rows summed over
              "model"; lm_head the rank's logits; the cross-entropy from
              the max, the sum of exp and the label's logit over "model".
@@ -46,9 +58,9 @@ norms are whole by rule and computed whole; wq / wo, up / gate / down,
 the experts and shared experts, and the SSM's head leaves (their
 dimension does not divide tp) make their mixer or FFN run whole: its
 leaves are gathered over "model" too and every rank computes it, keeping
-its own part of the output (decode runs every block so; the registry's
-widths split every one on the 2x4, 16x16 and 2x16x16 meshes). An
-unsplit vocabulary table is looked up and projected whole.
+its own part of the output (the registry's widths split every one on
+the 2x4, 16x16 and 2x16x16 meshes). An unsplit vocabulary table is
+looked up and projected whole.
 
 Residual (the sequence-parallel carry, train only). Between blocks it is
 ``[B_local, S / tp, d]``, as the reference's ``carry_spec`` ``P(dp,
@@ -56,9 +68,10 @@ Residual (the sequence-parallel carry, train only). Between blocks it is
 the sequence and reduce-scatters its partial output back (or, run whole,
 keeps its slice). Prefill has no carry: the residual is whole on every
 "model" rank, exits all-reduce, and each layer's K/V heads and SSM state
-heads are all-gathered into the cache's layout. Decode gathers every
-block whole (every axis) and computes as the single device does, with the
-vocabulary partitioned as in prefill.
+heads are all-gathered into the prefill cache's layout (rows split, heads
+and sequence whole). Decode has no carry either: one token, whole on
+every "model" rank, each mixer's and FFN's partial output all-reduced
+over "model"; the cache stays in its shards and nothing gathers it.
 
 The loss and its gradient. Every rank computes the global loss ``L``
 (cross-entropy over the batch's valid labels, all-reduced, plus the MoE
@@ -68,7 +81,7 @@ aux, whose capacity and sums are the whole batch's through
 leaf's gradient arrives in its own shard (the gather's reduce-scatter),
 and a leaf that a mesh dimension replicates gets its partial gradients
 summed over it (``grads()``). :class:`GatherMeter` counts the gathered
-bytes alive at once.
+bytes alive at once and the leaves gathered over "model".
 """
 from __future__ import annotations
 
@@ -78,7 +91,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, Window
 from repro_torch.models.builder import Layout
 from repro_torch.models.ssm import SSMState
 from repro_torch.tree import leaves_with_paths
@@ -185,14 +198,38 @@ class MeshBatch:
             x = _Sum.apply(x, self.mesh.get_group(d))
         return x
 
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s elementwise max over the members (no gradient)."""
+        for d in self.dims:
+            x = all_reduce(x, self.mesh.get_group(d), "max")
+        return x
+
+
+class _Heads:
+    """A mixer's heads (dimension 2) split over "model": the rank holds
+    ``[index h, (index + 1) h)`` of ``size h``."""
+
+    def __init__(self, group, size: int, index: int):
+        self.group, self.size, self.index = group, size, index
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return all_gather(t, 2, self.group)
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        h = t.shape[2] // self.size
+        return t[:, :, self.index * h:(self.index + 1) * h]
+
 
 class GatherMeter:
     """The most bytes of gathered parameters alive at once on this rank,
     counted by the gathers themselves: each gathered tensor's storage is
-    held by a weak reference and drops out of the count when freed."""
+    held by a weak reference and drops out of the count when freed.
+    ``over_model``: the leaves gathered over "model" (a mixer or FFN run
+    whole)."""
 
     def __init__(self):
         self.peak = 0
+        self.over_model = 0
         self._live: list = []
 
     def add(self, t: torch.Tensor) -> None:
@@ -213,13 +250,18 @@ class Partitioned(Layout):
     ``params``: the parameter tree as ``DTensor`` shards; ``batch_dims``:
     the mesh dimensions that split the batch's rows; ``mode``: "train"
     (leaves that require grad; the sequence-parallel carry), "prefill" or
-    "decode"."""
+    "decode"; ``slots`` (decode): ``{"pos{i}": (s0, merge)}`` for each
+    attention position, the first global slot of the rank's cache window
+    and the :class:`MeshBatch` over the ranks that split its sequence
+    (None: no other)."""
 
     kernels = False
 
     def __init__(self, cfg, params: dict, mesh, batch_dims, mode: str,
-                 meter: GatherMeter | None = None):
+                 meter: GatherMeter | None = None,
+                 slots: dict | None = None):
         self.cfg, self.mesh, self.mode = cfg, mesh, mode
+        self.slots = slots or {}
         self.meter = meter or GatherMeter()
         self.group = MeshBatch(mesh, batch_dims)
         names = list(mesh.mesh_dim_names)
@@ -271,7 +313,7 @@ class Partitioned(Layout):
                 and self.pl[path][self.tp_dim] == Shard(dim))
 
     def _splits_mixer(self, pre: str, mixer: str) -> bool:
-        if self.mode == "decode" or self.tp_dim is None:
+        if self.tp_dim is None:
             return False
         if mixer == "ssm":
             return (self._split_on_model(pre + "A_log", 1)
@@ -279,7 +321,7 @@ class Partitioned(Layout):
         return self._split_on_model(pre + "wq", 2)
 
     def _splits_ffn(self, pre: str, ffn: str) -> bool:
-        if self.mode == "decode" or self.tp_dim is None or ffn == "none":
+        if self.tp_dim is None or ffn == "none":
             return False
         if ffn == "dense":
             return self._split_on_model(pre + "up", 2)
@@ -321,6 +363,7 @@ class Partitioned(Layout):
                 dim = self.pl[path][d].dim - int(stacked)
                 t = _Gather.apply(t, dim, self.mesh.get_group(d))
                 gathered = True
+                self.meter.over_model += d == self.tp_dim
         if gathered:
             self.meter.add(t)
         return t
@@ -441,6 +484,12 @@ class Partitioned(Layout):
 
     def whole_seq(self, x: torch.Tensor, stack: str) -> torch.Tensor:
         return self.enter(x, stack)
+
+    def window(self, stack: str, i: int) -> Window:
+        s0, merge = self.slots.get(f"pos{i}", (0, None))
+        heads = (_Heads(self._model_group(), self.tp, self.tp_rank)
+                 if self.tp_part[stack, i, "mixer"] else None)
+        return Window(s0, merge, heads)
 
     def cache(self, c, stack: str, i: int):
         if not self.tp_part[stack, i, "mixer"]:

@@ -28,10 +28,15 @@ batch over ("data", "model"). A train step:
 
 The prefill step runs the same partitioned forward without the carry and
 returns the cache split over the batch's mesh dimensions (the cache's
-batch is its dimension 1), its heads whole; the decode step gathers one
-block at a time over every axis, runs ``Model.decode_step`` on the rank's
-cache rows and writes them back into the cache's own layout. Neither
-launches a kernel: the sharded steps take the reference's own operations.
+batch is its dimension 1), its heads and sequence whole. The decode step
+takes the cache as ``cache_pspecs`` lays it out and computes on each
+rank's shards as they lie: the KV sequence split over "model" (or "data"
+and "model"), each rank attending over its window of slots with the
+partial softmax merged across the ranks (``attention.Window``), the SSM
+state's heads over "model"; the mixers and FFNs split over "model" as in
+prefill. It returns the new shards in the same placements: no cache leaf
+is gathered or redistributed. Neither step launches a kernel: the
+sharded steps take the reference's own operations.
 Each step function carries ``meter`` (``partition.GatherMeter``): the
 most gathered parameter bytes it held at once. Every rank of a mesh must
 call a step together: each holds collectives.
@@ -42,11 +47,14 @@ from typing import Callable
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.distributed.partition import (GatherMeter, MeshBatch,
                                                Partitioned)
 from repro_torch.distributed.sharding import (is_spec, map_tree, placements,
                                               shard_tree)
+from repro_torch.models.attention import KVCache
 from repro_torch.models.builder import Model
 from repro_torch.train.optimizer import Optimizer
 from repro_torch.tree import unflatten
@@ -75,12 +83,6 @@ def shard_opt_state(optimizer: Optimizer, params: dict, specs: dict,
     own."""
     return _own(shard_tree(optimizer.init(params),
                            optimizer.state_pspecs(specs, params), mesh))
-
-
-def _rows(t: DTensor, dim: int) -> list:
-    """Placements that keep ``t``'s split of dimension ``dim`` (the batch)
-    and replicate everything else."""
-    return [p if p == Shard(dim) else Replicate() for p in t.placements]
 
 
 def _local(t: DTensor, pl: list) -> torch.Tensor:
@@ -185,24 +187,48 @@ def make_sharded_prefill_step(model: Model, mesh) -> Callable:
     return prefill
 
 
+def _window(k: DTensor, mesh) -> tuple:
+    """(the first global slot of this rank's share of a KV cache leaf
+    ``[R, B, S, Hkv, hd]``, the :class:`MeshBatch` over the mesh
+    dimensions that split its sequence, None if none does)."""
+    _, offset = compute_local_shape_and_global_offset(k.shape, mesh,
+                                                      k.placements)
+    group = MeshBatch(mesh, _batch_dims(k.placements, 2))
+    return offset[2], (group if group.size > 1 else None)
+
+
+def _cur_rows(cur_len, mesh, dims: list[int]):
+    """``cur_len`` for this rank's batch rows: an int or a ``[]`` tensor as
+    it is, a whole ``[B]`` tensor (alike on every rank) cut to the rows."""
+    if not isinstance(cur_len, torch.Tensor) or cur_len.ndim == 0:
+        return cur_len
+    group = MeshBatch(mesh, dims)
+    return cur_len.tensor_split(group.size)[group.index]
+
+
 def make_sharded_decode_step(model: Model, mesh) -> Callable:
     """``(params, tokens, cache, cur_len) -> (logits, cache)``: ``cache``
     laid out by ``cache_pspecs`` and returned so, ``tokens`` ``[B, 1]``
-    in any layout; logits ``[B, 1, V]`` split as the cache's batch."""
+    in any layout (taken to the cache's batch rows), ``cur_len`` an int,
+    a ``[]`` or a ``[B]`` tensor; logits ``[B, 1, V]`` split as the cache's
+    batch."""
     meter = GatherMeter()
 
     def decode(params, tokens, cache, cur_len):
-        rows = _rows(next(iter(cache.values()))[0], 1)
-        tok_pl = [Shard(0) if p == Shard(1) else Replicate() for p in rows]
-        layout = Partitioned(model.cfg, params, mesh, _batch_dims(rows, 1),
-                             "decode", meter)
-        local = map_tree(lambda c: _local(c, _rows(c, 1)), cache)
-        logits, new = model.decode_step(_local(tokens, tok_pl), local,
-                                        cur_len, layout=layout)
+        dims = _batch_dims(next(iter(cache.values()))[0].placements, 1)
+        rows = [Shard(0) if d in dims else Replicate()
+                for d in range(mesh.ndim)]
+        slots = {k: _window(c.k, mesh) for k, c in cache.items()
+                 if isinstance(c, KVCache)}
+        layout = Partitioned(model.cfg, params, mesh, dims, "decode", meter,
+                             slots)
+        logits, new = model.decode_step(
+            _local(tokens, rows), map_tree(lambda c: c.to_local(), cache),
+            _cur_rows(cur_len, mesh, dims), layout=layout)
         new = map_tree(lambda n, c: DTensor.from_local(
-            n, mesh, _rows(c, 1), run_check=False).redistribute(
-                mesh, c.placements), new, cache)
-        return DTensor.from_local(logits, mesh, tok_pl, run_check=False), new
+            n, mesh, c.placements, run_check=False, shape=c.shape,
+            stride=c.stride()), new, cache)
+        return DTensor.from_local(logits, mesh, rows, run_check=False), new
 
     decode.meter = meter
     return decode

@@ -15,10 +15,17 @@ activation dtype before P V, everywhere, as in the reference.
 the kv head each of the given query heads reads, as an index into the
 given keys and values, for a rank that holds a slice of the heads; None
 expands them ``groups`` times as above.
+
+:class:`Window` (decode, sequence parallelism): the cache a rank holds is
+a window of the whole cache's slots, its query heads perhaps a slice of
+them; the softmax over the window's slots is merged with the other
+windows' from each window's max, sum of exp and unnormalised output. The
+default window is the single device's: every slot, no collective, the
+reference's own operations.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -32,6 +39,20 @@ NEG = -1e9
 class KVCache(NamedTuple):
     k: torch.Tensor   # [B, S_max, Hkv, hd]
     v: torch.Tensor   # [B, S_max, Hkv, hd]
+
+
+class Window(NamedTuple):
+    """One rank's share of a decode attention (``Layout.window``). The
+    cache it is given holds slots ``[s0, s0 + S_l)`` of the whole.
+    ``merge`` (``.max(t)`` / ``.sum(t)`` over the ranks that split the
+    slots; None: no other rank) merges the partial softmax terms.
+    ``heads`` (``.gather(t)``: a ``[B, 1, h, hd]`` tensor of the rank's
+    heads -> every head; ``.own(t)``: every head -> the rank's) where the
+    rank's projections hold a slice of the heads; None: every head."""
+
+    s0: int = 0
+    merge: Any = None
+    heads: Any = None
 
 
 def init_attention(gen: Gen, d: int, cfg: AttnConfig, n_pad_heads: int = 0,
@@ -68,6 +89,23 @@ def _expand_kv(k: torch.Tensor, groups: int,
 
 def _softmax(scores: torch.Tensor, dtype) -> torch.Tensor:
     return torch.softmax(scores.float(), dim=-1).to(dtype)
+
+
+def _merged(scores: torch.Tensor, v: torch.Tensor, eq: str, dtype, merge
+            ) -> torch.Tensor:
+    """softmax(scores) @ v where the slots (the scores' last axis) are
+    split over ranks: this rank's max, sum of exp and unnormalised output
+    (its weights cast to ``dtype`` before P V, as the reference casts its
+    probabilities), each rescaled to the ranks' max and summed over them.
+    A rank whose slots are all masked (max ``NEG``) gets weight
+    exp(NEG - max) = 0. ``eq`` keeps the scores' leading axes."""
+    s = scores.float()
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum(eq, p.to(dtype), v).float()
+    w = torch.exp(m - merge.max(m))
+    lo = merge.sum(torch.cat([p.sum(-1, keepdim=True) * w, o * w], dim=-1))
+    return (lo[..., 1:] / lo[..., :1]).to(dtype)
 
 
 def _full(q, k, v, scale: float, causal: bool) -> torch.Tensor:
@@ -142,21 +180,29 @@ def prefill_attention(p: Params, x: torch.Tensor, cfg: AttnConfig, *,
 
 
 def decode_attention(p: Params, x: torch.Tensor, cfg: AttnConfig,
-                     cache: KVCache, cur_len, grouped: bool = False
+                     cache: KVCache, cur_len, grouped: bool = False,
+                     window: Window = Window()
                      ) -> tuple[torch.Tensor, KVCache]:
-    """One-token decode: x [B, 1, D]; cache [B, S_max, Hkv, hd]; cur_len an
-    int, a [] or a [B] tensor.
+    """One-token decode: x [B, 1, D]; cache [B, S_l, Hkv, hd], slots
+    ``[window.s0, window.s0 + S_l)`` of the whole cache's S_max; cur_len
+    an int, a [] or a [B] tensor.
 
     The new key and value are added to the cache at ``cur_len`` by a
     one-hot sum, as the reference appends: at ``cur_len >= S_max`` nothing
-    is written (and every slot stays valid), never an index out of range.
-    ``grouped=True`` computes GQA on the raw cache (q as [B, Hkv, G, hd])."""
+    is written (and every slot stays valid), never an index out of range;
+    a window without slot ``cur_len`` writes nothing either. ``grouped=
+    True`` computes GQA on the raw cache (q as [B, Hkv, G, hd])."""
     b = x.shape[0]
-    s_max = cache.k.shape[1]
+    s_l = cache.k.shape[1]
     cur = torch.as_tensor(cur_len, device=x.device).reshape(-1, 1)
     q, k_new, v_new = _qkv(p, x, cfg, cur.expand(b, 1))
+    if window.heads is not None:
+        q = window.heads.gather(q)
+        if k_new.shape[2] != cache.k.shape[2]:
+            k_new, v_new = (window.heads.gather(k_new),
+                            window.heads.gather(v_new))
 
-    slots = torch.arange(s_max, device=x.device)[None, :]
+    slots = window.s0 + torch.arange(s_l, device=x.device)[None, :]
     onehot = (slots == cur)[..., None, None]                     # [B,S,1,1]
     k = cache.k + onehot * k_new.to(cache.k.dtype)
     v = cache.v + onehot * v_new.to(cache.v.dtype)
@@ -168,13 +214,25 @@ def decode_attention(p: Params, x: torch.Tensor, cfg: AttnConfig,
         qg = q[:, 0].reshape(b, cfg.n_kv_heads, groups, cfg.head_dim)
         scores = torch.einsum("bhgd,bshd->bhgs", qg, k) * scale
         scores = scores.masked_fill(~valid[:, None, None, :], NEG)
-        out = torch.einsum("bhgs,bshd->bhgd", _softmax(scores, x.dtype), v)
+        if window.merge is None:
+            out = torch.einsum("bhgs,bshd->bhgd", _softmax(scores, x.dtype),
+                               v)
+        else:
+            out = _merged(scores, v, "bhgs,bshd->bhgd", x.dtype,
+                          window.merge)
         out = out.reshape(b, 1, q.shape[2], cfg.head_dim)
     else:
         ke, ve = _expand_kv(k, groups), _expand_kv(v, groups)
         scores = torch.einsum("bqhk,bshk->bhqs", q, ke) * scale
         scores = scores.masked_fill(~valid[:, None, None, :], NEG)
-        out = torch.einsum("bhqs,bshk->bqhk", _softmax(scores, x.dtype), ve)
+        if window.merge is None:
+            out = torch.einsum("bhqs,bshk->bqhk", _softmax(scores, x.dtype),
+                               ve)
+        else:
+            out = _merged(scores, ve, "bhqs,bshk->bhqk", x.dtype,
+                          window.merge).transpose(1, 2)
+    if window.heads is not None:
+        out = window.heads.own(out)
     y = torch.einsum("bqhk,hkd->bqd", out, p["wo"].to(x.dtype))
     return y, KVCache(k=k, v=v)
 
@@ -189,16 +247,27 @@ def cross_kv(p: Params, enc: torch.Tensor, dtype) -> KVCache:
 
 
 def cross_attend(p: Params, x: torch.Tensor, kv: KVCache,
-                 cfg: AttnConfig, kv_index: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 cfg: AttnConfig, kv_index: torch.Tensor | None = None,
+                 window: Window = Window()) -> torch.Tensor:
     """Decoder cross-attention against the encoder's keys and values
-    (:func:`cross_kv`; full, no causal mask)."""
+    (:func:`cross_kv`; full, no causal mask), or against ``window``'s
+    slots of them (decode; nothing is written)."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    if window.heads is not None:
+        q = window.heads.gather(q)
     groups = q.shape[2] // cfg.n_kv_heads
-    out = _full(q, _expand_kv(kv.k, groups, kv_index),
-                _expand_kv(kv.v, groups, kv_index),
-                cfg.head_dim ** -0.5, False)
+    k = _expand_kv(kv.k, groups, kv_index)
+    v = _expand_kv(kv.v, groups, kv_index)
+    scale = cfg.head_dim ** -0.5
+    if window.merge is None:
+        out = _full(q, k, v, scale, False)
+    else:
+        scores = torch.einsum("bqhk,bshk->bhqs", q, k) * scale
+        out = _merged(scores, v, "bhqs,bshk->bhqk", dt,
+                      window.merge).transpose(1, 2)
+    if window.heads is not None:
+        out = window.heads.own(out)
     return torch.einsum("bqhk,hkd->bqd", out, p["wo"].to(dt))
 
 

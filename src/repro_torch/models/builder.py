@@ -50,7 +50,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, Window
 from repro_torch.models.layers import (Gen, embed, init_embedding, init_mlp,
                                        init_rmsnorm, mlp, rmsnorm, unembed)
 from repro_torch.models.ssm import SSMState
@@ -194,6 +194,11 @@ class Layout:
     def cache(self, c, stack: str, i: int):
         """Position ``i``'s prefill cache as the model returns it."""
         return c
+
+    def window(self, stack: str, i: int) -> Window:
+        """Position ``i``'s decode attention on the cache it is given:
+        here every slot and every head, no collective."""
+        return Window()
 
     def embed(self, model: "Model", tokens: torch.Tensor) -> torch.Tensor:
         return embed(self.top("embed"), tokens, model.dtype)
@@ -425,20 +430,25 @@ class Model(nn.Module):
             for i, spec in enumerate(cfg.pattern):
                 p = layout.block("dec", i, r)
                 c = _cache_row(cache[f"pos{i}"], r)
-                xin = rmsnorm(p["mixer_norm"], x, cfg.norm_eps)
+                xin = layout.enter(rmsnorm(p["mixer_norm"], x, cfg.norm_eps),
+                                   "dec")
                 if spec.mixer == "ssm":
                     h, c = ssm_mod.ssm_decode(p["mixer"], xin, c,
-                                              cfg.d_model, cfg.ssm)
+                                              cfg.d_model, cfg.ssm,
+                                              norm_sum=layout.norm_sum)
                 elif spec.mixer == "cross":
                     h = attn_mod.cross_attend(p["mixer"], xin, c,
-                                              _noncausal(cfg.attn))
+                                              _noncausal(cfg.attn),
+                                              window=layout.window("dec", i))
                 else:
                     h, c = attn_mod.decode_attention(
                         p["mixer"], xin, cfg.attn, c, cur,
-                        grouped=self.decode_grouped)
+                        grouped=self.decode_grouped,
+                        window=layout.window("dec", i))
                 parts[f"pos{i}"].append(c)
-                x, _ = self._add_ffn(spec, p, x + h, layout, "dec", i,
-                                     use_kernel=kernels)
+                x, _ = self._add_ffn(spec, p,
+                                     x + layout.exit(h, "dec", i, "mixer"),
+                                     layout, "dec", i, use_kernel=kernels)
         x = rmsnorm(layout.top("final_norm"), x, cfg.norm_eps)
         return layout.logits(self, x), _stack_cache(parts)
 

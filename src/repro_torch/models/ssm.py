@@ -19,11 +19,12 @@ caller of the port serves. :func:`ssm_decode` stays plain PyTorch, as it is
 plain JAX in the reference. The causal conv is the reference's shifted
 sums, not a cuDNN convolution.
 
-:func:`ssm_forward` reads ``d_inner`` and the head count from the leaves
-it is given, so a rank that holds a slice of the heads (tensor
-parallelism, ``repro_torch.distributed.partition``: ``in_zx`` as the
-slice's z then x columns, ``in_bcdt``'s dt columns the slice's) runs it
-unchanged; ``norm_sum`` then sums the gated norm's squares over the
+:func:`ssm_forward` and :func:`ssm_decode` read ``d_inner`` and the head
+count from the leaves they are given, so a rank that holds a slice of the
+heads (tensor parallelism, ``repro_torch.distributed.partition``:
+``in_zx`` as the slice's z then x columns, ``in_bcdt``'s dt columns the
+slice's, in decode the state's ``conv_x`` and ``ssd`` the slice's) runs
+them unchanged; ``norm_sum`` then sums the gated norm's squares over the
 ranks, whose mean is over the whole ``d_inner``.
 """
 from __future__ import annotations
@@ -197,11 +198,13 @@ def ssm_forward(p: Params, x: torch.Tensor, d: int, cfg: SSMConfig,
 
 
 def ssm_decode(p: Params, x: torch.Tensor, state: SSMState, d: int,
-               cfg: SSMConfig) -> tuple[torch.Tensor, SSMState]:
-    """Single-token decode. x [B,1,D]."""
+               cfg: SSMConfig, norm_sum=None) -> tuple[torch.Tensor, SSMState]:
+    """Single-token decode. x [B,1,D]; ``state``'s ``conv_x`` and ``ssd``
+    hold the heads the leaves hold; ``norm_sum``: see the module
+    docstring."""
     bsz = x.shape[0]
-    di = cfg.d_inner(d)
-    H = cfg.n_heads(d)
+    di = p["conv_x_w"].shape[-1]
+    H = p["A_log"].shape[-1]
     gds = cfg.n_groups * cfg.d_state
     dt_ = x.dtype
 
@@ -228,6 +231,7 @@ def ssm_decode(p: Params, x: torch.Tensor, state: SSMState, d: int,
     y = torch.einsum("bs,bhsd->bhd", c.float(), h)
     y = y + xs.reshape(bsz, H, cfg.head_dim).float() * p["D"][None, :, None]
     y = y.reshape(bsz, di).to(dt_)
-    y = _gated_norm(y, z, p["norm_scale"])
+    y = _gated_norm(y, z, p["norm_scale"], norm_sum=norm_sum,
+                    width=cfg.d_inner(d))
     out = (y @ p["out_proj"].to(dt_))[:, None]
     return out, SSMState(conv_x=win_x[:, 1:], conv_bc=win_bc[:, 1:], ssd=h)

@@ -18,9 +18,14 @@ GSPMD; the optimizer state within 1e-4 of each leaf's largest entry,
 jamba's after its first step, ``tdc.STATE_AFTER_FIRST``) with every
 replica identical, and to the JAX steps at the same tolerances; every
 leaf's gradient of one sharded step to the single rank's (1e-5); the
-sharded prefill and decode (phi3, jamba) to the single rank's (2e-4),
-their gathered parameter bytes within two blocks (prefill: split over
-"model" as the specs split them; decode: whole);
+sharded prefill and decode (phi3, jamba, seamless, moonshot, jamba at
+batch 1, phi3 at a per-row cur_len) to the single rank's (2e-4), the
+decode on the cache as ``cache_pspecs`` lays it out (no cache leaf
+redistributed, the new cache in the same placements), its logits also to
+the JAX package's ``decode_step`` on the same weights and inputs (2e-4),
+the gathered parameter bytes of both within two blocks split over
+"model" as the specs split them, and no leaf gathered over "model" in
+decode;
 ``collective_matmul`` to ``x @ w`` (2e-4); ``compressed_mean`` and its
 error feedback to the reference's own eight-device output, exactly, and
 to the reference's bounds (16 and 2 quantization steps); a checkpoint
@@ -54,6 +59,8 @@ from repro.data.pipeline import DataPipeline as RPipeline
 from repro.data.synth import make_batch as r_make_batch
 from repro.distributed import sharding as r_sh
 from repro.models import build_model as r_build_model
+from repro.models.attention import KVCache as RKVCache
+from repro.models.ssm import SSMState as RSSMState
 from repro.train import optimizer as r_opt
 from repro.train.step import make_train_step as r_make_train_step
 from repro_torch import interop
@@ -257,20 +264,67 @@ def check_prefill_and_decode(r: dict) -> None:
     assert r["logits_err"] <= 1.0 and r["cache_err"] <= 1.0, r
     assert r["prefill_logits_err"] <= 1.0, r
     assert r["prefill_cache_err"] <= 1.0, r
-    assert r["cache_layout_kept"]
+    assert r["cache_layout_kept"] and r["cache_redistributes"] == 0, r
     assert 0 < r["prefill_gathered"] <= 2 * r["block_bytes"], r
-    assert 0 < r["decode_gathered"] <= 2 * r["whole_block_bytes"], r
+    assert 0 < r["decode_gathered"] <= 2 * r["block_bytes"], r
+    assert r["decode_model_gathers"] == 0, r
 
 
 def test_sharded_decode_matches_single_rank(ranks):
     """phi3: the sharded prefill and decode against the single rank's,
-    their gathered parameter bytes within two blocks (prefill: split over
-    "model" as the specs split them; decode: whole)."""
+    their gathered parameter bytes within two blocks split over "model"
+    as the specs split them; the decode's cache split over the sequence
+    and kept so."""
     check_prefill_and_decode(ranks[1]["decode"])
+    assert ranks[1]["decode"]["kv_placements"] == ["S(1)", "S(2)"]
 
 
 def test_sharded_jamba_prefill_and_decode_match_single_rank(ranks):
     check_prefill_and_decode(ranks[1]["decode_jamba"])
+
+
+NEW_DECODES = ["decode_seamless", "decode_moonshot", "decode_batch1",
+               "decode_rows"]
+
+
+@pytest.mark.parametrize("name", NEW_DECODES)
+def test_sharded_decode_case_matches_single_rank(ranks, name):
+    """Cross-attention over the encoder's slots (seamless), experts and
+    kv heads over "model" (moonshot), a replicated batch whose sequence
+    is split over "data" and "model" (jamba at B 1), a [B] cur_len with
+    rows in different windows and one at S_max (phi3)."""
+    r = ranks[1][name]
+    check_prefill_and_decode(r)
+    want = ["S(2)", "S(2)"] if name == "decode_batch1" else ["S(1)", "S(2)"]
+    assert r["kv_placements"] == want, r
+
+
+def jax_decode(name: str, arrays) -> np.ndarray:
+    """The JAX package's ``decode_step`` logits on the case's weights and
+    decode inputs (tokens, cur_len, the padded cache)."""
+    arch = tdc.DECODES[name][0]
+    cfg = R.get_config(arch).reduced(64)
+    tree = interop.numpy_reference_params(P.get_config(arch).reduced(64),
+                                          tdc.SEEDS["params"])
+    model = r_build_model(cfg, dtype=jnp.float32)
+    cache = {}
+    for i, spec in enumerate(cfg.pattern):
+        kind = RSSMState if spec.mixer == "ssm" else RKVCache
+        cache[f"pos{i}"] = kind(**{f: jnp.asarray(arrays[f"cache/pos{i}/{f}"])
+                                   for f in kind._fields})
+    logits, _ = jax.jit(model.decode_step)(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(arrays["tokens"]),
+        cache, jnp.asarray(arrays["cur_len"]))
+    return np.asarray(logits)
+
+
+@pytest.mark.parametrize("name", list(tdc.DECODES))
+def test_sharded_decode_logits_match_jax(ranks, name):
+    out, _ = ranks
+    with np.load(out / f"{name}.npz") as got:
+        want = jax_decode(name, got)
+        np.testing.assert_allclose(got["logits"], want, rtol=tdc.TOLS["decode"],
+                                   atol=tdc.TOLS["decode"])
 
 
 def test_collective_matmul_matches_reference(ranks):

@@ -13,7 +13,10 @@ them over "model" (the step gathers a block at its use and frees it
 after); a peak at least the arguments and the gathered bytes; FLOPs and
 collective bytes above zero, the FLOPs low enough that ``useful`` is at
 least 8x the 0.049 of the step that computed every layer whole on each
-"model" rank.
+"model" rank. One decode cell, phi3-mini-3.8b ``decode_32k`` on 16x16,
+the same way: the cache stays in its ``cache_pspecs`` shards and each
+block is split over "model", so the peak is under an 80 GiB card and the
+gathered bytes within two blocks split over "model".
 """
 import json
 import os
@@ -142,10 +145,11 @@ def block_bytes(arch: str) -> int:
     return max(sizes.values())
 
 
-def test_full_width_cell_runs_under_a_fake_group():
+def cell_record(arch: str, shape: str) -> dict:
+    """``dryrun.run_cell`` of one 16x16 cell, in a subprocess."""
     code = ("import json; from repro_torch.launch import dryrun; "
             "print('RECORD' + json.dumps(dryrun.run_cell("
-            "'mamba2-780m', 'train_4k', False, save=False)))")
+            f"{arch!r}, {shape!r}, False, save=False)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
@@ -154,6 +158,11 @@ def test_full_width_cell_runs_under_a_fake_group():
     rec = json.loads(line[-1][len("RECORD"):])
     assert rec["ok"], rec.get("traceback")
     assert rec["n_devices"] == 256 and rec["mesh"] == "16x16"
+    return rec
+
+
+def test_full_width_cell_runs_under_a_fake_group():
+    rec = cell_record("mamba2-780m", "train_4k")
     mem = rec["memory"]
     assert mem["argument_bytes"] == expected_argument_bytes(
         "mamba2-780m", "train_4k")
@@ -167,3 +176,14 @@ def test_full_width_cell_runs_under_a_fake_group():
     assert coll["total"] > 0 and coll["all-gather"] > 0
     assert coll["reduce-scatter"] > 0 and coll["count"] > 0
     assert sum(coll["by_link"].values()) == pytest.approx(coll["total"])
+
+
+def test_full_width_decode_cell_keeps_the_cache_split():
+    """phi3-mini-3.8b ``decode_32k``: 294.5 GiB a device when the step
+    gathered every layer's cache and every block whole."""
+    rec = cell_record("phi3-mini-3.8b", "decode_32k")
+    mem = rec["memory"]
+    assert mem["peak_bytes"] < 80 * 2**30
+    assert 0 < mem["gathered_bytes"] <= 2 * block_bytes("phi3-mini-3.8b")
+    assert mem["peak_bytes"] >= mem["argument_bytes"] + mem["gathered_bytes"]
+    assert rec["collectives"]["all-reduce"] > 0

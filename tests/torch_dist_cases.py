@@ -26,8 +26,16 @@ take a 1-D mesh of every rank. Imports the port only, never JAX.
                   each train case's architecture
   decode          phi3-mini-3.8b reduced(64): the sharded prefill of B 4 x
                   16 against the single rank's (logits, cache), then the
-                  cache padded to 32 and one sharded decode step at cur_len
-                  16; ``decode_jamba`` the same for jamba-v0.1-52b
+                  self-attention cache padded to 32 slots, laid out by
+                  ``cache_pspecs`` (sequence over "model") and one sharded
+                  decode step at cur_len 16; ``decode_jamba``,
+                  ``decode_seamless`` (cross-attention over the encoder's
+                  slots) and ``decode_moonshot`` (MoE, kv heads over
+                  "model") the same; ``decode_batch1`` jamba at B 1 (the
+                  batch replicated, the sequence over "data" and "model"),
+                  cur_len a [] tensor; ``decode_rows`` phi3 at a [B]
+                  cur_len whose rows fall in different windows, one at
+                  S_max (``DECODE_ROWS``)
   cmm             collective_matmul of x [8 WORLD, 32] @ w [32, 48]
   cmean           compressed_mean of x [WORLD, 1024] and 30 error-feedback
                   rounds
@@ -84,8 +92,18 @@ TRAIN = {"train_adamw": ("phi3-mini-3.8b", "adamw", 1),
 #: 1e-7 of its weights by 1.82 (the case's loss, gradient norm and
 #: parameters stay within their tolerances after both steps).
 STATE_AFTER_FIRST = ("train_jamba",)
-#: The decode cases' architectures.
-DECODES = {"decode": "phi3-mini-3.8b", "decode_jamba": "jamba-v0.1-52b"}
+#: The decode cases: (architecture, batch, cur_len: "int" the prompt's
+#: length, "scalar" the same as a [] tensor, "rows" ``DECODE_ROWS``).
+DECODES = {"decode": ("phi3-mini-3.8b", 4, "int"),
+           "decode_jamba": ("jamba-v0.1-52b", 4, "int"),
+           "decode_seamless": ("seamless-m4t-large-v2", 4, "int"),
+           "decode_moonshot": ("moonshot-v1-16b-a3b", 4, "int"),
+           "decode_batch1": ("jamba-v0.1-52b", 1, "scalar"),
+           "decode_rows": ("phi3-mini-3.8b", 4, "rows")}
+#: ``decode_rows``' cur_len, a row each, of the 32 slots: in the first,
+#: second and last window on 4 "model" ranks (first, first and second on
+#: 2), and S_max itself, where nothing is written.
+DECODE_ROWS = (3, 12, 27, 32)
 #: The train cases' steps: batch s draws from seed ``SEEDS["batch"] + s``;
 #: ``warmup`` 0 puts the first step at the full learning rate (the
 #: default warmup of 200 gives step 0 a rate of 0: parameters that never
@@ -307,7 +325,32 @@ def block_bytes(cfg, mesh, whole: bool) -> int:
     return max(sizes.values())
 
 
+def decode_inputs(name: str, cache: dict, device: str):
+    """(the case's tokens [B, 1], cur_len, the prefill ``cache`` with its
+    self-attention positions padded to ``prompt + pad`` slots)."""
+    from repro_torch.models.attention import KVCache
+
+    cfg = reduced(DECODES[name][0])
+    b, kind = DECODES[name][1:]
+    cache = {k: KVCache(*(F.pad(a, (0, 0, 0, 0, 0, DECODE["pad"]))
+                          for a in c))
+             if cfg.pattern[int(k[3:])].mixer == "attn" else c
+             for k, c in cache.items()}
+    tok = torch.full((b, 1), DECODE["token"], dtype=torch.int32,
+                     device=device)
+    cur = {"int": DECODE["prompt"],
+           "scalar": torch.tensor(DECODE["prompt"], device=device),
+           "rows": torch.tensor(DECODE_ROWS, device=device)}[kind]
+    return tok, cur, cache
+
+
 def case_decode(name: str, world: int, device: str) -> tuple[dict, dict]:
+    """The sharded prefill against the single rank's, then one sharded
+    decode step on the cache as ``cache_pspecs`` lays it out against the
+    single rank's ``decode_step``; the gathered parameter bytes, the
+    leaves gathered over "model" and the cache leaves redistributed. The
+    arrays: both steps' logits and the decode's inputs (tokens, cur_len,
+    ``cache/<pos>/<field>``)."""
     from repro_torch import interop
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.synth import make_batch
@@ -321,9 +364,9 @@ def case_decode(name: str, world: int, device: str) -> tuple[dict, dict]:
     from repro_torch.models import build_model
     from repro_torch.models.attention import KVCache
 
-    cfg = reduced(DECODES[name])
+    arch, b, _ = DECODES[name]
+    cfg = reduced(arch)
     tree = interop.numpy_reference_params(cfg, SEEDS["params"])
-    b = DECODE["batch"]
 
     def model():
         return build_model(cfg, interop.params_from_reference(cfg, tree),
@@ -346,16 +389,21 @@ def case_decode(name: str, world: int, device: str) -> tuple[dict, dict]:
         (x for c in pre_cache.values() for x in c),
         (x for c in cache.values() for x in c)))
 
-    cache = {k: KVCache(*(F.pad(a, (0, 0, 0, 0, 0, DECODE["pad"]))
-                          for a in c)) if isinstance(c, KVCache) else c
-             for k, c in cache.items()}
-    tok = torch.full((b, 1), DECODE["token"], dtype=torch.int32,
-                     device=device)
-    ref, ref_cache = m1.decode_step(tok, cache, DECODE["prompt"])
+    tok, cur, cache = decode_inputs(name, cache, device)
+    ref, ref_cache = m1.decode_step(tok, cache, cur)
     cache_sh = shard_tree(cache, cache_pspecs(cfg, mesh, b), mesh)
     decode = make_sharded_decode_step(m2, mesh)
-    out, new = decode(params, shard(tok, PSpec("data", None), mesh), cache_sh,
-                      DECODE["prompt"])
+    moved = []
+    redistribute = DTensor.redistribute
+    DTensor.redistribute = lambda t, *a, **k: (moved.append(t),
+                                               redistribute(t, *a, **k))[1]
+    try:
+        out, new = decode(params, shard(tok, PSpec("data" if b > 1 else None,
+                                                   None), mesh),
+                          cache_sh, cur)
+    finally:
+        DTensor.redistribute = redistribute
+    leaves_in = [x for c in cache_sh.values() for x in c]
     logits = gather(out)
     cache_err = max(max_rel(gather(n), r, TOLS["decode"]) for n, r in zip(
         (x for c in new.values() for x in c),
@@ -367,14 +415,24 @@ def case_decode(name: str, world: int, device: str) -> tuple[dict, dict]:
                prefill_cache_err=pre_cache_err,
                cache_layout_kept=all(
                    n.placements == c.placements for n, c in zip(
-                       (x for c in new.values() for x in c),
-                       (x for c in cache_sh.values() for x in c))),
+                       (x for c in new.values() for x in c), leaves_in)),
+               cache_redistributes=sum(any(t is x for x in leaves_in)
+                                       for t in moved),
+               kv_placements=[str(p) for p in next(
+                   c.k for c in cache_sh.values()
+                   if isinstance(c, KVCache)).placements],
                prefill_gathered=prefill.meter.peak,
                decode_gathered=decode.meter.peak,
+               decode_model_gathers=decode.meter.over_model,
                block_bytes=block_bytes(cfg, mesh, whole=False),
                whole_block_bytes=block_bytes(cfg, mesh, whole=True))
-    return res, {"logits": logits.cpu().numpy(),
-                 "logits_single": ref.cpu().numpy()}
+    arrays = {"logits": logits.cpu().numpy(),
+              "logits_single": ref.cpu().numpy(),
+              "tokens": tok.cpu().numpy(),
+              "cur_len": np.asarray(torch.as_tensor(cur).cpu())}
+    arrays.update({f"cache/{k}/{f}": a.cpu().numpy() for k, c in cache.items()
+                   for f, a in c._asdict().items()})
+    return res, arrays
 
 
 def case_grads(world: int, device: str) -> tuple[dict, dict]:
