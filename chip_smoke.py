@@ -149,8 +149,9 @@ on any mismatch:
                 2 shared, F 1408), the same checks against
                 ``tests/data/torch_serve_moonshot_16b_l2.json``; exactly
                 2 layers x 3 products (up, gate, down) moe_gemm launches a
-                prefill and a decode call, each on the simt body, and no
-                other kernel; a profile of one request.
+                prefill and a decode call, each on the stream body (bt =
+                capacity 16 or 8), and no other kernel; a profile of one
+                request.
 20. train     — main path seven: training on the card, the train route
                 (no kernel: ``Model.loss`` runs ``ssd_chunked`` and the
                 einsum experts in autograd, as the reference does). Every
@@ -199,8 +200,11 @@ on any mismatch:
 22. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
                 capacity 16 and 8, D 2048, F 1408; the up and the down
                 product), fp32: kernel vs plain within 2e-4, then CUDA-event
-                times of the kernel, its plain version and ``torch.bmm`` on
-                the same capacity buffer, beside the bound.
+                times of the kernel (the stream body), its plain version and
+                ``torch.bmm`` on the same capacity buffer, beside the bound;
+                the simt body (the parent's) timed in turns with the stream
+                body on the same buffers, each with its TB/s and fraction
+                of the byte bound; two stream launches bit-equal.
 23. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound
                 (C B^T counted once a batch element and chunk: B and C are
@@ -220,14 +224,19 @@ on any mismatch:
                 sweep and at its edges (torch_cases.PAGED_EDGE: G 1, 3, 7, 8,
                 lengths 0, 1, around a split's boundary and full, n_pages 1,
                 a repeated page), each one launch on the body asked for.
-                Each wrapper raises on a non-contiguous input, a wrong dtype
-                or a refused shape, before any launch. Every masa, moe,
-                paged and flash case ran the body its wrapper picks by shape
-                (``body()``: wgmma for bf16 with rows of whole 16-byte
-                units, moe's bt % 64 == 0 and flash's hd 64, 96 or 128;
-                simt otherwise; paged: split for G 1 to 8 and rows of 1
-                to 32 whole 16-byte units, serial otherwise), counted in
-                ``BODIES``.
+                Moe's stream body at ``torch_cases.MOE_STREAM_SHAPES``
+                (moonshot's four and the edges: bt 8, 16, 24, 32, ragged D,
+                F past the last 128 columns), capacity and scattered
+                designations, one launch each, and a second launch
+                bit-equal. Each wrapper raises on a non-contiguous input, a
+                wrong dtype or a refused shape, before any launch. Every
+                masa, moe, paged and flash case ran the body its wrapper
+                picks by shape (``body()``: wgmma for bf16 with rows of
+                whole 16-byte units, moe's bt % 64 == 0 and flash's hd 64,
+                96 or 128; moe's stream for bt a multiple of 8 up to 32
+                with F's rows whole 16-byte units; simt otherwise; paged:
+                split for G 1 to 8 and rows of 1 to 32 whole 16-byte units,
+                serial otherwise), counted in ``BODIES``.
 25. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
@@ -255,14 +264,16 @@ power limit, the per-kernel JSON record (all seven kernels; lane_step and
 mix_step also give their body, µs and cycles a step, chain bound, the
 global body's time and their launches by path, the sweep, commands and
 benches phases' included;
-lane_step the sweep phase's wall times; moe_gemm its launches by path,
-moonshot's serve run and its times at moonshot's shapes), and ``{"ok":
+lane_step the sweep phase's wall times; moe_gemm its launches by path
+and by body, moonshot's serve run and its times at moonshot's shapes),
+and ``{"ok":
 true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1948,7 +1959,8 @@ def phase_serve_model(arch: str, smi: str):
     before the serve and read just after: smollm's path launches no kernel
     (attention is plain PyTorch, as in the reference), moonshot's exactly
     one grouped GEMM a MoE layer and product (up, gate, down) for each
-    prefill and decode call, all on the simt body (fp32)."""
+    prefill and decode call, all on the stream body (fp32, bt = capacity
+    16 or 8)."""
     import torch_cases as tc
 
     tag = f"[serve {arch}]"
@@ -1970,11 +1982,12 @@ def phase_serve_model(arch: str, smi: str):
     if launches != want or any(dram.values()):
         fail(f"serve {arch}: expected launches {want} and no DRAM kernel, "
              f"counted {launches}, {dram}")
-    if bodies != {"wgmma": 0, "simt": want["moe_gemm"]}:
+    if bodies != {"wgmma": 0, "simt": 0, "stream": want["moe_gemm"]}:
         fail(f"serve {arch}: moe_gemm ran bodies {bodies}, expected "
-             f"{want['moe_gemm']} on simt (fp32)")
+             f"{want['moe_gemm']} on stream")
     log_serve(tag, res, smi)
-    res.update(launches=launches["moe_gemm"], wall_with_checks_s=wall,
+    res.update(launches=launches["moe_gemm"], bodies=bodies,
+               wall_with_checks_s=wall,
                logits=phase_logits(model, fixture, tag),
                profile=phase_profile(model, fixture, smi, tag))
     return res
@@ -1984,7 +1997,10 @@ def phase_moe_time(smi: str):
     """The grouped GEMM at moonshot's serve shapes (``MOE_MOONSHOT``), fp32
     as the serve path runs it: kernel vs plain within 2e-4, then CUDA-event
     times of the kernel, its plain version and ``torch.bmm`` on the same
-    capacity buffer, beside the bound. Every launch on the simt body."""
+    capacity buffer, beside the bound. Every launch through the wrapper on
+    the stream body, two of them bit-equal; then the simt body (the
+    parent's) and the stream body in turns (simt, stream, stream, simt) on
+    the same buffers, each with its TB/s and fraction of the bound."""
     from repro_torch.kernels.moe_gemm import capacity_block_eids
     from repro_torch.kernels.moe_gemm import kernel as EK
 
@@ -1995,20 +2011,46 @@ def phase_moe_time(smi: str):
         eids = capacity_block_eids(E, C, C, device="cuda")
         T = E * C
         for prod, (k_in, k_out) in (("up", (D, F)), ("down", (F, D))):
+            name = f"moe_gemm moonshot {prod} C={C}"
             x = torch.randn((T, k_in), generator=gen, device="cuda")
             w = torch.randn((E, k_in, k_out), generator=gen,
                             device="cuda") * k_in ** -0.5
             flops = 2 * T * k_in * k_out
+            nbytes = (4 * (T * k_in + E * k_in * k_out + T * k_out)
+                      + 4 * eids.numel())
             EK.reset_launches()
+            stream = lambda: EK.grouped_matmul_kernel(x, w, eids, bt=C)
             row = timing_row(
-                f"moe_gemm moonshot {prod} C={C}",
-                lambda: EK.grouped_matmul_kernel(x, w, eids, bt=C),
+                name, stream,
                 lambda: EK.grouped_matmul_plain(x, w, eids, bt=C),
-                lambda: torch.bmm(x.view(E, C, k_in), w), flops,
-                4 * (T * k_in + E * k_in * k_out + T * k_out)
-                + 4 * eids.numel(), "float32", reps=20)
-            out[f"{prod}_c{C}"] = with_body(
-                row, EK, f"moe_gemm moonshot {prod} C={C}", "float32", flops)
+                lambda: torch.bmm(x.view(E, C, k_in), w), flops, nbytes,
+                "float32", reps=20)
+            if not EK.BODIES["stream"] or EK.BODIES["simt"] + EK.BODIES[
+                    "wgmma"]:
+                fail(f"moe_time: {name} ran bodies {EK.BODIES}, expected "
+                     f"only stream")
+            if not torch.equal(stream(), stream()):
+                fail(f"moe_time: {name}: two stream launches differ")
+            simt = lambda: EK._launch(x, w, eids, C, "simt")
+            row["simt_max_abs_err"] = kernel_err(
+                f"{name} simt", simt(), EK.grouped_matmul_plain(
+                    x, w, eids, bt=C), "float32")
+            turns = [time_ms(f, 20, 1) for f in (simt, stream, stream, simt)]
+            row.update(body="stream", tflops=flops / (row["ms"] * 1e-3) / 1e12,
+                       stream_ms=(turns[1] + turns[2]) / 2,
+                       simt_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+            for b in ("stream", "simt"):
+                ms = row[f"{b}_ms"]
+                row[f"{b}_tbps"] = nbytes / (ms * 1e-3) / 1e12
+                row[f"{b}_of_bound"] = row["bound_ms"] / ms
+            log(f"[timing] {name} float32: stream body {row['ms']:.4f} ms "
+                f"({row['stream_tbps']:.3f} TB/s in turns, "
+                f"{row['stream_of_bound']:.3f} of the bound); in turns "
+                f"stream {row['stream_ms']:.4f} ms, simt {row['simt_ms']:.4f}"
+                f" ms ({row['simt_tbps']:.3f} TB/s, {row['simt_of_bound']:.3f}"
+                f" of the bound); torch.bmm {row['library_ms']:.4f} ms; "
+                f"bit-equal")
+            out[f"{prod}_c{C}"] = row
             del x, w
     log(f"[timing] moe_gemm at moonshot's serve shapes, card {smi}")
     return out
@@ -2177,6 +2219,27 @@ def phase_kernels():
                 record("moe_gemm", dname, kernel_err(
                     f"moe_gemm {(E, C, D, F, bt)}", got,
                     EK.grouped_matmul_plain(x, w, ids, bt=bt), dname))
+        # the stream body at moonshot's shapes and its edges, bit-equal
+        # when launched twice
+        for E, C, D, F, bt in tc.MOE_STREAM_SHAPES:
+            x, w, designations = tc.moe_stream_case(E, C, D, F, bt, dtype,
+                                                    "cuda")
+            for how, ids in designations.items():
+                case = f"stream {(E, C, D, F, bt)} {how} {dname}"
+                if EK.body(x, w, bt) != "stream":
+                    fail(f"kernels: moe_gemm {case} picks "
+                         f"{EK.body(x, w, bt)}")
+                bf = math.gcd(F, 128)
+                EK.reset_launches()
+                got = grouped_matmul(x, w, ids, bt=bt, bf=bf)
+                ran("moe_gemm", EK, "stream", case)
+                record("moe_gemm", dname, kernel_err(
+                    f"moe_gemm {case}", got,
+                    EK.grouped_matmul_plain(x, w, ids, bt=bt), dname))
+                if not torch.equal(got, EK.grouped_matmul_kernel(
+                        x, w, ids, bt=bt, bf=bf)):
+                    fail(f"kernels: moe_gemm {case}: two launches differ")
+            del x, w
         paged_cases = (
             [(f"{shape}", tc.paged_inputs(*shape, seed=3))
              for shape in tc.PAGED_SHAPES]
@@ -2340,6 +2403,7 @@ def phase_kernels():
 def phase_kernel_bench():
     from repro_torch import kernel_bench, kernels
     from repro_torch.core.dram import cuda_step
+    from repro_torch.kernels.moe_gemm import kernel as EK
 
     # ---- main path four, counted
     kernels.reset_launches()
@@ -2348,6 +2412,7 @@ def phase_kernel_bench():
     res = kernel_bench.run()
     wall = time.perf_counter() - t0
     launches, dram = kernels.launches(), dict(cuda_step.LAUNCHES)
+    res["moe_bodies"] = dict(EK.BODIES)
     log(f"[kernel_bench] kernel_bench.run() on the card: {wall:.3f}s; "
         f"launches {launches}, DRAM kernels {dram}")
     if res["device"] != "cuda" or res["kernels_ok"] is not True:
@@ -2641,7 +2706,8 @@ LAYER_KERNELS = (
      "of 2048 tokens); bf16 on the wgmma body (128 x 256 tiles, TMA ring of "
      "4 stages, W through a rank-3 tensor map at the block's expert, tiles "
      "rastered M fastest in groups of 12 row tiles), fp32 on the simt "
-     "body"),
+     "body; moonshot_float32: the stream body at moonshot's capacities "
+     "(bt 16 and 8), the simt body in turns"),
     ("masa_gemm", "src/repro_torch/kernels/masa_gemm/csrc/masa_gemm.cu",
      "src/repro/kernels/masa_gemm/kernel.py:53",
      "M=2048 K=4096 N=14336 output_stationary (weight_stationary falls back "
@@ -3519,6 +3585,9 @@ def main() -> None:
                                "serve_moonshot": served[SERVE_ARCHS[1]][
                                    "launches"]}
     moe["launches"] = sum(moe["launches_by_path"].values())
+    moe["launches_by_body"] = {"kernel_bench": bench["moe_bodies"],
+                               "serve_moonshot": served[SERVE_ARCHS[1]][
+                                   "bodies"]}
     moe["moonshot_float32"] = moe_t
     moe["serve_moonshot"] = {k: served[SERVE_ARCHS[1]][k] for k in (
         "stats", "build_s", "wall_s", "prefill_s", "decode_s",

@@ -1,5 +1,6 @@
 // Asynchronous copies and thread-block-cluster helpers for Hopper (sm_90a),
-// shared by the SSD-scan and paged-attention kernels.
+// shared by the SSD-scan and paged-attention kernels and the grouped
+// GEMM's stream body.
 //
 // copy_async moves one unit of 16, 8 or 4 bytes from global to shared
 // memory by cp.async (2 bytes, for a bf16 tensor whose base is not 4-byte

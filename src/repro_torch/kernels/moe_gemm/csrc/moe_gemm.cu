@@ -8,8 +8,8 @@
 // x and W both f32 or both bf16, products summed in fp32, y written once in
 // x's type. Tokens arrive sorted by expert in blocks of bt rows; each block's
 // expert id designates the weight panel it multiplies (the TPU kernel's
-// scalar-prefetched index map). Two bodies, chosen by the wrapper (kernel.py's
-// body()) before the launch and counted there:
+// scalar-prefetched index map). Three bodies, chosen by the wrapper
+// (kernel.py's body()) before the launch and counted there:
 //
 // wgmma body (bf16, D % 8 == 0, F % 8 == 0, bt % 64 == 0, 16-byte aligned
 // bases). What bounds it: at jamba's MoE shape (16 experts x 384 tokens, D
@@ -32,11 +32,52 @@
 //     comes from device memory about once, while the group's 12 MB of x
 //     stays in L2 across its columns. The raster follows the linear token
 //     block index whatever block_eids holds.
-// simt body (fp32, and the shapes above it does not take, e.g. bt 24): one
-// block of threads per tile of TM token rows by 128 columns of F, D walked
-// in steps of 16 through shared memory with fp32 FMAs on the CUDA cores;
-// TM is the largest of 128, 64, 32, 16, 8 and 1 that divides bt. Edges of
-// D and F are masked.
+// stream body (fp32 or bf16, bt a multiple of 8 up to 32, F's rows whole
+// 16-byte units, 16-byte aligned bases): the token blocks too short for the
+// tensor cores, as moonshot's MoE FFN sends them (capacity 16 at a
+// 128-token prefill, 8 at a decode step). What bounds it: each W element is
+// used bt times, 2 bt FLOP for its 4 bytes in fp32 (8 FLOP a byte at bt 16),
+// below the ~20 FLOP a byte at which the CUDA cores (67 TFLOP/s) and not
+// the memory (3.35 TB/s) would be the limit. So the launch is bound by
+// reading the expert weights once: at moonshot's shapes (64 experts, D
+// 2048, F 1408) 738 MB, 0.2246 ms at C 16 and 0.2225 ms at C 8 with x and
+// y. The simt body reached 20% of that: each block loaded one 16-row tile
+// of W by scalar loads, then computed while nothing was in flight, so an
+// SM had a few KB of requests outstanding where 3.35 TB/s at the memory's
+// latency needs some 20 KB or more on each SM. This body keeps the copies
+// in flight while it computes:
+//   * one block of 4 warps per (token block, 128 columns of F); at the
+//     capacity layout a token block is one expert's, so each W byte is
+//     read from device memory once;
+//   * the block streams its expert's [D, 128] panel through a ring of
+//     kStages (4) stages of kWBytes (16 KB) of W (32 rows in fp32, 64 in
+//     bf16) by 16-byte cp.async copies (async_cluster.cuh), x's [bt, depth]
+//     slice in the same stage (1 KB at bt 8 to 4 KB at bt 32); 3 stages are
+//     in flight while one is multiplied, 51 KB a block at bt 8 to 60 KB at
+//     bt 32. Shared memory holds 3 blocks a SM up to bt 16 and 2 above it,
+//     and registers (4 bt sums a thread) 2 from bt 16 in fp32 and bt 24 in
+//     bf16, so 108 to 162 KB are outstanding on each SM. The ring is the
+//     one bt 32 runs well: rings of 3 stages of 32 KB
+//     are some 3% faster at bt 8 and 16 but hold one block a SM and run bt
+//     32 at half the speed, and 8 KB stages keep too little in flight
+//     (PERF.md has the timings);
+//   * each thread owns 4 adjacent columns for all bt rows (4 bt fp32
+//     accumulators; bf16 is widened to fp32 on the read: 8 columns would
+//     need 256 accumulators at bt 32, more than a thread's 255 registers),
+//     and the 4 warps take a quarter of each stage's depth each;
+//   * the warps' partial sums are added through shared memory in one fixed
+//     order at the end (warp 0's + warp 1's + warp 2's + warp 3's), so two
+//     launches on the same inputs are bit-equal: no atomics, D is never
+//     split across blocks. D's ragged edge, and F's past the last whole
+//     tile, are zero-filled; x's rows are copied in the largest unit of 16,
+//     8, 4 (or, for bf16 at odd D, 2 bytes by plain loads) that their
+//     alignment allows.
+// simt body (fp32 and bf16 at every other shape, e.g. bt 128 in fp32, bt
+// 12, or F's rows not whole 16-byte units): one block of threads per tile
+// of TM token rows by 128 columns of F, D walked in steps of 16 through
+// shared memory with fp32 FMAs on the CUDA cores; TM is the largest of
+// 128, 64, 32, 16, 8 and 1 that divides bt. Edges of D and F are masked.
+#include "../../csrc/async_cluster.cuh"
 #include "../../csrc/hopper_gemm.cuh"
 
 #include <cuda_bf16.h>
@@ -146,6 +187,224 @@ int dispatch_simt(const void* x, const void* w, const int* eids, void* y, int T_
   return launch_simt<T, 1>(x, w, eids, y, T_, D, F, bt, st);
 }
 
+// ---- the stream body (see the header)
+namespace stream_body {
+
+namespace ac = async_cluster;
+
+constexpr int kN = 128;              // columns of F a block covers
+constexpr int kWarps = 4;            // warps a block; they split the depth
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 4;           // stages of the ring
+constexpr int kWBytes = 16384;       // W bytes of one stage
+
+// Rows of W one stage holds, the bytes of a stage (W, then x's [bt, depth]
+// slice) and of the block's shared memory: the ring, or the warps'
+// partial sums at the end if those are larger.
+template <typename T>
+__host__ __device__ constexpr int depth() {
+  return kWBytes / (kN * (int)sizeof(T));
+}
+template <typename T, int BT>
+__host__ __device__ constexpr int stage_bytes() {
+  return kWBytes + BT * depth<T>() * (int)sizeof(T);
+}
+template <typename T, int BT>
+__host__ __device__ constexpr int smem_bytes() {
+  return kStages * stage_bytes<T, BT>() > kWarps * BT * kN * 4
+             ? kStages * stage_bytes<T, BT>()
+             : kWarps * BT * kN * 4;
+}
+
+// Zeros for a unit of `unit` bytes (16, 8, 4 or 2) past D or F, where
+// ac::copy_async would have copied one.
+__device__ __forceinline__ void zero_unit(void* dst, int unit) {
+  if (unit == 16)
+    *static_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  else if (unit == 8)
+    *static_cast<uint2*>(dst) = make_uint2(0, 0);
+  else if (unit == 4)
+    *static_cast<unsigned*>(dst) = 0;
+  else
+    *static_cast<unsigned short*>(dst) = 0;
+}
+
+// Four adjacent elements from shared memory, widened to fp32 (bf16 to
+// fp32 is exact: its bits are the high half of the float's).
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(u.x << 16);
+  v[1] = __uint_as_float(u.x & 0xffff0000u);
+  v[2] = __uint_as_float(u.y << 16);
+  v[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+__device__ __forceinline__ void store4(float* p, float4 s) {
+  *reinterpret_cast<float4*>(p) = s;
+}
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         (unsigned)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 s) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bf16_pair(s.x, s.y), bf16_pair(s.z, s.w));
+}
+
+// Copy stage k0 (W rows [k0, k0 + depth) of the block's 128 columns, and
+// x's [BT, depth] slice) into `st`; every thread issues its share.
+template <typename T, int BT>
+__device__ __forceinline__ void load_stage(char* st, const T* xb, const T* we,
+                                           int k0, int D, int F, int n0,
+                                           int xunit) {
+  constexpr int KS = depth<T>();
+  constexpr int EPC = 16 / (int)sizeof(T);   // elements of a 16-byte chunk
+  constexpr int CPR = kN / EPC;              // chunks of a W row
+  T* ws = reinterpret_cast<T*>(st);
+  for (int c = threadIdx.x; c < KS * CPR; c += kThreads) {
+    const int r = c / CPR, n = (c - r * CPR) * EPC;
+    if (k0 + r < D && n0 + n < F)
+      ac::copy_async(ws + r * kN + n, we + (size_t)(k0 + r) * F + n0 + n,
+                     16);
+    else
+      zero_unit(ws + r * kN + n, 16);
+  }
+  T* xs = reinterpret_cast<T*>(st + kWBytes);
+  const int epu = xunit / (int)sizeof(T);    // elements of a unit
+  const int upr = KS / epu;                  // units of a row of the slice
+  for (int c = threadIdx.x; c < BT * upr; c += kThreads) {
+    const int r = c / upr, k = (c - r * upr) * epu;
+    if (k0 + k < D)
+      ac::copy_async(xs + r * KS + k, xb + (size_t)r * D + k0 + k, xunit);
+    else
+      zero_unit(xs + r * KS + k, xunit);
+  }
+}
+
+// One block: token block tb = blockIdx.x / n_tiles (its expert is
+// eids[tb]), columns n0 = (blockIdx.x % n_tiles) * 128.
+template <typename T, int BT>
+__global__ void __launch_bounds__(kThreads)
+moe_gemm_stream_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const int* __restrict__ eids, T* __restrict__ y,
+                       int D, int F, int n_tiles, int xunit) {
+  constexpr int KS = depth<T>(), KW = KS / kWarps;
+  constexpr int SB = stage_bytes<T, BT>();
+  static_assert(KW % 4 == 0, "a warp's share of a stage is whole fours");
+  extern __shared__ __align__(16) char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tb = blockIdx.x / n_tiles;
+  const int n0 = (blockIdx.x - tb * n_tiles) * kN;
+  const T* xb = x + (size_t)tb * BT * D;
+  // the designation: this token block's expert selects W's panel
+  const T* we = w + (size_t)eids[tb] * D * F;
+  const int nk = (D + KS - 1) / KS;
+  float acc[BT][4];
+#pragma unroll
+  for (int r = 0; r < BT; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load_stage<T, BT>(smem + s * SB, xb, we, s * KS, D, F, n0,
+                                  xunit);
+    ac::commit_async();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    // this thread's copies of stage kt have landed
+    ac::wait_async<kStages - 2>();
+    __syncthreads();       // everyone's; and stage kt - 1 is free again
+    const int next = kt + kStages - 1;
+    if (next < nk)
+      load_stage<T, BT>(smem + (next % kStages) * SB, xb, we, next * KS, D,
+                        F, n0, xunit);
+    ac::commit_async();
+    const char* st = smem + (kt % kStages) * SB;
+    const T* ws = reinterpret_cast<const T*>(st) + warp * KW * kN + lane * 4;
+    const T* xs = reinterpret_cast<const T*>(st + kWBytes) + warp * KW;
+#pragma unroll
+    for (int kk = 0; kk < KW; kk += 4) {
+      float wv[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) load4(ws + (kk + j) * kN, wv[j]);
+#pragma unroll
+      for (int r = 0; r < BT; ++r) {
+        float xv[4];
+        load4(xs + r * KS + kk, xv);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[r][c] = fmaf(xv[j], wv[j][c], acc[r][c]);
+      }
+    }
+  }
+  ac::wait_async<0>();
+  __syncthreads();
+  // the warps' partial sums, added in one fixed order
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int r = 0; r < BT; ++r)
+    *reinterpret_cast<float4*>(part + (warp * BT + r) * kN + lane * 4) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < BT * (kN / 4); i += kThreads) {
+    const int r = i / (kN / 4), n = (i - r * (kN / 4)) * 4;
+    if (n0 + n >= F) continue;
+    float4 s = *reinterpret_cast<const float4*>(part + r * kN + n);
+#pragma unroll
+    for (int v = 1; v < kWarps; ++v) {
+      const float4 p =
+          *reinterpret_cast<const float4*>(part + (v * BT + r) * kN + n);
+      s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+    }
+    store4(y + (size_t)(tb * BT + r) * F + n0 + n, s);
+  }
+}
+
+template <typename T, int BT>
+int launch(const void* x, const void* w, const int* eids, void* y, int T_,
+           int D, int F, int xunit, cudaStream_t stream) {
+  const int err =
+      ac::allow_smem(moe_gemm_stream_kernel<T, BT>, smem_bytes<T, BT>());
+  if (err) return err;
+  const int n_tiles = (F + kN - 1) / kN;
+  const long long blocks = (long long)(T_ / BT) * n_tiles;
+  if (blocks > 0x7fffffffLL) return -1;
+  moe_gemm_stream_kernel<T, BT>
+      <<<(unsigned)blocks, kThreads, smem_bytes<T, BT>(), stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(w), eids,
+          static_cast<T*>(y), D, F, n_tiles, xunit);
+  return (int)cudaGetLastError();
+}
+
+// The stream body's shapes: bt 8, 16, 24 or 32, F's rows whole 16-byte
+// units, w and y 16-byte aligned; x's rows are copied in the largest unit
+// of 16, 8, 4 or 2 bytes that divides both its base and its row's bytes.
+template <typename T>
+int dispatch(const void* x, const void* w, const int* eids, void* y, int T_,
+             int D, int F, int bt, cudaStream_t st) {
+  if ((F * sizeof(T)) % 16 ||
+      (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(y)) % 16)
+    return -1;
+  const int xunit =
+      ac::copy_unit({reinterpret_cast<uintptr_t>(x), D * sizeof(T)});
+  switch (bt) {
+    case 8: return launch<T, 8>(x, w, eids, y, T_, D, F, xunit, st);
+    case 16: return launch<T, 16>(x, w, eids, y, T_, D, F, xunit, st);
+    case 24: return launch<T, 24>(x, w, eids, y, T_, D, F, xunit, st);
+    case 32: return launch<T, 32>(x, w, eids, y, T_, D, F, xunit, st);
+    default: return -1;
+  }
+}
+
+}  // namespace stream_body
+
 // One wgmma launch (see the header). The tile is 128 rows when bt allows
 // it, else 64.
 int launch_wgmma(const void* x, const void* w, const int* eids, void* y,
@@ -173,23 +432,30 @@ int launch_wgmma(const void* x, const void* w, const int* eids, void* y,
 }  // namespace
 
 // One launch on `stream`: x [T, D], w [E, D, F], both bf16 if bf16 else
-// f32, block_eids [T / bt] int32 in [0, E) -> y [T, F] in x's type. wgmma 1
+// f32, block_eids [T / bt] int32 in [0, E) -> y [T, F] in x's type. body 1
 // takes the wgmma body (bf16 only; tiles raster in groups of group_m row
-// tiles), 0 the simt body. Returns the CUDA error of the launch (0 on
-// success), -1 for arguments the body does not take, or one of
-// hopper_gemm.cuh's tensor-map codes (100000 and up).
+// tiles), 2 the stream body, 0 the simt body. Returns the CUDA error of
+// the launch (0 on success), -1 for arguments the body does not take, or
+// one of hopper_gemm.cuh's tensor-map codes (100000 and up).
 extern "C" int moe_gemm_launch(const void* x, const void* w, const void* eids,
                                void* y, int T_, int D, int F, int E, int bt,
-                               int bf16, int wgmma, int group_m,
+                               int bf16, int body, int group_m,
                                void* stream) {
   if (T_ < 1 || D < 1 || F < 1 || E < 1 || bt < 1 || T_ % bt != 0)
     return -1;
   const int* ids = static_cast<const int*>(eids);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wgmma) {
+  if (body == 1) {
     if (!bf16) return -1;
     return launch_wgmma(x, w, ids, y, T_, D, F, E, bt, group_m, st);
   }
+  if (body == 2) {
+    if (bf16)
+      return stream_body::dispatch<__nv_bfloat16>(x, w, ids, y, T_, D, F, bt,
+                                                  st);
+    return stream_body::dispatch<float>(x, w, ids, y, T_, D, F, bt, st);
+  }
+  if (body != 0) return -1;
   if (bf16)
     return dispatch_simt<__nv_bfloat16>(x, w, ids, y, T_, D, F, bt, st);
   return dispatch_simt<float>(x, w, ids, y, T_, D, F, bt, st);

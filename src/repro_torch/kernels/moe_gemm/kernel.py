@@ -8,9 +8,12 @@ The counterpart of ``repro.kernels.moe_gemm.kernel``
 ``csrc/moe_gemm.cu`` runs one block per (tile of token rows, columns of
 F); the block reads its token block's expert id and multiplies by that
 expert's panel (the designation), summing in fp32 and writing ``y`` in x's
-dtype. It has two bodies: wgmma on TMA-fed tiles for bf16
+dtype. It has three bodies: wgmma on TMA-fed tiles for bf16
 (``csrc/hopper_gemm.cuh``, tiles launched in the raster of
-``hopper_gemm.raster``) and fp32 FMAs on the CUDA cores for the rest.
+``hopper_gemm.raster``), ``stream`` for token blocks too short for the
+tensor cores (bt <= 32: each block streams its expert's W panel through a
+``cp.async`` ring at the memory's rate) and fp32 FMAs on the CUDA cores
+(``simt``) for the rest.
 
 * :func:`grouped_matmul_kernel` is the wrapper: on a CUDA tensor it
   launches the kernel (or raises), on a CPU tensor it runs
@@ -20,7 +23,9 @@ dtype. It has two bodies: wgmma on TMA-fed tiles for bf16
   indexes.
 * :func:`body` picks the body of a launch by shape, before it: ``wgmma``
   for bf16 with D and F multiples of 8, ``bt % 64 == 0`` and 16-byte
-  aligned bases, else ``simt``.
+  aligned bases; ``stream`` for fp32 or bf16 with ``bt`` a multiple of 8
+  up to :data:`STREAM_MAX_BT`, rows of F whole 16-byte units and 16-byte
+  aligned bases; else ``simt``.
 * :func:`grouped_matmul_plain` is the plain PyTorch version, on any device.
 * ``LAUNCHES["moe_gemm"]`` counts kernel launches; ``BODIES`` counts the
   same launches by body.
@@ -44,7 +49,12 @@ SOURCES = {"moe_gemm": CSRC / "moe_gemm.cu"}
 #: Kernel launches (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"moe_gemm": 0}
 #: The same launches by body (set to 0 with :func:`reset_launches`).
-BODIES: dict[str, int] = dict.fromkeys(hopper_gemm.BODIES, 0)
+BODIES: dict[str, int] = dict.fromkeys((*hopper_gemm.BODIES, "stream"), 0)
+#: The C entry's code of each body.
+_BODY_CODE = {"simt": 0, "wgmma": 1, "stream": 2}
+#: The largest token block the stream body takes: it keeps 4 fp32 sums a
+#: row for each of bt rows in a thread's registers, 128 at bt 32.
+STREAM_MAX_BT = 32
 #: Row tiles in one group of the wgmma raster (``hopper_gemm.raster``): 12
 #: tiles hold whole experts at jamba's capacity (3 token blocks of 128, or
 #: 6 of 64), and the group's rows of x (12 MB at D 4096) stay in L2.
@@ -61,7 +71,11 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("moe_gemm", SOURCES["moe_gemm"])
+    return declare(cuda_build.load("moe_gemm", SOURCES["moe_gemm"]))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signature of its ``moe_gemm_launch``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.moe_gemm_launch.argtypes = [vp] * 4 + [ci] * 8 + [vp]
     lib.moe_gemm_launch.restype = ci
@@ -86,11 +100,20 @@ def body(x: torch.Tensor, w: torch.Tensor, bt: int) -> str:
     takes, by shape: ``wgmma`` for bf16 with D and F multiples of 8 (rows of
     whole 16-byte units, as TMA's strides need), ``bt % 64 == 0`` (tiles of
     128 or 64 rows that never straddle two token blocks) and 16-byte aligned
-    bases, else ``simt``."""
+    bases; ``stream`` for fp32 or bf16 with ``bt`` a multiple of 8 up to
+    :data:`STREAM_MAX_BT` (moonshot's capacities 8 and 16), F's rows whole
+    16-byte units (its ring copies W in 16-byte pieces) and 16-byte aligned
+    bases (D may be ragged); else ``simt``."""
     d, f = x.shape[1], w.shape[2]
-    wgmma = (hopper_gemm.tma_ready(x, w) and d % 8 == 0 and f % 8 == 0
-             and bt % 64 == 0)
-    return "wgmma" if wgmma else "simt"
+    if (hopper_gemm.tma_ready(x, w) and d % 8 == 0 and f % 8 == 0
+            and bt % 64 == 0):
+        return "wgmma"
+    if (x.dtype in _DTYPES and w.dtype == x.dtype
+            and bt % 8 == 0 and bt <= STREAM_MAX_BT
+            and (f * x.element_size()) % 16 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        return "stream"
+    return "simt"
 
 
 def grouped_matmul_kernel(x_sorted: torch.Tensor, w: torch.Tensor,
@@ -104,8 +127,10 @@ def grouped_matmul_kernel(x_sorted: torch.Tensor, w: torch.Tensor,
     return _launch(x_sorted, w, block_eids, bt)
 
 
-def _launch(x, w, block_eids, bt: int):
-    """One launch of the kernel on PyTorch's current stream."""
+def _launch(x, w, block_eids, bt: int, which: str | None = None):
+    """One launch of the kernel on PyTorch's current stream, on the body
+    :func:`body` picks or, for a timing beside it, on ``which`` (``simt``
+    takes every shape; a body that does not take the shape raises)."""
     if x.dtype not in _DTYPES or x.dtype != w.dtype:
         raise TypeError(f"moe_gemm kernel takes x_sorted and w both float32 "
                         f"or both bfloat16; got {x.dtype} and {w.dtype}")
@@ -118,12 +143,12 @@ def _launch(x, w, block_eids, bt: int):
     y = torch.empty((t, f), dtype=x.dtype, device=x.device)
     if y.numel() == 0 or d == 0:
         return y.zero_()
-    which = body(x, w, bt)
+    which = which or body(x, w, bt)
     with torch.cuda.device(x.device):
         err = _library().moe_gemm_launch(
             x.data_ptr(), w.data_ptr(), block_eids.data_ptr(), y.data_ptr(),
             t, d, f, e, bt, int(x.dtype == torch.bfloat16),
-            int(which == "wgmma"), GROUP_M, dispatch.stream(x.device))
+            _BODY_CODE[which], GROUP_M, dispatch.stream(x.device))
     dispatch.check("moe_gemm", err)
     LAUNCHES["moe_gemm"] += 1
     BODIES[which] += 1

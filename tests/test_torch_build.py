@@ -6,8 +6,8 @@ every file in its own ``csrc/`` directory, the headers they include by a
 quoted path, and the flags, so an edit to ``dram_step.cuh`` rebuilds the
 lane and mix kernels and not the SSD scan, and an edit to
 ``kernels/csrc/hopper_gemm.cuh`` rebuilds masa_gemm, moe_gemm and
-flash_attention, and one to ``kernels/csrc/async_cluster.cuh`` the SSD scan
-and paged attention.
+flash_attention, and one to ``kernels/csrc/async_cluster.cuh`` the SSD scan,
+paged attention and moe_gemm.
 The wrappers' shared steps (``kernels.dispatch``: ``runs_plain``,
 ``check``) are held here too.
 """
@@ -74,9 +74,11 @@ def test_shared_header_edit_renames_the_gemm_libraries(tmp_path):
     for n, path in before.items():
         assert path == cuda_build.library_path(n, kernels.SOURCES[n])
     header = (copy / "csrc" / "hopper_gemm.cuh").resolve()
-    for n in ("masa_gemm", "moe_gemm", "flash_attention"):
-        assert cuda_build.sources_of(copy / n / "csrc") == [
-            (copy / n / "csrc" / f"{n}.cu").resolve(), header]
+    cluster = (copy / "csrc" / "async_cluster.cuh").resolve()
+    for n, extra in (("masa_gemm", []), ("moe_gemm", [cluster]),
+                     ("flash_attention", [])):
+        assert sorted(cuda_build.sources_of(copy / n / "csrc")) == sorted([
+            (copy / n / "csrc" / f"{n}.cu").resolve(), header, *extra])
     header.write_text(header.read_text() + "\n// edited\n")
     after = names()
     assert after["masa_gemm"] != before["masa_gemm"]
@@ -87,7 +89,8 @@ def test_shared_header_edit_renames_the_gemm_libraries(tmp_path):
 
 def test_async_cluster_header_edit_renames_ssd_and_paged(tmp_path):
     """async_cluster.cuh (cp.async and cluster helpers) is hashed into the
-    SSD scan's and paged attention's names, and no other kernel's."""
+    SSD scan's, paged attention's and moe_gemm's (its stream body's ring)
+    names, and no other kernel's."""
     copy = tmp_path / "kernels"
     shutil.copytree(Path(kernels.__file__).parent, copy,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -101,10 +104,11 @@ def test_async_cluster_header_edit_renames_ssd_and_paged(tmp_path):
     for n in ("ssd_scan", "paged_attention"):
         assert cuda_build.sources_of(copy / n / "csrc") == [
             (copy / n / "csrc" / f"{n}.cu").resolve(), header]
+    assert header in cuda_build.sources_of(copy / "moe_gemm" / "csrc")
     header.write_text(header.read_text() + "\n// edited\n")
     after = names()
     assert {n for n in before if after[n] != before[n]} == {
-        "ssd_scan", "paged_attention"}
+        "ssd_scan", "paged_attention", "moe_gemm"}
 
 
 def test_build_without_nvcc_raises():

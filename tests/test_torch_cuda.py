@@ -482,9 +482,54 @@ def test_moe_kernel_equals_plain(card, E, C, D, F, bt, bf, dtype):
     got = grouped_matmul(x, w, eids, bt=bt, bf=bf)
     torch.cuda.synchronize()
     assert K.LAUNCHES["moe_gemm"] == 1
-    body = "wgmma" if dtype == "bfloat16" and bt % 64 == 0 else "simt"
+    body = ("wgmma" if dtype == "bfloat16" and bt % 64 == 0
+            else "stream" if bt == 24 else "simt")
     assert K.body(x, w, bt) == body and K.BODIES[body] == 1
     assert_kernel_close(got, K.grouped_matmul_plain(x, w, eids, bt=bt), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F,bt", tc.MOE_STREAM_SHAPES)
+def test_moe_stream_body_equals_plain(card, E, C, D, F, bt, dtype):
+    """The stream body at moonshot's four serve shapes and at the edges,
+    on the capacity and a scattered designation: one launch each, on the
+    stream body, within the dtype's tolerance of the plain version, and a
+    second launch on the same inputs bit-equal."""
+    from repro_torch.kernels.moe_gemm import kernel as K
+
+    x, w, designations = tc.moe_stream_case(E, C, D, F, bt,
+                                            getattr(torch, dtype), card)
+    assert K.body(x, w, bt) == "stream"
+    for ids in designations.values():
+        K.reset_launches()
+        got = K.grouped_matmul_kernel(x, w, ids, bt=bt, bf=8)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["moe_gemm"] == 1
+        assert K.BODIES == {"wgmma": 0, "simt": 0, "stream": 1}
+        assert_kernel_close(got, K.grouped_matmul_plain(x, w, ids, bt=bt),
+                            dtype)
+        assert torch.equal(got, K.grouped_matmul_kernel(x, w, ids, bt=bt,
+                                                        bf=8))
+
+
+def test_moe_stream_body_refuses_what_it_does_not_take(card):
+    """Forced on a shape it does not take (bt 12, bt 64, F's rows not whole
+    16-byte units) the stream body raises; simt takes each of them."""
+    from repro_torch.kernels.moe_gemm import kernel as K
+
+    x, w, ids = (torch.randn((128, 64), device=card),
+                 torch.randn((2, 64, 130), device=card),
+                 torch.zeros(2, dtype=torch.int32, device=card))
+    for bt, ww in ((64, w), (64, w[..., :128].contiguous())):
+        with pytest.raises(ValueError, match="refused"):
+            K._launch(x, ww, ids, bt, "stream")
+        assert_kernel_close(K._launch(x, ww, ids, bt, "simt"),
+                            K.grouped_matmul_plain(x, ww, ids, bt=bt),
+                            "float32")
+    ids12 = torch.zeros(128 // 12 + 1, dtype=torch.int32, device=card)
+    x12 = torch.randn((12 * len(ids12), 64), device=card)
+    with pytest.raises(ValueError, match="refused"):
+        K._launch(x12, w[..., :128].contiguous(), ids12, 12, "stream")
 
 
 #: wgmma-body MoE shapes (E, C, D, F, bt) with ragged edges: bt 64 (one
@@ -508,7 +553,7 @@ def test_moe_wgmma_ragged_edges(card, E, C, D, F, bt, flip):
     K.reset_launches()
     got = K.grouped_matmul_kernel(x, w, eids, bt=bt, bf=8)
     torch.cuda.synchronize()
-    assert K.BODIES == {"wgmma": 1, "simt": 0}
+    assert K.BODIES == {"wgmma": 1, "simt": 0, "stream": 0}
     assert_kernel_close(got, K.grouped_matmul_plain(x, w, eids, bt=bt),
                         "bfloat16")
 

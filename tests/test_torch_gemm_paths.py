@@ -1,9 +1,11 @@
 """Which body the masa_gemm and moe_gemm kernels take, and the tile raster
 of their wgmma body, on the CPU.
 
-Each wrapper picks ``wgmma`` (csrc/hopper_gemm.cuh: TMA-fed tiles, bf16) or
-``simt`` (fp32 FMAs on the CUDA cores) by shape, before the launch, in one
-predicate (``kernel.body``); nothing here launches, since a CPU tensor runs
+Each wrapper picks ``wgmma`` (csrc/hopper_gemm.cuh: TMA-fed tiles, bf16),
+moe's ``stream`` (token blocks of 8 to 32 rows: a cp.async ring streaming
+the expert's W panel) or ``simt`` (fp32 FMAs on the CUDA cores) by shape,
+before the launch, in one predicate (``kernel.body``); nothing here
+launches, since a CPU tensor runs
 the plain version. The shapes are ``torch_cases``' sweeps, the card tests'
 odd token blocks and the jamba-v0.1-52b timing shapes. ``hopper_gemm.raster``
 mirrors the header's launch order; the card holds the kernels themselves
@@ -58,13 +60,70 @@ MOE_CASES = ([(E, C, D, F, bt, d) for E, C, D, F, bt, _ in tc.MOE_SHAPES
 @pytest.mark.parametrize("E,C,D,F,bt,dtype", MOE_CASES)
 def test_moe_body_by_shape(E, C, D, F, bt, dtype):
     """bf16 with D and F multiples of 8 and bt % 64 == 0 takes wgmma (the
-    sweep's bt 128 and 64, jamba's 128); fp32 and the card test's bt 24 and
-    3 take simt."""
+    sweep's bt 128 and 64, jamba's 128); the card test's bt 24 takes stream
+    in both dtypes; fp32 at bt 128 and 64 and the card test's bt 3 take
+    simt."""
     x, w = empty((E * C, D), DTYPES[dtype]), empty((E, D, F), DTYPES[dtype])
     want = ("wgmma" if dtype == "bfloat16" and D % 8 == 0 and F % 8 == 0
-            and bt % 64 == 0 else "simt")
+            and bt % 64 == 0 else "stream" if bt % 8 == 0 and bt <= 32
+            else "simt")
     assert EK.body(x, w, bt) == want
-    assert bt not in (24, 3) or want == "simt"
+    assert {24: "stream", 3: "simt"}.get(bt, want) == want
+
+
+#: moonshot-v1-16b-a3b's expert products (up and gate D 2048 by F 1408,
+#: down 1408 by 2048) and a ragged D, at every token block the stream body
+#: takes.
+STREAM_BT = (8, 16, 24, 32)
+STREAM_DF = ((2048, 1408), (1408, 2048), (97, 1408))
+
+
+@pytest.mark.parametrize("D,F", STREAM_DF)
+@pytest.mark.parametrize("bt", STREAM_BT)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_moe_stream_takes_short_token_blocks(dtype, bt, D, F):
+    """fp32 and bf16 at bt 8, 16, 24 and 32 with aligned bases and F's rows
+    whole 16-byte units take stream, D ragged or not."""
+    x, w = empty((64 * bt, D), DTYPES[dtype]), empty((64, D, F),
+                                                       DTYPES[dtype])
+    assert EK.body(x, w, bt) == "stream"
+
+
+@pytest.mark.parametrize("dtype,bt,want", [
+    ("float32", 64, "simt"), ("float32", 128, "simt"),
+    ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
+    ("float32", 12, "simt"), ("bfloat16", 12, "simt"),
+    ("float32", 40, "simt"), ("bfloat16", 4, "simt")])
+def test_moe_stream_crossover(dtype, bt, want):
+    """Past 32 rows a token block leaves stream as before: fp32 at bt 64 and
+    128 takes simt, bf16 at bt 64 and 128 wgmma; bt 12 and 4 (no multiple
+    of 8) and bt 40 (past 32) take simt."""
+    x, w = empty((128 * 15, 2048), DTYPES[dtype]), empty((64, 2048, 1408),
+                                                         DTYPES[dtype])
+    assert EK.body(x, w, bt) == want
+
+
+@pytest.mark.parametrize("case", ["x unaligned", "w unaligned",
+                                  "fp32 F % 4", "bf16 F % 8",
+                                  "mixed dtypes"])
+def test_moe_stream_needs_aligned_bases_and_whole_rows(case):
+    """An unaligned base, F's rows not whole 16-byte units (F % 4 != 0 in
+    fp32, F % 8 != 0 in bf16) or two dtypes take simt at bt 16."""
+    f32, bf = torch.float32, torch.bfloat16
+    x, w = torch.zeros((64, 96)), torch.zeros((2, 96, 1408))
+    if case == "x unaligned":
+        x = tc.shifted(x)
+    elif case == "w unaligned":
+        w = tc.shifted(w)
+    elif case == "fp32 F % 4":
+        w = empty((2, 96, 1406), f32)
+    elif case == "bf16 F % 8":
+        x, w = empty((64, 96), bf), empty((2, 96, 1412), bf)
+    else:
+        w = w.to(bf)
+    assert EK.body(x, w, 16) == "simt"
+    assert EK.body(torch.zeros((64, 96)), torch.zeros((2, 96, 1408)),
+                   16) == "stream"
 
 
 def test_bodies_need_rows_of_whole_16_byte_units_and_aligned_bases():
@@ -78,7 +137,7 @@ def test_bodies_need_rows_of_whole_16_byte_units_and_aligned_bases():
     assert MK.body(a, b.float()) == "simt"
     x, w = empty((256, 64), bf), empty((2, 64, 128), bf)
     assert EK.body(x, w, 128) == EK.body(x, w, 64) == "wgmma"
-    assert EK.body(x, w, 32) == "simt"
+    assert EK.body(x, w, 32) == "stream"
     assert EK.body(empty((256, 60), bf), empty((2, 60, 128), bf), 128) == \
         "simt"
     assert EK.body(x, empty((2, 64, 132), bf), 128) == "simt"
@@ -95,8 +154,9 @@ def test_cpu_runs_count_no_body():
         (1, 64, 128), dtype=torch.bfloat16)
     EK.reset_launches()
     EK.grouped_matmul_kernel(x, w, torch.zeros(1, dtype=torch.int32))
-    assert EK.BODIES == {"wgmma": 0, "simt": 0}
-    assert tuple(MK.BODIES) == tuple(EK.BODIES) == hopper_gemm.BODIES
+    assert EK.BODIES == {"wgmma": 0, "simt": 0, "stream": 0}
+    assert tuple(MK.BODIES) == hopper_gemm.BODIES
+    assert tuple(EK.BODIES) == (*hopper_gemm.BODIES, "stream")
 
 
 RASTERS = [(1, 1, 12), (5, 3, 12), (13, 7, 4), (48, 56, EK.GROUP_M),

@@ -50,6 +50,47 @@ def test_matches_jax(E, C, D, F, bt, bf, dtype):
     close(grouped_matmul_ref(tx, tw, eids, bt), r_ref(jx, jw, j_eids, bt), tol)
 
 
+#: The shapes the stream body takes on the card (E, C, D, F, bt): bt 8,
+#: 16, 24 and 32 at a ragged D (97) and F's like moonshot's 1408, whole
+#: 16-byte units in both dtypes (1408 and 1416 past its last 128 columns).
+STREAM_JAX = ((4, 16, 97, 1408, 8), (3, 32, 97, 1416, 16),
+              (2, 48, 97, 264, 24), (2, 64, 97, 1416, 32))
+
+
+@pytest.mark.parametrize("designation", ["capacity", "scattered"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("E,C,D,F,bt", STREAM_JAX)
+def test_stream_shapes_match_jax(E, C, D, F, bt, dtype, designation):
+    """At the stream body's shapes, on the capacity layout and on a
+    scattered designation (random experts, repeats and gaps), the port's
+    grouped_matmul equals the JAX package's (interpret mode) within the
+    dtype's tolerance; the card would take the stream body there."""
+    jd, td = DTYPES[dtype]
+    xs, w = tc.moe_inputs(E, C, D, F, seed=6)
+    if designation == "capacity":
+        ids = np.array(r_eids(E, C, bt))
+    else:
+        ids = np.random.default_rng(7).integers(
+            0, E, E * C // bt).astype(np.int32)
+    tx, tw = torch.from_numpy(xs).to(td), torch.from_numpy(w).to(td)
+    assert K.body(tx, tw, bt) == "stream"
+    got = grouped_matmul(tx, tw, torch.from_numpy(ids), bt=bt, bf=F)
+    assert got.dtype == td and got.shape == (E * C, F)
+    want = r_grouped_matmul(jnp.asarray(xs).astype(jd),
+                            jnp.asarray(w).astype(jd), jnp.asarray(ids),
+                            bt=bt, bf=F)
+    close(got, want, tc.TOLS[dtype])
+
+
+def test_c_entry_declarations_match_the_source():
+    """The wrapper's ctypes declaration follows the C signature of
+    ``moe_gemm_launch`` in csrc/moe_gemm.cu (a pointer c_void_p, an int
+    c_int)."""
+    entry = "moe_gemm_launch"
+    ret, args = tc.c_entry_types(K.SOURCES["moe_gemm"].read_text(), entry)
+    assert tc.declared(K, [entry])[entry] == (ret, args)
+
+
 def test_designation_semantics():
     """Every block must use exactly its designated expert's weights
     (zeroing one expert's weights zeroes only its blocks)."""

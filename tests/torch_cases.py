@@ -78,6 +78,18 @@ MASA_WS_ODD_K = ((128, 300, 128, "float32"), (128, 400, 128, "float32"),
 #: tests/test_kernels.py's moe_gemm sweep: (E, C, D, F, bt, bf).
 MOE_SHAPES = ((4, 256, 64, 256, 128, 128), (8, 128, 128, 384, 128, 128),
               (2, 512, 96, 128, 128, 128), (16, 128, 64, 128, 64, 128))
+#: The moe_gemm stream body's cases (E, C, D, F, bt): moonshot-v1-16b-a3b's
+#: expert products as its serve path sends them (64 experts, bt = capacity
+#: 16 at a 128-token prefill and 8 at a decode step; up and gate D 2048 by
+#: F 1408, down 1408 by 2048), then the edges: bt 24 at a ragged D (97)
+#: with F 8 columns past its last 128; bt 32 with two token blocks an
+#: expert; D below one stage of the ring (5); F 1416, 1408-like and 8 past
+#: its tiles, at a D whose rows are 8-byte units; F 8.
+MOE_STREAM_MOONSHOT = ((64, 16, 2048, 1408, 16), (64, 16, 1408, 2048, 16),
+                       (64, 8, 2048, 1408, 8), (64, 8, 1408, 2048, 8))
+MOE_STREAM_SHAPES = MOE_STREAM_MOONSHOT + (
+    (4, 24, 97, 264, 24), (3, 64, 40, 136, 32), (5, 16, 5, 128, 8),
+    (2, 16, 130, 1416, 16), (2, 32, 64, 8, 32))
 #: tests/test_kernels.py's paged_attention sweep: (B, KVH, G, hd, P, page,
 #: n_pages).
 PAGED_SHAPES = ((2, 1, 4, 64, 8, 16, 4), (3, 2, 4, 64, 16, 32, 4),
@@ -131,6 +143,24 @@ def moe_inputs(E: int, C: int, D: int, F: int, seed: int = 0,
     ``w_scale`` (the scales of tests/test_kernels.py), float32."""
     rng = np.random.default_rng(seed)
     return normal(rng, (E * C, D)), normal(rng, (E, D, F), w_scale)
+
+
+def moe_stream_case(E: int, C: int, D: int, F: int, bt: int, dtype, device,
+                    seed: int = 5):
+    """x [E*C, D] standard normal and w [E, D, F] times D ** -0.5, drawn
+    on ``device`` (moonshot's fp32 W is 738 MB) and cast to ``dtype``, and
+    two designations of the token blocks: the capacity layout's and a
+    scattered one (random experts, repeats and gaps)."""
+    from repro_torch.kernels.moe_gemm import capacity_block_eids
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((E * C, D), generator=gen, device=device).to(dtype)
+    w = (torch.randn((E, D, F), generator=gen, device=device)
+         * D ** -0.5).to(dtype)
+    scattered = torch.randint(0, E, (E * C // bt,), generator=gen,
+                              device=device).to(torch.int32)
+    return x, w, {"capacity": capacity_block_eids(E, C, bt, device=device),
+                  "scattered": scattered}
 
 
 def paged_inputs(B: int, KVH: int, G: int, hd: int, P: int, page: int,
