@@ -229,30 +229,42 @@ on any mismatch:
                 F past the last 128 columns), capacity and scattered
                 designations, one launch each, and a second launch
                 bit-equal. Each wrapper raises on a non-contiguous input, a
-                wrong dtype or a refused shape, before any launch. Every
-                masa, moe, paged and flash case ran the body its wrapper
-                picks by shape (``body()``: wgmma for bf16 with rows of
-                whole 16-byte units, moe's bt % 64 == 0 and flash's hd 64,
-                96 or 128; moe's stream for bt a multiple of 8 up to 32
-                with F's rows whole 16-byte units; simt otherwise; paged:
-                split for G 1 to 8 and rows of 1 to 32 whole 16-byte units,
-                serial otherwise), counted in ``BODIES``.
+                wrong dtype or a refused shape, before any launch, and a
+                tf32x3 body forced on a shape it does not take (masa K 250,
+                flash bf16) raises. Every masa, moe, paged and flash case
+                ran the body its wrapper picks by shape (``body()``: wgmma
+                for bf16 with rows of whole 16-byte units, moe's bt % 64 ==
+                0 and flash's hd 64, 96 or 128; masa's and flash's tf32x3
+                for fp32 with rows of whole 16-byte units (flash: hd 64, 96
+                or 128) and aligned bases; moe's stream for bt a multiple
+                of 8 up to 32 with F's rows whole 16-byte units; simt
+                otherwise; paged: split for G 1 to 8 and rows of 1 to 32
+                whole 16-byte units, serial otherwise), counted in
+                ``BODIES``.
 25. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
                 card. kernels_ok, every err below 1e-3, moe_hit 8/15, and
                 exactly one launch per call as the reference times them
                 (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
-                paged_attention 2, flash_attention 1); no DRAM-kernel launch.
+                paged_attention 2, flash_attention 1); no DRAM-kernel
+                launch; its fp32 masa and flash launches all on tf32x3.
 26. kernel_time — the four kernels at jamba-v0.1-52b's full width
                 (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
                 kernel vs plain within the tolerances above, then CUDA-event
                 times of the kernel, its plain version and the one PyTorch
                 call that computes the same function (scaled_dot_product_
                 attention, torch.bmm, torch.matmul; none for paged), beside
-                the bound max(FLOPs / peak, bytes / 3.35 TB/s). masa_gemm's
+                the bound max(FLOPs / peak, bytes / 3.35 TB/s); in float32
+                the peak is the lesser of two times, FLOPs / 67 TFLOP/s
+                (the CUDA cores) and 3 FLOPs / 494.7 TFLOP/s (three TF32
+                products a product), both printed. masa_gemm's
                 weight-stationary order falls back there and is also timed
                 at K = 256. The flash, masa (both orders) and moe rows fail
-                unless bfloat16 ran the wgmma body and float32 the simt
-                body; each prints its body and TFLOP/s. Flash is also timed
+                unless bfloat16 ran the wgmma body and float32 tf32x3 (flash,
+                masa) or simt (moe at bt 128); each prints its body and
+                TFLOP/s. The float32 flash and masa rows fail above a max
+                abs error of 1e-4 (``TF32X3_MAX_ERR``) and time the simt
+                body in turns with tf32x3 (simt, tf32x3, tf32x3, simt).
+                Flash is also timed
                 through ops.flash_attention on the 8 unexpanded kv heads
                 (one launch, held to the kernel on the expanded heads),
                 beside SDPA with enable_gqa. Paged fails unless both dtypes
@@ -337,6 +349,14 @@ MOE_MOONSHOT = dict(E=64, D=2048, F=1408, capacities=(16, 8))
 SLEEP_CYCLES_PER_S = 2e9
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989.4e12
+#: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet): an fp32
+#: product taken as three TF32 products (the tf32x3 bodies) runs at up to
+#: a third of it.
+PEAK_TF32_FLOPS = 494.7e12
+#: The largest max abs error, against the plain version, of a tf32x3 row
+#: at jamba's width: one TF32 product alone errs by about 1e-3 at K 4096,
+#: so this shows that all three products ran.
+TF32X3_MAX_ERR = 1e-4
 #: kernel_bench.run()'s oracles and launches: one call of each kernel as the
 #: reference times them, plus the default-order masa_gemm of its error check.
 BENCH_ERRS = {"moe_gemm", "masa_gemm", "ssd_scan", "flash_attention",
@@ -468,9 +488,12 @@ def phase_build():
     log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f}s")
     for name, (_, build_log) in built.items():
+        entry = ""
         for line in build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                log(f"[build]   {name}: {entry}: {line.strip()}")
 
 
 def phase_golden():
@@ -2386,6 +2409,13 @@ def phase_kernels():
         ("flash_attention non-contiguous", ValueError,
          lambda: FK.flash_attention_kernel(
              f64.transpose(1, 2).contiguous().transpose(1, 2), f64, f64)),
+        ("masa_gemm tf32x3 forced at K=250", ValueError,
+         lambda: MK._launch(torch.randn((128, 250), device="cuda"),
+                            torch.randn((250, 128), device="cuda"),
+                            "output_stationary", "tf32x3")),
+        ("flash_attention tf32x3 forced on bfloat16", ValueError,
+         lambda: FK._launch(f64.bfloat16(), f64.bfloat16(), f64.bfloat16(),
+                            True, "tf32x3")),
     ]
     for name, exc, fn in refusals:
         refuses(name, exc, fn)
@@ -2403,6 +2433,8 @@ def phase_kernels():
 def phase_kernel_bench():
     from repro_torch import kernel_bench, kernels
     from repro_torch.core.dram import cuda_step
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.masa_gemm import kernel as MK
     from repro_torch.kernels.moe_gemm import kernel as EK
 
     # ---- main path four, counted
@@ -2413,6 +2445,7 @@ def phase_kernel_bench():
     wall = time.perf_counter() - t0
     launches, dram = kernels.launches(), dict(cuda_step.LAUNCHES)
     res["moe_bodies"] = dict(EK.BODIES)
+    res["masa_bodies"], res["flash_bodies"] = dict(MK.BODIES), dict(FK.BODIES)
     log(f"[kernel_bench] kernel_bench.run() on the card: {wall:.3f}s; "
         f"launches {launches}, DRAM kernels {dram}")
     if res["device"] != "cuda" or res["kernels_ok"] is not True:
@@ -2427,6 +2460,18 @@ def phase_kernel_bench():
     if launches != BENCH_LAUNCHES or any(dram.values()):
         fail(f"kernel_bench: expected launches {BENCH_LAUNCHES} and no DRAM "
              f"kernel, counted {launches}, {dram}")
+    # its fp32 launches at the JAX bench's shapes take the tf32x3 bodies
+    for kernel, bodies, n in (
+            ("masa_gemm", res["masa_bodies"],
+             BENCH_LAUNCHES["masa_gemm_os"] + BENCH_LAUNCHES["masa_gemm_ws"]),
+            ("flash_attention", res["flash_bodies"],
+             BENCH_LAUNCHES["flash_attention"])):
+        if bodies != {b: n * (b == "tf32x3") for b in bodies}:
+            fail(f"kernel_bench: {kernel} ran bodies {bodies}, expected "
+                 f"{n} tf32x3")
+    log(f"[kernel_bench] bodies: masa_gemm {res['masa_bodies']}, "
+        f"flash_attention {res['flash_bodies']}, moe_gemm "
+        f"{res['moe_bodies']}")
     ladder = res["ladder"]
     if not ladder["masa"] >= ladder["salp1"] > 1.0 == ladder["baseline"]:
         fail(f"kernel_bench: ladder {ladder}")
@@ -2437,11 +2482,23 @@ def phase_kernel_bench():
 
 
 # ------------------------------------------------------------ kernel_time
+def fp32_op_bounds(flops: float) -> dict:
+    """The two least times (ms) of ``flops`` fp32-accurate operations: on
+    the CUDA cores (67 TFLOP/s), and as three TF32 products each on the
+    tensor cores (3 FLOPs over 494.7 TFLOP/s, the tf32x3 bodies' split)."""
+    return {"cuda_cores": flops / PEAK_FP32_FLOPS * 1e3,
+            "tf32x3": 3 * flops / PEAK_TF32_FLOPS * 1e3}
+
+
 def bound_of(flops: float, nbytes: float, dname: str):
     """(bound_ms, bound_by): the larger of operations over the dtype's peak
-    and bytes over the HBM rate."""
-    peak = PEAK_BF16_FLOPS if dname == "bfloat16" else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    and bytes over the HBM rate. In float32 the operations take the lesser
+    of :func:`fp32_op_bounds`' two times."""
+    if dname == "bfloat16":
+        t_ops = flops / PEAK_BF16_FLOPS
+    else:
+        t_ops = min(fp32_op_bounds(flops).values()) * 1e-3
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -2458,17 +2515,24 @@ def timing_row(name, kernel, plain, library, flops, nbytes, dname, reps):
                            if library else None))
     row["bound_ms"], row["bound_by"] = bound_of(flops, nbytes, dname)
     lib = f"{row['library_ms']:.4f} ms" if library else "none"
+    both = ""
+    if dname == "float32":
+        row["op_bounds_ms"] = fp32_op_bounds(flops)
+        both = (f" (operations: {row['op_bounds_ms']['tf32x3']:.5f} ms as "
+                f"3xTF32, {row['op_bounds_ms']['cuda_cores']:.5f} ms on the "
+                f"CUDA cores)")
     log(f"[timing] {name} {dname}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, library {lib}, bound "
-        f"{row['bound_ms']:.5f} ms ({row['bound_by']}), kernel / bound "
-        f"{row['ms'] / row['bound_ms']:.1f}x; max abs err {e:.3e}")
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}){both}, kernel / "
+        f"bound {row['ms'] / row['bound_ms']:.1f}x; max abs err {e:.3e}")
     return row
 
 
-def body_ran(mod, name: str, dname: str) -> str:
+def body_ran(mod, name: str, dname: str, fp32: str = "simt") -> str:
     """The body of ``mod``'s launches since its reset: fails unless all took
-    wgmma in bfloat16 and simt in float32 (the jamba shapes suit wgmma)."""
-    want = "wgmma" if dname == "bfloat16" else "simt"
+    wgmma in bfloat16 (the jamba shapes suit wgmma) and ``fp32`` in float32
+    (tf32x3 for flash and masa, simt for moe at bt 128)."""
+    want = "wgmma" if dname == "bfloat16" else fp32
     if not mod.BODIES[want] or any(c for b, c in mod.BODIES.items()
                                    if b != want):
         fail(f"kernel_time: {name} {dname} ran bodies {mod.BODIES}, "
@@ -2476,12 +2540,37 @@ def body_ran(mod, name: str, dname: str) -> str:
     return want
 
 
-def with_body(row: dict, mod, name: str, dname: str, flops: float) -> dict:
+def with_body(row: dict, mod, name: str, dname: str, flops: float,
+              fp32: str = "simt") -> dict:
     """Add the body that ran and the achieved TFLOP/s to a timing row."""
-    row["body"] = body_ran(mod, name, dname)
+    row["body"] = body_ran(mod, name, dname, fp32)
     row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
     log(f"[timing] {name} {dname}: {row['body']} body, "
         f"{row['tflops']:.1f} TFLOP/s")
+    return row
+
+
+def tf32x3_in_turns(row: dict, name: str, tf32x3, simt, want,
+                    flops: float, reps: int) -> dict:
+    """A float32 row of a tf32x3 body: fail unless its max abs error is at
+    most ``TF32X3_MAX_ERR`` (one TF32 product alone would miss it); then
+    hold the simt body (the form before tf32x3) to the plain output
+    ``want`` and time both bodies in turns (simt, tf32x3, tf32x3, simt)."""
+    if not row["max_abs_err"] <= TF32X3_MAX_ERR:
+        fail(f"kernel_time: {name} float32 tf32x3 max abs err "
+             f"{row['max_abs_err']:.3e} > {TF32X3_MAX_ERR}")
+    row["simt_max_abs_err"] = kernel_err(f"{name} simt", simt(), want,
+                                         "float32")
+    turns = [time_ms(f, reps, 1) for f in (simt, tf32x3, tf32x3, simt)]
+    row.update(tf32x3_ms=(turns[1] + turns[2]) / 2,
+               simt_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+    for b in ("tf32x3", "simt"):
+        row[f"{b}_tflops"] = flops / (row[f"{b}_ms"] * 1e-3) / 1e12
+    log(f"[timing] {name} float32 in turns: tf32x3 {row['tf32x3_ms']:.4f} "
+        f"ms ({row['tf32x3_tflops']:.1f} TFLOP/s), simt {row['simt_ms']:.4f}"
+        f" ms ({row['simt_tflops']:.1f} TFLOP/s); library "
+        f"{row['library_ms']:.4f} ms; max abs err tf32x3 "
+        f"{row['max_abs_err']:.3e}, simt {row['simt_max_abs_err']:.3e}")
     return row
 
 
@@ -2556,7 +2645,14 @@ def phase_kernel_time(smi: str):
             lambda: Fn.scaled_dot_product_attention(q, ke, ve,
                                                     is_causal=True),
             4 * hd * pairs, es * 4 * B * H * S * hd, dname, reps=10)
-        with_body(row, FK, "flash_attention", dname, 4 * hd * pairs)
+        with_body(row, FK, "flash_attention", dname, 4 * hd * pairs,
+                  "tf32x3")
+        if dname == "float32":
+            tf32x3_in_turns(
+                row, "flash_attention",
+                lambda: FK.flash_attention_kernel(qf, kf, vf),
+                lambda: FK._launch(qf, kf, vf, True, "simt"),
+                FK.flash_attention_plain(qf, kf, vf), 4 * hd * pairs, 10)
         row["library_gqa_ms"] = time_ms(
             lambda: Fn.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                     enable_gqa=True), 10, 1)
@@ -2573,7 +2669,7 @@ def phase_kernel_time(smi: str):
             got.transpose(1, 2).reshape(B * H, S, hd),
             FK.flash_attention_kernel(qf, kf, vf), dname)
         row["ops_gqa_ms"] = time_ms(gqa, 10, 1)
-        body_ran(FK, "flash_attention through ops", dname)
+        body_ran(FK, "flash_attention through ops", dname, "tf32x3")
         log(f"[timing] flash_attention through ops on {Hkv} kv heads "
             f"{dname}: {row['ops_gqa_ms']:.4f} ms, "
             f"{4 * hd * pairs / (row['ops_gqa_ms'] * 1e-3) / 1e12:.1f} "
@@ -2654,7 +2750,14 @@ def phase_kernel_time(smi: str):
             lambda: MK.masa_gemm_kernel(a, b), lambda: MK.masa_gemm_plain(a, b),
             lambda: torch.matmul(a, b), 2 * M * K * N,
             es * (M * K + K * N + M * N), dname, reps=reps)
-        with_body(row, MK, "masa_gemm output_stationary", dname, 2 * M * K * N)
+        with_body(row, MK, "masa_gemm output_stationary", dname,
+                  2 * M * K * N, "tf32x3")
+        if dname == "float32":
+            tf32x3_in_turns(
+                row, "masa_gemm output_stationary",
+                lambda: MK.masa_gemm_kernel(a, b),
+                lambda: MK._launch(a, b, "output_stationary", "simt"),
+                MK.masa_gemm_plain(a, b), 2 * M * K * N, reps)
         s = tc.MASA_WS_JAMBA
         M, K, N = s["M"], s["K"], s["N"]
         a, b = randn((M, K), dtype), randn((K, N), dtype, K ** -0.5)
@@ -2664,7 +2767,14 @@ def phase_kernel_time(smi: str):
             lambda: MK.masa_gemm_kernel(a, b, order="weight_stationary"),
             lambda: MK.masa_gemm_plain(a, b), lambda: torch.matmul(a, b),
             2 * M * K * N, es * (M * K + K * N + M * N), dname, reps=2 * reps)
-        with_body(ws, MK, "masa_gemm weight_stationary", dname, 2 * M * K * N)
+        with_body(ws, MK, "masa_gemm weight_stationary", dname,
+                  2 * M * K * N, "tf32x3")
+        if dname == "float32":
+            tf32x3_in_turns(
+                ws, "masa_gemm weight_stationary",
+                lambda: MK.masa_gemm_kernel(a, b, order="weight_stationary"),
+                lambda: MK._launch(a, b, "weight_stationary", "simt"),
+                MK.masa_gemm_plain(a, b), 2 * M * K * N, 2 * reps)
         ws["output_stationary_ms"] = time_ms(lambda: MK.masa_gemm_kernel(a, b),
                                              2 * reps, 1)
         log(f"[timing] masa_gemm at M={M} K={K} N={N} {dname}: "
@@ -2691,7 +2801,10 @@ LAYER_KERNELS = (
      "wgmma body (128 query rows a block in two consumer warpgroups, K/V "
      "tiles of 128 through a 2-stage TMA ring, S = Q K^T and O += P V on "
      "wgmma, P from registers, the online softmax on the accumulator "
-     "fragment), fp32 on the simt body"),
+     "fragment), fp32 on the tf32x3 body (8 warps of 16 query rows, K and "
+     "V tiles of 64 keys through cp.async double buffers, both products "
+     "by three TF32 mma.sync m16n8k8 each, the softmax on the accumulator "
+     "fragment); simt_ms the simt body, in turns"),
     ("paged_attention",
      "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention/kernel.py:67",
@@ -2714,7 +2827,11 @@ LAYER_KERNELS = (
      "there; timed at K=256) (jamba-v0.1-52b dense FFN up-projection); "
      "bf16 on the wgmma body (output-stationary 128 x 256 tiles, TMA ring "
      "of 4 stages; weight-stationary a resident [K, 128] panel with A "
-     "through a ring per consumer warpgroup), fp32 on the simt body"),
+     "through a ring per consumer warpgroup), fp32 on the tf32x3 body "
+     "(three TF32 mma.sync m16n8k8 a product, 8 warps of 64 x 32, "
+     "output-stationary 128 x 128 tiles through a 4-stage cp.async ring, "
+     "weight-stationary the resident panel with A through a 3-stage "
+     "ring); simt_ms the simt body, in turns"),
 )
 
 
@@ -2722,7 +2839,7 @@ def layer_records(sweep, bench, ktime) -> list[dict]:
     """The record line's entries of the four accelerator-layer kernels:
     launches from main path four (kernel_bench.run), times at the jamba
     shapes in bfloat16 (float32 beside them), and the bodies of the GEMMs
-    and flash by sweep case."""
+    and flash by sweep case and, for masa and flash, in main path four."""
     sweep_err, bodies = sweep
     out = []
     for name, source, replaces, shape in LAYER_KERNELS:
@@ -2742,6 +2859,8 @@ def layer_records(sweep, bench, ktime) -> list[dict]:
             entry["launches_by_order"] = launches
         if name in bodies:
             entry["sweep_bodies"] = bodies[name]
+        if name in ("masa_gemm", "flash_attention"):
+            entry["bench_bodies"] = bench[f"{name.split('_')[0]}_bodies"]
         out.append(entry)
     return out
 

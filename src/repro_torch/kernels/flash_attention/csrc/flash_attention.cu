@@ -12,7 +12,7 @@
 // batch*head) walks the key tiles in order, so the TPU kernel's sequential
 // key axis becomes that loop and nothing carries between blocks; causal key
 // tiles wholly above the diagonal are skipped (their terms are exp(-1e30 -
-// m) = 0), and the query tiles with the most key tiles launch first. Two
+// m) = 0), and the query tiles with the most key tiles launch first. Three
 // bodies, chosen by the wrapper (kernel.py's body()) before the launch and
 // counted there:
 //
@@ -56,13 +56,40 @@
 // warpgroup; then walk tiles persistently, and skip the fully masked half
 // of the diagonal tile for the first warpgroup.
 //
-// simt body (fp32, and bf16 the wgmma body does not take): fp32 FMAs on the
-// CUDA cores, 64 x 64 tiles. Per key tile, K is staged transposed in shared
+// tf32x3 body (fp32, hd 64, 96 or 128, 16-byte aligned bases). What bounds
+// it: operations. At jamba's shape the forward is 34.4 GFLOP: 0.513 ms at
+// the CUDA cores' 67 TFLOP/s, 0.209 ms at a third of the TF32 tensor
+// cores' 494.7, which three TF32 mma.sync a product reach while keeping
+// fp32's accuracy (tf32x3.cuh's split, the small-by-small product dropped).
+// The design:
+//   - one block of 8 warps per 128 query rows, each warp 16 rows; Q is
+//     loaded once, raw, and split as its fragments are read;
+//   - K and V tiles of 64 keys come through cp.async double buffers, K and
+//     V apart, so S = Q K^T starts before V lands and each tile's loads
+//     run under the previous tile's products (two barriers a key tile).
+//     Rows are padded (Q and K to hd + 8 words, read in 64-bit pairs
+//     along hd; V to hd + 4, read at key rows 2t and 2t + 1) so that
+//     fragment loads fall in distinct banks. 202 KB at hd 128; with 146
+//     to 208 registers a thread, one block (8 warps) an SM at every hd;
+//   - S = Q K^T and O += P V by tf32x3::mma3 on m16n8k8 fragments, the
+//     accumulators in registers (32 scores and hd / 2 outputs a thread);
+//   - the online softmax on the accumulator fragment: a row lives in the 4
+//     lanes of a quad, so its max and sum take two __shfl_xor each; exp2
+//     with log2(e) folded into the scale; masked scores -1e30, whose exp2
+//     is exactly 0; out = acc / max(l, 1e-30);
+//   - P feeds O += P V from the accumulator with no shuffle: inside each
+//     8-key slice the product's k order is permuted (A column t is key 2t,
+//     t + 4 is key 2t + 1) and V's rows are read in that order;
+//   - causal: a warp skips a key tile wholly above its 16 rows.
+//   hd 96 runs as it is (12 k8 steps).
+// simt body (fp32 and bf16 the other bodies do not take, e.g. unaligned
+// bases): fp32 FMAs on the CUDA cores, 64 x 64 tiles. Per key tile, K is staged transposed in shared
 // memory; each thread forms a 4 x 4 patch of scores, masks it and stores it
 // transposed; V replaces K while four threads a query row take the row's
 // max and sum; each thread rescales its 4 x hd/16 patch of the accumulator
 // in registers and adds P @ V. hd is a template argument: 64, 96 or 128.
 #include "../../csrc/hopper_gemm.cuh"
+#include "../../csrc/tf32x3.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -502,36 +529,230 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// Both bodies take head dims 64, 96 and 128 (kernel.py's HEAD_DIMS).
+// ---------------------------------------------------------- tf32x3 body
+// Query tiles of 128 rows, 8 warps of 16; key tiles of 64.
+constexpr int kTBQ = 128;
+constexpr int kTBK = 64;
+constexpr int kTThreads = 256;
+
+// Shared memory, in floats: Q [128][HD + 8] (raw) and two K stages
+// [64][HD + 8], read in 64-bit pairs along hd (pitch = 8 mod 32 words),
+// then two V stages [64][HD + 4], read at rows 2t and 2t + 1 (pitch = 4
+// mod 32). 202 KB at hd 128, 154 KB at 96, 106 KB at 64.
+template <int HD>
+struct TfSmem {
+  static constexpr int kPitch = HD + 8;    // Q and K
+  static constexpr int kPitchV = HD + 4;
+  static constexpr int kQ = kTBQ * kPitch;
+  static constexpr int kK = kTBK * kPitch;
+  static constexpr int kV = kTBK * kPitchV;
+  static constexpr int kBytes = (kQ + 2 * kK + 2 * kV) * 4;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kTThreads, 1)
+flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    int S, int group, int causal, float scale_log2) {
+  using namespace tf32x3;
+  using L = TfSmem<HD>;
+  constexpr int P = L::kPitch, PV = L::kPitchV, NT = HD / 8;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + L::kQ;        // stage s at ks + s * kK
+  float* vs = ks + 2 * L::kK;    // stage s at vs + s * kV
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nq = (S + kTBQ - 1) / kTBQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kTBQ;   // longest first
+  const int bh = blockIdx.x;
+  const float* qh = q + (size_t)bh * S * HD;
+  const float* kh = k + (size_t)(bh / group) * S * HD;
+  const float* vh = v + (size_t)(bh / group) * S * HD;
+  const int nk = ((causal ? min(S, q0 + kTBQ) : S) + kTBK - 1) / kTBK;
+  const int r_lo = q0 + 16 * warp;   // the warp's first query row
+
+  // groups in flight, oldest first: [Q, K0], [V0], then per key tile kt
+  // [K kt+1] and [V kt+1] (empty past the last tile)
+  load_tile<kTBQ, HD, kTThreads>(qs, P, qh, HD, q0, 0, S, HD, tid);
+  load_tile<kTBK, HD, kTThreads>(ks, P, kh, HD, 0, 0, S, HD, tid);
+  async_cluster::commit_async();
+  load_tile<kTBK, HD, kTThreads>(vs, PV, vh, HD, 0, 0, S, HD, tid);
+  async_cluster::commit_async();
+
+  float o[1][NT][4] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTBK, s = kt & 1;
+    // K kt+1 takes the stage of K kt-1, which every warp has read (the
+    // second barrier of the last step)
+    if (kt + 1 < nk)
+      load_tile<kTBK, HD, kTThreads>(ks + (s ^ 1) * L::kK, P, kh, HD,
+                                     k0 + kTBK, 0, S, HD, tid);
+    async_cluster::commit_async();
+    async_cluster::wait_async<2>();   // K kt has landed
+    __syncthreads();
+    // causal: a key tile wholly above the warp's rows adds exp(-1e30 - m)
+    // = 0 to each of them, so the warp skips it
+    const bool active = !causal || k0 <= r_lo + 15;
+    float sc[1][8][4] = {};
+    if (active) {
+      // ---- S = Q K^T (16 rows x 64 keys a warp)
+      const float* kb = ks + s * L::kK;
+#pragma unroll
+      for (int d = 0; d < NT; ++d) {
+        const FragA fq[1] = {load_a(qs + 16 * warp * P + 8 * d, P, lane)};
+        FragB fk[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          fk[j] = load_b_nk(kb + 8 * j * P + 8 * d, P, lane);
+        mma3(sc, fq, fk);
+      }
+      // ---- the online softmax on the fragment, in log2 units: c0, c1 are
+      // row g at keys 2t, 2t + 1 of each 8; c2, c3 row g + 8
+      const bool edge = k0 + kTBK > S || (causal && k0 + kTBK - 1 > r_lo);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = sc[0][j][i] * scale_log2;
+          if (edge) {
+            const int col = k0 + 8 * j + 2 * t + (i & 1);
+            const int row = r_lo + g + 8 * (i >> 1);
+            if (col >= S || (causal && col > row)) x = kNegInf;
+          }
+          sc[0][j][i] = x;
+          mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        }
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        corr[h] = ex2(m[h] - mx[h]);
+        m[h] = mx[h];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[0][j][i] = ex2(sc[0][j][i] - m[i >> 1]);
+          sum[i >> 1] += sc[0][j][i];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[0][n][i] *= corr[i >> 1];
+    }
+    // V kt+1 takes the stage of V kt-1, which every warp has read (the
+    // first barrier of this step)
+    if (kt + 1 < nk)
+      load_tile<kTBK, HD, kTThreads>(vs + (s ^ 1) * L::kV, PV, vh, HD,
+                                     k0 + kTBK, 0, S, HD, tid);
+    async_cluster::commit_async();
+    async_cluster::wait_async<2>();   // V kt has landed
+    __syncthreads();
+    if (active) {
+      // ---- O += P V: P's 8-key slice j as the A operand straight from the
+      // accumulator (keys 2t, 2t + 1 as columns t, t + 4), V's rows read in
+      // that order
+      const float* vb = vs + s * L::kV;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const FragA fp[1] = {a_from_c(sc[0][j])};
+        FragB fv[NT];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          fv[n] = load_b(vb + 8 * j * PV + 8 * n, PV, lane);
+        mma3(o, fp, fv);
+      }
+    }
+  }
+
+  // ---- epilogue: l over the row's 4 lanes, O / max(l, 1e-30)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    const int row = r_lo + g + 8 * h;
+    if (row >= S) continue;
+    float* dst = out + ((size_t)bh * S + row) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[0][n][2 * h] * inv, o[0][n][2 * h + 1] * inv);
+  }
+}
+
+template <int HD>
+int launch_tf32x3(const void* q, const void* k, const void* v, void* out,
+                  int bh, int S, int group, int causal, float scale,
+                  cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+      16)
+    return -1;
+  auto kernel = flash_tf32x3_kernel<HD>;
+  int err = async_cluster::allow_smem(kernel, TfSmem<HD>::kBytes);
+  if (err) return err;
+  dim3 grid(bh, (S + kTBQ - 1) / kTBQ);   // every head's longest tile first
+  kernel<<<grid, kTThreads, TfSmem<HD>::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, group,
+      causal, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// Every body takes head dims 64, 96 and 128 (kernel.py's HEAD_DIMS).
 bool takes_head_dim(int hd) { return hd == 64 || hd == 96 || hd == 128; }
+
+// The C entry's body codes (kernel.py's _BODY_CODE).
+enum Body { kSimt = 0, kWgmma = 1, kTf32x3 = 2 };
 
 }  // namespace
 
 // One launch on `stream`: q [BH, S, hd], k and v [BH / group, S, hd], all
 // bf16 if bf16 else f32 -> out [BH, S, hd] in the same type; scores are
-// q . k * scale, and q's row bh reads k/v row bh / group. wgmma 1 takes the
-// wgmma body (bf16 only; 16-byte aligned bases), 0 the simt body. Returns
-// the CUDA error of the launch (0 on success), hopper::kNoEncoder or
-// kMapError + the CUresult of a tensor map, or -1 for arguments the
-// kernel does not take.
+// q . k * scale, and q's row bh reads k/v row bh / group. body 1 takes the
+// wgmma body (bf16 only; 16-byte aligned bases), 2 the tf32x3 body (fp32
+// only; 16-byte aligned bases), 0 the simt body. Returns the CUDA error of
+// the launch (0 on success), hopper::kNoEncoder or kMapError + the CUresult
+// of a tensor map, or -1 for arguments the kernel does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int bh,
                                       int S, int hd, int causal, float scale,
-                                      int bf16, int wgmma, int group,
+                                      int bf16, int body, int group,
                                       void* stream) {
   if (bh < 1 || bh > 65535 || S < 1 || group < 1 || bh % group ||
-      !takes_head_dim(hd) || (wgmma && !bf16))
+      !takes_head_dim(hd))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wgmma) {
-    switch (hd) {
-      case 64: return launch_wgmma<64, 64>(q, k, v, out, bh, S, group, causal, scale, st);
-      case 96: return launch_wgmma<96, 128>(q, k, v, out, bh, S, group, causal, scale, st);
-      default: return launch_wgmma<128, 128>(q, k, v, out, bh, S, group, causal, scale, st);
-    }
+  switch (body) {
+    case kWgmma:
+      if (!bf16) return -1;
+      switch (hd) {
+        case 64: return launch_wgmma<64, 64>(q, k, v, out, bh, S, group, causal, scale, st);
+        case 96: return launch_wgmma<96, 128>(q, k, v, out, bh, S, group, causal, scale, st);
+        default: return launch_wgmma<128, 128>(q, k, v, out, bh, S, group, causal, scale, st);
+      }
+    case kTf32x3:
+      if (bf16) return -1;
+      switch (hd) {
+        case 64: return launch_tf32x3<64>(q, k, v, out, bh, S, group, causal, scale, st);
+        case 96: return launch_tf32x3<96>(q, k, v, out, bh, S, group, causal, scale, st);
+        default: return launch_tf32x3<128>(q, k, v, out, bh, S, group, causal, scale, st);
+      }
+    case kSimt:
+      if (bf16)
+        return dispatch<__nv_bfloat16>(q, k, v, out, bh, S, hd, group,
+                                       causal, scale, st);
+      return dispatch<float>(q, k, v, out, bh, S, hd, group, causal, scale,
+                             st);
+    default:
+      return -1;
   }
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, out, bh, S, hd, group, causal,
-                                   scale, st);
-  return dispatch<float>(q, k, v, out, bh, S, hd, group, causal, scale, st);
 }

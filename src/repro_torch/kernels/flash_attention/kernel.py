@@ -6,10 +6,13 @@ out ``[BH, S, hd]`` in q's dtype, scores ``q . k * hd ** -0.5``, an
 optional causal mask at -1e30, the fp32 online softmax over key blocks and
 ``acc / max(l, 1e-30)``. ``csrc/flash_attention.cu`` runs one block per
 (query tile, batch*head) and walks the key tiles in order (the source's
-header says what bounds it); it takes head dims 64, 96 and 128. It has two
+header says what bounds it); it takes head dims 64, 96 and 128. It has three
 bodies: wgmma with a TMA ring of K/V tiles and the softmax in registers for
-bf16 (``csrc/hopper_gemm.cuh``'s building blocks), and fp32 FMAs on the
-CUDA cores for the rest. The kernel indexes GQA itself: k and v may have
+bf16 (``csrc/hopper_gemm.cuh``'s building blocks), ``tf32x3`` for fp32
+(both products by three TF32 ``mma.sync`` each, as accurate as fp32, on
+``cp.async`` double buffers of K and V, the softmax in registers:
+``csrc/tf32x3.cuh``) and fp32 FMAs on the CUDA cores (``simt``) for the
+rest. The kernel indexes GQA itself: k and v may have
 ``BH / g`` rows, and q's row ``bh`` reads their row ``bh // g``.
 
 * :func:`flash_attention_kernel` is the wrapper: it keeps the reference's
@@ -20,7 +23,8 @@ CUDA cores for the rest. The kernel indexes GQA itself: k and v may have
   unexpanded kv heads): on a CUDA tensor it launches the kernel (or
   raises), on a CPU tensor it runs :func:`flash_attention_plain`.
 * :func:`body` picks the body of a launch by shape, before it: ``wgmma``
-  for bf16 with 16-byte aligned bases and hd 64, 96 or 128, else ``simt``.
+  for bf16 and ``tf32x3`` for fp32, each with 16-byte aligned bases and hd
+  64, 96 or 128, else ``simt``.
 * :func:`flash_attention_plain` is the plain PyTorch version, on any
   device: the online softmax over the reference's key blocks of ``bk``.
 * ``LAUNCHES["flash_attention"]`` counts kernel launches; ``BODIES``
@@ -45,8 +49,10 @@ SOURCES = {"flash_attention": CSRC / "flash_attention.cu"}
 #: Kernel launches (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"flash_attention": 0}
 #: The same launches by body (set to 0 with :func:`reset_launches`).
-BODIES: dict[str, int] = dict.fromkeys(hopper_gemm.BODIES, 0)
-#: Head dims the kernel takes, in both bodies (the wgmma body runs hd 96 as
+BODIES: dict[str, int] = dict.fromkeys((*hopper_gemm.BODIES, "tf32x3"), 0)
+#: The C entry's code of each body.
+_BODY_CODE = {"simt": 0, "wgmma": 1, "tf32x3": 2}
+#: Head dims the kernel takes, in every body (the wgmma body runs hd 96 as
 #: 128, TMA filling the upper 32 columns with zeros).
 HEAD_DIMS = (64, 96, 128)
 
@@ -79,10 +85,15 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 def body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The body a launch on q, k and v takes, by shape: ``wgmma`` for bf16
     with 16-byte aligned bases (TMA's tensor maps; rows of hd 64, 96 and
-    128 are whole 16-byte units) and hd in :data:`HEAD_DIMS`, else
-    ``simt``."""
-    wgmma = hopper_gemm.tma_ready(q, k, v) and q.shape[-1] in HEAD_DIMS
-    return "wgmma" if wgmma else "simt"
+    128 are whole 16-byte units) and hd in :data:`HEAD_DIMS`; ``tf32x3``
+    for fp32 with 16-byte aligned bases (16-byte ``cp.async`` copies) and
+    hd in :data:`HEAD_DIMS`; else ``simt``."""
+    if q.shape[-1] in HEAD_DIMS:
+        if hopper_gemm.tma_ready(q, k, v):
+            return "wgmma"
+        if hopper_gemm.tf32x3_ready(q, k, v):
+            return "tf32x3"
+    return "simt"
 
 
 def check_blocks(s: int, bq: int, bk: int) -> None:
@@ -115,8 +126,10 @@ def run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(q, k, v, causal)
 
 
-def _launch(q, k, v, causal: bool):
-    """One launch of the kernel on PyTorch's current stream."""
+def _launch(q, k, v, causal: bool, which: str | None = None):
+    """One launch of the kernel on PyTorch's current stream, on the body
+    :func:`body` picks or, for a timing beside it, on ``which`` (``simt``
+    takes every shape; a body that does not take the shape raises)."""
     if q.dtype not in _DTYPES or not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attention kernel takes q, k, v all float32 or "
                         f"all bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -129,12 +142,12 @@ def _launch(q, k, v, causal: bool):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    which = body(q, k, v)
+    which = which or body(q, k, v)
     with torch.cuda.device(q.device):
         err = _library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
             hd, int(causal), hd ** -0.5, int(q.dtype == torch.bfloat16),
-            int(which == "wgmma"), bh // k.shape[0],
+            _BODY_CODE[which], bh // k.shape[0],
             dispatch.stream(q.device))
     dispatch.check("flash_attention", err)
     LAUNCHES["flash_attention"] += 1

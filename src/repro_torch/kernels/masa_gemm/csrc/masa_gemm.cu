@@ -4,7 +4,7 @@
 // kernel.py:53, pallas_call :66 output-stationary / :81 weight-stationary,
 // bodies _kernel_os and _kernel_ws): A [M, K], B [K, N], both f32 or both
 // bf16, products summed in fp32 and C written once in A's type. Two
-// residency orders, as on the TPU, and two bodies, chosen by the wrapper
+// residency orders, as on the TPU, and three bodies, chosen by the wrapper
 // (kernel.py's body()) before the launch and counted there:
 //
 // wgmma body (bf16, K % 8 == 0, N % 8 == 0, 16-byte aligned bases: TMA's
@@ -43,8 +43,37 @@
 //                      N / 128 blocks (112 at N 14336, on 132 SMs): the
 //                      order's price, since splitting the panel would undo
 //                      its residency.
-// simt body (fp32, and bf16 shapes the wgmma body does not take, e.g. K
-// 500): fp32 FMAs on the CUDA cores, both operands from shared memory.
+// tf32x3 body (fp32, K % 4 == 0, N % 4 == 0, 16-byte aligned bases: rows
+// of whole 16-byte cp.async units). What bounds it: operations. fp32 on
+// the CUDA cores peaks at 67 TFLOP/s (3.59 ms at the timing shape); three
+// TF32 mma.sync a product (tf32x3.cuh: each operand split into a big and a
+// small TF32 part, the small-by-small product dropped) keep fp32's
+// accuracy at up to 494.7 / 3 TFLOP/s of the TF32 tensor cores (1.46 ms).
+// Fragments are read from padded shared memory by plain loads (B is
+// MN-major, which TF32 wgmma cannot read) and split as they are loaded.
+// 8 warps a block, each 64 x 32 of C (4 x 4 mma tiles, 64 fp32 sums a
+// thread and a stage's 64 partial sums: each 32-deep stage sums into a
+// fresh tile that an fp32 add takes into the running sum, see below):
+//   output-stationary  one block per 128 x 128 tile of C; K in stages of 32
+//                      through a 4-stage cp.async ring of A [128][40] and
+//                      B [32][132] (146 KB; pitches for conflict-free
+//                      fragment loads), one barrier a stage; tiles in
+//                      hopper::raster's groups, as the wgmma body's.
+//   weight-stationary  the [K, 128] panel of B (K rounded up to 32 rows,
+//                      zero-filled; pitch 132) is loaded once by cp.async
+//                      and stays resident; A streams through a 3-stage ring
+//                      of [128][32] stages, one ring across all row tiles,
+//                      so the next tile's loads overlap this one's last
+//                      steps. At K 300, the deepest the body takes within
+//                      ws_panel_bytes's budget, 165 KB of panel and 60 KB
+//                      of ring fit a block; the launch refuses (-1) past
+//                      232,448 bytes. The grid is N / 128 blocks, as the
+//                      wgmma body's.
+//   Edges: M is masked; K and N are multiples of 4, so a 16-byte chunk lies
+//   wholly inside or outside B and is copied or zero-filled whole.
+// simt body (fp32 and bf16 shapes the other bodies do not take, e.g. K 250
+// in fp32, K 500 in bf16, or unaligned bases): fp32 FMAs on the CUDA cores,
+// both operands from shared memory.
 //   output-stationary  one block per 128 x 128 tile of C; K walked in
 //                      steps of 16, the accumulator in registers (8 x 8 a
 //                      thread).
@@ -52,9 +81,10 @@
 //                      shared memory, (64 + 128) * K elements: the
 //                      wrapper's ws_panel_bytes, passed to the launch.
 // Edges are masked (TMA's zero fill and a masked epilogue on the wgmma
-// body), so any M, K, N is taken; the wrapper keeps the reference's
-// divisibility checks.
+// body, zero-filled stages on the tf32x3 body), so any M, K, N that a body
+// takes is taken; the wrapper keeps the reference's divisibility checks.
 #include "../../csrc/hopper_gemm.cuh"
+#include "../../csrc/tf32x3.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -335,26 +365,242 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int K, int N,
   return (int)cudaGetLastError();
 }
 
+// ----------------------------------------------------- the tf32x3 bodies
+// fp32 products on the TF32 tensor cores, three mma.sync a product
+// (tf32x3.cuh). Both orders take 8 warps of 64 x 32 outputs (4 x 4 mma
+// tiles) and split each fragment as it is loaded from shared memory. The
+// tensor cores' fp32 sums are not rounded to nearest: accumulated over all
+// of K (3 K / 8 mma.sync into one running sum) they drifted by 1.9e-4 at K
+// 4096 on an H100, past the 1e-4 that fp32 is held to. So each 32-deep
+// stage sums into a fresh tile (12 mma.sync on a small sum) that is added
+// to the running sum by an fp32 add.
+constexpr int kTfThreads = 256;
+constexpr int kTfBK = 32;                  // depth of a stage (128 bytes)
+constexpr int kTfPitchA = kTfBK + 8;       // A [rows][40]: 64-bit pairs
+constexpr int kTfStageA = 128 * kTfPitchA;   // one [128][32] A stage, floats
+constexpr int kTfPitchB = kBN + 4;         // B [k][132]: rows 2t, 2t + 1
+// Output-stationary: a 128 x 128 tile of C a block, a ring of 4 stages of
+// A [128][32] and B [32][128] (37 KB a stage).
+constexpr int kTfOsStages = 4;
+constexpr int kTfOsStage = kTfStageA + kTfBK * kTfPitchB;
+constexpr int kTfOsSmem = kTfOsStages * kTfOsStage * 4;
+// Weight-stationary: the [K, 128] panel of B resident, K rounded up to a
+// stage and zero-filled; A through a ring of 3 stages of [128][32].
+constexpr int kTfWsStages = 3;
+
+// acc += the products of one 32-deep stage: A [128][40] at as, B [k][132]
+// at bs (the stage's first row), the warp's rows wm.. and columns wn..
+__device__ __forceinline__ void tf32x3_stage(float (&acc)[4][4][4],
+                                             const float* as,
+                                             const float* bs, int wm, int wn,
+                                             int lane) {
+  using namespace tf32x3;
+  float part[4][4][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk) {
+    FragA fa[4];
+    FragB fb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      fa[i] = load_a(as + (wm + 16 * i) * kTfPitchA + 8 * kk, kTfPitchA, lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      fb[j] = load_b(bs + 8 * kk * kTfPitchB + wn + 8 * j, kTfPitchB, lane);
+    mma3(part, fa, fb);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+// Store the warp's 64 x 32 sums at rows m0 + wm.., columns n0 + wn.. of c
+// [M, N] (N % 4 == 0, so col < N puts col + 1 inside too), then zero them.
+__device__ __forceinline__ void tf32x3_store(float (&acc)[4][4][4], float* c,
+                                             int M, int N, int m0, int n0,
+                                             int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 16 * i + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (row < M && col < N)
+          *reinterpret_cast<float2*>(&c[(size_t)row * N + col]) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0.f;
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kTfThreads, 1)
+masa_os_tf32x3_kernel(const float* __restrict__ a,
+                      const float* __restrict__ b, float* __restrict__ c,
+                      int M, int K, int N, int group_m) {
+  using namespace tf32x3;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int tm, tn;
+  hopper::raster(blockIdx.x, (M + 127) / 128, (N + kBN - 1) / kBN, group_m,
+                 &tm, &tn);
+  const int m0 = tm * 128, n0 = tn * kBN;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  const int nk = (K + kTfBK - 1) / kTfBK;
+  auto load_stage = [&](int kb) {
+    float* as = smem + (kb % kTfOsStages) * kTfOsStage;
+    load_tile<128, kTfBK, kTfThreads>(as, kTfPitchA, a, K, m0, kb * kTfBK, M,
+                                      K, tid);
+    load_tile<kTfBK, kBN, kTfThreads>(as + kTfStageA, kTfPitchB, b, N,
+                                      kb * kTfBK, n0, K, N, tid);
+  };
+
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int s = 0; s < kTfOsStages - 1; ++s) {
+    if (s < nk) load_stage(s);
+    async_cluster::commit_async();
+  }
+  for (int kb = 0; kb < nk; ++kb) {
+    // stage kb has landed; every warp is past stage kb - 1, whose slot the
+    // next load takes
+    async_cluster::wait_async<kTfOsStages - 2>();
+    __syncthreads();
+    if (kb + kTfOsStages - 1 < nk) load_stage(kb + kTfOsStages - 1);
+    async_cluster::commit_async();
+    const float* as = smem + (kb % kTfOsStages) * kTfOsStage;
+    tf32x3_stage(acc, as, as + kTfStageA, wm, wn, lane);
+  }
+  tf32x3_store(acc, c, M, N, m0 + wm, n0 + wn, lane);
+}
+
+// Depth of the resident panel: K rounded up to whole stages.
+__host__ __device__ inline int ws_panel_rows(int K) {
+  return (K + kTfBK - 1) / kTfBK * kTfBK;
+}
+
+// Block b keeps B[:, 128 b : 128 b + 128] resident and walks A in 128-row
+// tiles through one ring: stage s is row tile s / nk, depth step s % nk, so
+// the next tile's first stages load while this one's last ones compute.
+__global__ void __launch_bounds__(kTfThreads, 1)
+masa_ws_tf32x3_kernel(const float* __restrict__ a,
+                      const float* __restrict__ b, float* __restrict__ c,
+                      int M, int K, int N) {
+  using namespace tf32x3;
+  extern __shared__ float4 smem4[];
+  const int kp = ws_panel_rows(K);
+  float* panel = reinterpret_cast<float*>(smem4);   // [kp][132]
+  float* ring = panel + kp * kTfPitchB;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  const int n0 = blockIdx.x * kBN;
+  const int nk = kp / kTfBK, total = (M + 127) / 128 * nk;
+
+  for (int e = tid; e < kp * (kBN / 4); e += kTfThreads) {
+    const int r = e / (kBN / 4), col = (e % (kBN / 4)) * 4;
+    float* d = panel + r * kTfPitchB + col;
+    if (r < K && n0 + col < N)
+      async_cluster::copy_async(d, b + (size_t)r * N + n0 + col, 16);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  async_cluster::commit_async();
+  auto load_stage = [&](int s) {
+    load_tile<128, kTfBK, kTfThreads>(ring + (s % kTfWsStages) * kTfStageA,
+                                      kTfPitchA, a, K, (s / nk) * 128,
+                                      (s % nk) * kTfBK, M, K, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < kTfWsStages - 1; ++s) {
+    if (s < total) load_stage(s);
+    async_cluster::commit_async();
+  }
+
+  float acc[4][4][4] = {};
+  for (int s = 0; s < total; ++s) {
+    // the panel and stage s have landed; every warp is past stage s - 1
+    async_cluster::wait_async<kTfWsStages - 2>();
+    __syncthreads();
+    if (s + kTfWsStages - 1 < total) load_stage(s + kTfWsStages - 1);
+    async_cluster::commit_async();
+    const int kb = s % nk;
+    tf32x3_stage(acc, ring + (s % kTfWsStages) * kTfStageA,
+                 panel + kb * kTfBK * kTfPitchB, wm, wn, lane);
+    if (kb == nk - 1)
+      tf32x3_store(acc, c, M, N, (s / nk) * 128 + wm, n0 + wn, lane);
+  }
+}
+
+// Shared memory of one weight-stationary tf32x3 launch at depth K.
+long long ws_tf32x3_smem(int K) {
+  return 4LL * ((long long)ws_panel_rows(K) * kTfPitchB +
+                kTfWsStages * kTfStageA);
+}
+
+int launch_tf32x3(const void* a, const void* b, void* c, int M, int K, int N,
+                  int weight_stationary, int group_m, cudaStream_t stream) {
+  if (K % 4 || N % 4 || (reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c)) % 16)
+    return -1;
+  const float* a_ = static_cast<const float*>(a);
+  const float* b_ = static_cast<const float*>(b);
+  float* c_ = static_cast<float*>(c);
+  if (!weight_stationary) {
+    const long long tiles =
+        (long long)((M + 127) / 128) * ((N + kBN - 1) / kBN);
+    if (group_m < 1 || tiles > 0x7fffffff) return -1;
+    int err = async_cluster::allow_smem(masa_os_tf32x3_kernel, kTfOsSmem);
+    if (err) return err;
+    masa_os_tf32x3_kernel<<<(unsigned)tiles, kTfThreads, kTfOsSmem, stream>>>(
+        a_, b_, c_, M, K, N, group_m);
+    return (int)cudaGetLastError();
+  }
+  const long long smem = ws_tf32x3_smem(K);
+  if (smem > kMaxSmem) return -1;
+  int err = async_cluster::allow_smem(masa_ws_tf32x3_kernel, (size_t)smem);
+  if (err) return err;
+  masa_ws_tf32x3_kernel<<<(N + kBN - 1) / kBN, kTfThreads, smem, stream>>>(
+      a_, b_, c_, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// The C entry's body codes (kernel.py's _BODY_CODE).
+enum Body { kSimt = 0, kWgmma = 1, kTf32x3 = 2 };
+
 }  // namespace
 
 // One launch on `stream`: a [M, K], b [K, N], both bf16 if bf16 else f32
 // -> c [M, N] in the same type. order 0 is output-stationary, 1
-// weight-stationary. wgmma 1 takes the wgmma body (bf16 only; tiles of
-// output-stationary raster in groups of group_m row tiles), 0 the simt
-// body, whose weight-stationary order takes `smem` bytes of dynamic shared
-// memory (the panel and the A tile). Returns the CUDA error of the launch
-// (0 on success), -1 for arguments the body does not take, or one of
-// hopper_gemm.cuh's tensor-map codes (100000 and up).
+// weight-stationary. body 1 takes the wgmma body (bf16 only; tiles of
+// output-stationary raster in groups of group_m row tiles), 2 the tf32x3
+// body (fp32 only; K and N multiples of 4, 16-byte aligned bases; the same
+// raster), 0 the simt body, whose weight-stationary order takes `smem`
+// bytes of dynamic shared memory (the panel and the A tile). Returns the
+// CUDA error of the launch (0 on success), -1 for arguments the body does
+// not take, or one of hopper_gemm.cuh's tensor-map codes (100000 and up).
 extern "C" int masa_gemm_launch(const void* a, const void* b, void* c, int M,
-                                int K, int N, int order, int bf16, int wgmma,
+                                int K, int N, int order, int bf16, int body,
                                 int group_m, long long smem, void* stream) {
   if (M < 1 || K < 1 || N < 1 || (order != 0 && order != 1)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wgmma) {
-    if (!bf16 || group_m < 1) return -1;
-    return launch_wgmma(a, b, c, M, K, N, order, group_m, st);
+  switch (body) {
+    case kWgmma:
+      if (!bf16 || group_m < 1) return -1;
+      return launch_wgmma(a, b, c, M, K, N, order, group_m, st);
+    case kTf32x3:
+      if (bf16) return -1;
+      return launch_tf32x3(a, b, c, M, K, N, order, group_m, st);
+    case kSimt:
+      if (bf16)
+        return launch_simt<__nv_bfloat16>(a, b, c, M, K, N, order, smem, st);
+      return launch_simt<float>(a, b, c, M, K, N, order, smem, st);
+    default:
+      return -1;
   }
-  if (bf16)
-    return launch_simt<__nv_bfloat16>(a, b, c, M, K, N, order, smem, st);
-  return launch_simt<float>(a, b, c, M, K, N, order, smem, st);
 }

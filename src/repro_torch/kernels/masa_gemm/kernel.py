@@ -4,9 +4,11 @@ The counterpart of ``repro.kernels.masa_gemm.kernel`` (``masa_gemm_kernel``,
 bodies ``_kernel_os`` and ``_kernel_ws``): ``csrc/masa_gemm.cu`` computes
 ``c = a @ b`` for ``a [M, K]``, ``b [K, N]`` in one of two residency orders
 (the source's header says how each keeps its tiles and what bounds it),
-summing in fp32 and writing ``c`` in a's dtype. It has two bodies:
-wgmma on TMA-fed tiles for bf16 (``csrc/hopper_gemm.cuh``) and fp32 FMAs
-on the CUDA cores for the rest.
+summing in fp32 and writing ``c`` in a's dtype. It has three bodies:
+wgmma on TMA-fed tiles for bf16 (``csrc/hopper_gemm.cuh``), ``tf32x3`` for
+fp32 (three TF32 ``mma.sync`` a product on ``cp.async``-fed tiles, as
+accurate as fp32: ``csrc/tf32x3.cuh``) and fp32 FMAs on the CUDA cores
+(``simt``) for the rest.
 
 * :func:`masa_gemm_kernel` is the wrapper: :func:`check_args`, the
   reference's divisibility checks (``bm``, ``bn``, and ``bk`` for the
@@ -17,8 +19,9 @@ on the CUDA cores for the rest.
   alone: the simt launch takes it as its shared memory and ``ops`` falls
   back on it.
 * :func:`body` picks the body of a launch by shape, before it: ``wgmma``
-  for bf16 with K and N multiples of 8 and 16-byte aligned bases, else
-  ``simt``.
+  for bf16 with K and N multiples of 8 and 16-byte aligned bases,
+  ``tf32x3`` for fp32 with K and N multiples of 4 and 16-byte aligned
+  bases, else ``simt``.
 * :func:`masa_gemm_plain` is the plain PyTorch version, on any device.
 * ``LAUNCHES`` counts launches by the order that ran: ``masa_gemm_os`` and
   ``masa_gemm_ws``; ``BODIES`` counts the same launches by body.
@@ -43,10 +46,12 @@ SOURCES = {"masa_gemm": CSRC / "masa_gemm.cu"}
 #: Kernel launches by order (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"masa_gemm_os": 0, "masa_gemm_ws": 0}
 #: The same launches by body (set to 0 with :func:`reset_launches`).
-BODIES: dict[str, int] = dict.fromkeys(hopper_gemm.BODIES, 0)
-#: Row tiles in one group of the output-stationary wgmma raster
-#: (``hopper_gemm.raster``): at the port's timing shape all 16, so a wave
-#: shares B's column tiles and all of A stays in L2.
+BODIES: dict[str, int] = dict.fromkeys((*hopper_gemm.BODIES, "tf32x3"), 0)
+#: The C entry's code of each body.
+_BODY_CODE = {"simt": 0, "wgmma": 1, "tf32x3": 2}
+#: Row tiles in one group of the output-stationary wgmma and tf32x3
+#: rasters (``hopper_gemm.raster``): at the port's timing shape all 16, so
+#: a wave shares B's column tiles and all of A stays in L2.
 GROUP_M = 16
 ORDERS = ("output_stationary", "weight_stationary")
 
@@ -61,7 +66,11 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("masa_gemm", SOURCES["masa_gemm"])
+    return declare(cuda_build.load("masa_gemm", SOURCES["masa_gemm"]))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signature of its ``masa_gemm_launch``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.masa_gemm_launch.argtypes = [vp] * 3 + [ci] * 7 + [ctypes.c_longlong,
                                                           vp]
@@ -77,19 +86,24 @@ WS_BM, WS_BN = 64, 128
 def ws_panel_bytes(k: int, dtype: torch.dtype) -> int:
     """The weight-stationary budget at depth ``k``: the ``[K, 128]`` panel
     of B and a ``[64, K]`` tile of A, the simt body's shared memory. ``ops``
-    falls back on it alone; the wgmma body's layout (the panel and a ring
-    of A) fits a block whenever this does (csrc/masa_gemm.cu)."""
+    falls back on it alone; the wgmma and tf32x3 bodies' layouts (the panel
+    and a ring of A) fit a block whenever this does for a K they take
+    (csrc/masa_gemm.cu)."""
     return (WS_BM + WS_BN) * k * dtype.itemsize
 
 
 def body(a: torch.Tensor, b: torch.Tensor) -> str:
     """The body a launch on ``a`` and ``b`` takes, by shape, in either
     order: ``wgmma`` for bf16 with K and N multiples of 8 (rows of whole
-    16-byte units, as TMA's strides need) and 16-byte aligned bases, else
-    ``simt``."""
+    16-byte units, as TMA's strides need) and 16-byte aligned bases;
+    ``tf32x3`` for fp32 with K and N multiples of 4 (rows of whole 16-byte
+    ``cp.async`` units) and 16-byte aligned bases; else ``simt``."""
     k, n = a.shape[1], b.shape[1]
-    wgmma = hopper_gemm.tma_ready(a, b) and k % 8 == 0 and n % 8 == 0
-    return "wgmma" if wgmma else "simt"
+    if hopper_gemm.tma_ready(a, b) and k % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    if hopper_gemm.tf32x3_ready(a, b) and k % 4 == 0 and n % 4 == 0:
+        return "tf32x3"
+    return "simt"
 
 
 def check_args(a, b, bm: int, bn: int, bk: int, order: str) -> None:
@@ -124,8 +138,10 @@ def run(a: torch.Tensor, b: torch.Tensor, order: str) -> torch.Tensor:
     return _launch(a, b, order)
 
 
-def _launch(a, b, order: str):
-    """One launch of the kernel on PyTorch's current stream."""
+def _launch(a, b, order: str, which: str | None = None):
+    """One launch of the kernel on PyTorch's current stream, on the body
+    :func:`body` picks or, for a timing beside it, on ``which`` (``simt``
+    takes every shape; a body that does not take the shape raises)."""
     if a.dtype not in _DTYPES or a.dtype != b.dtype:
         raise TypeError(f"masa_gemm kernel takes a and b both float32 or both "
                         f"bfloat16; got {a.dtype} and {b.dtype}")
@@ -143,11 +159,11 @@ def _launch(a, b, order: str):
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if c.numel() == 0 or k == 0:
         return c.zero_()
-    which = body(a, b)
+    which = which or body(a, b)
     with torch.cuda.device(a.device):
         err = _library().masa_gemm_launch(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k, n, int(ws),
-            int(a.dtype == torch.bfloat16), int(which == "wgmma"), GROUP_M,
+            int(a.dtype == torch.bfloat16), _BODY_CODE[which], GROUP_M,
             smem, dispatch.stream(a.device))
     dispatch.check("masa_gemm", err)
     LAUNCHES["masa_gemm_ws" if ws else "masa_gemm_os"] += 1

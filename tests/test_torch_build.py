@@ -75,8 +75,9 @@ def test_shared_header_edit_renames_the_gemm_libraries(tmp_path):
         assert path == cuda_build.library_path(n, kernels.SOURCES[n])
     header = (copy / "csrc" / "hopper_gemm.cuh").resolve()
     cluster = (copy / "csrc" / "async_cluster.cuh").resolve()
-    for n, extra in (("masa_gemm", []), ("moe_gemm", [cluster]),
-                     ("flash_attention", [])):
+    tf32 = (copy / "csrc" / "tf32x3.cuh").resolve()
+    for n, extra in (("masa_gemm", [tf32, cluster]), ("moe_gemm", [cluster]),
+                     ("flash_attention", [tf32, cluster])):
         assert sorted(cuda_build.sources_of(copy / n / "csrc")) == sorted([
             (copy / n / "csrc" / f"{n}.cu").resolve(), header, *extra])
     header.write_text(header.read_text() + "\n// edited\n")
@@ -89,8 +90,9 @@ def test_shared_header_edit_renames_the_gemm_libraries(tmp_path):
 
 def test_async_cluster_header_edit_renames_ssd_and_paged(tmp_path):
     """async_cluster.cuh (cp.async and cluster helpers) is hashed into the
-    SSD scan's, paged attention's and moe_gemm's (its stream body's ring)
-    names, and no other kernel's."""
+    SSD scan's, paged attention's, moe_gemm's (its stream body's ring) and,
+    through tf32x3.cuh, masa_gemm's and flash_attention's (their tf32x3
+    bodies' rings) names, and no other kernel's."""
     copy = tmp_path / "kernels"
     shutil.copytree(Path(kernels.__file__).parent, copy,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -108,7 +110,31 @@ def test_async_cluster_header_edit_renames_ssd_and_paged(tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = names()
     assert {n for n in before if after[n] != before[n]} == {
-        "ssd_scan", "paged_attention", "moe_gemm"}
+        "ssd_scan", "paged_attention", "moe_gemm", "masa_gemm",
+        "flash_attention"}
+
+
+def test_tf32x3_header_edit_renames_masa_and_flash(tmp_path):
+    """tf32x3.cuh (the 3xTF32 split, mma.sync and fragment loads) lies
+    outside masa_gemm's and flash_attention's csrc/ and is hashed into
+    their names through their quoted includes, and no other kernel's."""
+    copy = tmp_path / "kernels"
+    shutil.copytree(Path(kernels.__file__).parent, copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+
+    def names():
+        return {n: cuda_build.library_path(n, copy / n / "csrc" / f"{n}.cu")
+                for n in kernels.SOURCES}
+
+    before = names()
+    header = (copy / "csrc" / "tf32x3.cuh").resolve()
+    for n in kernels.SOURCES:
+        assert (header in cuda_build.sources_of(copy / n / "csrc")) == (
+            n in ("masa_gemm", "flash_attention"))
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = names()
+    assert {n for n in before if after[n] != before[n]} == {
+        "masa_gemm", "flash_attention"}
 
 
 def test_build_without_nvcc_raises():

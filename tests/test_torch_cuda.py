@@ -411,7 +411,7 @@ def test_masa_kernel_equals_plain(card, m, k, n, dtype, order):
     ws = (order == "weight_stationary"
           and K.ws_panel_bytes(k, a.dtype) <= K.cuda_build.MAX_SMEM_BYTES)
     assert K.LAUNCHES == {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}
-    body = "wgmma" if dtype == "bfloat16" else "simt"
+    body = "wgmma" if dtype == "bfloat16" else "tf32x3"
     assert K.body(a, b) == body and K.BODIES[body] == 1
     assert_kernel_close(got, K.masa_gemm_plain(a, b), dtype)
 
@@ -427,7 +427,10 @@ def test_masa_weight_stationary_takes_any_k(card, m, k, n, dtype):
     torch.cuda.synchronize()
     ws = K.ws_panel_bytes(k, a.dtype) <= K.cuda_build.MAX_SMEM_BYTES
     assert K.LAUNCHES == {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}
-    assert K.BODIES == {"wgmma": 0, "simt": 1}      # K % 8 != 0
+    # fp32 K 300 and 400 (multiples of 4) take tf32x3; bf16 K 500 and 700
+    # (K % 8 != 0) simt
+    body = "tf32x3" if dtype == "float32" else "simt"
+    assert K.BODIES == {b: int(b == body) for b in K.BODIES}
     assert_kernel_close(got, K.masa_gemm_plain(a, b), dtype)
 
 
@@ -450,20 +453,83 @@ def test_masa_wgmma_ragged_edges(card, m, k, n, order):
     K.reset_launches()
     got = K.masa_gemm_kernel(a, b, bm=4, bn=8, bk=8, order=order)
     torch.cuda.synchronize()
-    assert K.BODIES == {"wgmma": 1, "simt": 0}
+    assert K.BODIES == {"wgmma": 1, "simt": 0, "tf32x3": 0}
     assert_kernel_close(got, K.masa_gemm_plain(a, b), "bfloat16")
 
 
 def test_masa_fp32_takes_the_simt_body(card):
+    """fp32 rows that are not whole 16-byte units (K 202) take the simt
+    body by shape; forced on an aligned shape (K 200), it is still right."""
     from repro_torch.kernels.masa_gemm import kernel as K
 
-    a, b = card_tensors(tc.masa_inputs(192, 200, 384, seed=3), torch.float32,
+    a, b = card_tensors(tc.masa_inputs(192, 202, 384, seed=3), torch.float32,
                         card)
     K.reset_launches()
-    got = K.masa_gemm_kernel(a, b, bm=64, bn=128, bk=8)
+    got = K.masa_gemm_kernel(a, b, bm=64, bn=128, bk=2)
     torch.cuda.synchronize()
-    assert K.BODIES == {"wgmma": 0, "simt": 1}
+    assert K.BODIES == {"wgmma": 0, "simt": 1, "tf32x3": 0}
     assert_kernel_close(got, K.masa_gemm_plain(a, b), "float32")
+    a, b = card_tensors(tc.masa_inputs(192, 200, 384, seed=3), torch.float32,
+                        card)
+    for order in K.ORDERS:
+        assert_kernel_close(K._launch(a, b, order, "simt"),
+                            K.masa_gemm_plain(a, b), "float32")
+
+
+#: tf32x3-body shapes (M, K, N): ragged M (one row, a row past a tile, one
+#: short of one); K 4, 36 (a stage and one 16-byte unit) and 300 (the
+#: deepest fp32 K whose weight-stationary budget fits: a panel of 320 rows
+#: and the ring); N 4 and 132 (past one 128-column panel); the kernel
+#: bench's 1024 x 256 x 256.
+MASA_TF32X3 = ((1, 4, 4), (129, 36, 132), (255, 300, 132), (192, 200, 384),
+               (300, 64, 4), (64, 300, 256), (1024, 256, 256))
+
+
+@pytest.mark.parametrize("order", ["output_stationary", "weight_stationary"])
+@pytest.mark.parametrize("m,k,n", MASA_TF32X3)
+def test_masa_tf32x3_equals_plain(card, m, k, n, order):
+    """fp32 with K and N multiples of 4: one tf32x3 launch in either order,
+    equal to the plain version at the fp32 tolerance; two launches
+    bit-equal."""
+    from repro_torch.kernels.masa_gemm import kernel as K
+
+    a, b = card_tensors(tc.masa_inputs(m, k, n, seed=5), torch.float32, card)
+    assert K.body(a, b) == "tf32x3"
+    assert K.ws_panel_bytes(k, a.dtype) <= K.cuda_build.MAX_SMEM_BYTES
+    K.reset_launches()
+    got = K.masa_gemm_kernel(a, b, bm=1, bn=4, bk=4, order=order)
+    torch.cuda.synchronize()
+    ws = order == "weight_stationary"
+    assert K.LAUNCHES == {"masa_gemm_os": int(not ws), "masa_gemm_ws": int(ws)}
+    assert K.BODIES == {"wgmma": 0, "simt": 0, "tf32x3": 1}
+    assert_kernel_close(got, K.masa_gemm_plain(a, b), "float32")
+    assert torch.equal(got, K.masa_gemm_kernel(a, b, bm=1, bn=4, bk=4,
+                                               order=order))
+
+
+def test_tf32x3_refuses_what_it_does_not_take(card):
+    """Forced on a shape or dtype it does not take (masa K 250 or N 126,
+    bf16; flash bf16, an unaligned base) the tf32x3 body raises, and no
+    body counts a launch."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.masa_gemm import kernel as MK
+
+    MK.reset_launches()
+    FK.reset_launches()
+    for (m, k, n), dtype in (((128, 250, 128), torch.float32),
+                             ((128, 256, 126), torch.float32),
+                             ((128, 256, 128), torch.bfloat16)):
+        a = torch.randn((m, k), device=card).to(dtype)
+        b = torch.randn((k, n), device=card).to(dtype)
+        for order in MK.ORDERS:
+            with pytest.raises(ValueError, match="refused"):
+                MK._launch(a, b, order, "tf32x3")
+    q = torch.randn((2, 128, 64), device=card)
+    with pytest.raises(ValueError, match="refused"):
+        FK._launch(q.bfloat16(), q.bfloat16(), q.bfloat16(), True, "tf32x3")
+    with pytest.raises(ValueError, match="refused"):
+        FK._launch(tc.shifted(q), q, q, True, "tf32x3")
+    assert not any(MK.BODIES.values()) and not any(FK.BODIES.values())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -651,7 +717,7 @@ def test_flash_kernel_equals_plain(card, bh, s, hd, bq, bk, causal, dtype):
     got = K.flash_attention_kernel(q, k, v, causal=causal, bq=bq, bk=bk)
     torch.cuda.synchronize()
     assert K.LAUNCHES["flash_attention"] == 1
-    body = "wgmma" if dtype == "bfloat16" else "simt"
+    body = "wgmma" if dtype == "bfloat16" else "tf32x3"
     assert K.body(q, k, v) == body and K.BODIES[body] == 1
     assert_kernel_close(got, K.flash_attention_plain(q, k, v, causal=causal,
                                                      bk=bk), dtype)
@@ -673,7 +739,7 @@ def test_flash_wgmma_ragged_edges(card, bh, s, hd, causal):
     K.reset_launches()
     got = K.flash_attention_kernel(q, k, v, causal=causal, bq=s, bk=s)
     torch.cuda.synchronize()
-    assert K.BODIES == {"wgmma": 1, "simt": 0}
+    assert K.BODIES == {"wgmma": 1, "simt": 0, "tf32x3": 0}
     assert_kernel_close(got, K.flash_attention_plain(q, k, v, causal=causal,
                                                      bk=s), "bfloat16")
 
@@ -695,9 +761,35 @@ def test_flash_bf16_unaligned_takes_the_simt_body(card, bh, s, hd, bq, bk, g,
     got = K.run(q, k, v, causal=causal, bk=bk)
     torch.cuda.synchronize()
     assert K.LAUNCHES["flash_attention"] == 1
-    assert K.BODIES == {"wgmma": 0, "simt": 1}
+    assert K.BODIES == {"wgmma": 0, "simt": 1, "tf32x3": 0}
     assert_kernel_close(got, K.flash_attention_plain(q, k, v, causal=causal,
                                                      bk=bk), "bfloat16")
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("s", [1, 65, 130])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 96, 128])
+def test_flash_tf32x3_equals_plain(card, hd, causal, s, g):
+    """fp32 at every head dim, causal or not, S of one key, one past a
+    key tile and past a query tile and two key tiles, GQA groups of 1 and
+    4 (k/v of BH / g rows, indexed in the kernel): one tf32x3 launch,
+    equal to the plain version at the fp32 tolerance; two launches
+    bit-equal."""
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    q, k, v = card_tensors(tc.flash_inputs(8, s, hd, seed=7), torch.float32,
+                           card)
+    k, v = k[:8 // g].contiguous(), v[:8 // g].contiguous()
+    assert K.body(q, k, v) == "tf32x3"
+    K.reset_launches()
+    got = K.run(q, k, v, causal=causal, bk=128)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == 1
+    assert K.BODIES == {"wgmma": 0, "simt": 0, "tf32x3": 1}
+    assert_kernel_close(got, K.flash_attention_plain(q, k, v, causal=causal,
+                                                     bk=128), "float32")
+    assert torch.equal(got, K.run(q, k, v, causal=causal, bk=128))
 
 
 def spy_launches(monkeypatch, K):
@@ -754,7 +846,7 @@ def test_flash_gqa_wgmma_indexes_the_kv_head(card, h, hkv, hd, monkeypatch):
     K.reset_launches()
     got = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert K.BODIES == {"wgmma": 1, "simt": 0}
+    assert K.BODIES == {"wgmma": 1, "simt": 0, "tf32x3": 0}
     assert seen == [((2 * h, 256, hd), (2 * hkv, 256, hd),
                      (2 * hkv, 256, hd))]
     ke, ve = (t.repeat_interleave(h // hkv, dim=2) for t in (k, v))
@@ -762,6 +854,33 @@ def test_flash_gqa_wgmma_indexes_the_kv_head(card, h, hkv, hd, monkeypatch):
     want = K.flash_attention_plain(*flat, causal=True)
     assert_kernel_close(got, want.reshape(2, h, 256, hd).transpose(1, 2),
                         "bfloat16")
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128])
+@pytest.mark.parametrize("h,hkv", [(32, 8), (9, 3), (48, 1)])
+def test_flash_gqa_tf32x3_indexes_the_kv_head(card, h, hkv, hd, monkeypatch):
+    """jamba's, smollm's and granite's head ratios in fp32 through ops: one
+    tf32x3 launch on the unexpanded [B * Hkv, S, hd], equal to the plain
+    version on the expanded heads."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    rng = np.random.default_rng(h + hkv + hd + 1)
+    q = tc.normal(rng, (2, 256, h, hd))
+    k, v = (tc.normal(rng, (2, 256, hkv, hd)) for _ in range(2))
+    q, k, v = card_tensors((q, k, v), torch.float32, card)
+    seen = spy_launches(monkeypatch, K)
+    K.reset_launches()
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert K.BODIES == {"wgmma": 0, "simt": 0, "tf32x3": 1}
+    assert seen == [((2 * h, 256, hd), (2 * hkv, 256, hd),
+                     (2 * hkv, 256, hd))]
+    ke, ve = (t.repeat_interleave(h // hkv, dim=2) for t in (k, v))
+    flat = [t.transpose(1, 2).reshape(2 * h, 256, hd) for t in (q, ke, ve)]
+    want = K.flash_attention_plain(*flat, causal=True)
+    assert_kernel_close(got, want.reshape(2, h, 256, hd).transpose(1, 2),
+                        "float32")
 
 
 def test_accelerator_kernels_refuse_without_falling_back(card):

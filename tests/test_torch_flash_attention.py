@@ -119,10 +119,12 @@ def test_checks():
 @pytest.mark.parametrize("hd", [48, 64, 96, 128])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_body_by_dtype_and_head_dim(dtype, hd):
-    """bf16 at hd 64, 96 and 128 takes the wgmma body; fp32, and any hd the
-    kernel does not take, the simt body (whose launch then refuses hd 48)."""
+    """At hd 64, 96 and 128 bf16 takes the wgmma body and fp32 the tf32x3
+    body; any hd the kernel does not take, the simt body (whose launch then
+    refuses hd 48)."""
     t = torch.empty((2, 128, hd), dtype=DTYPES[dtype][1])
-    want = "wgmma" if dtype == "bfloat16" and hd in K.HEAD_DIMS else "simt"
+    want = ("simt" if hd not in K.HEAD_DIMS
+            else "wgmma" if dtype == "bfloat16" else "tf32x3")
     assert K.body(t, t, t) == want
     kv = torch.empty((1, 128, hd), dtype=DTYPES[dtype][1])
     assert K.body(t, kv, kv) == want                  # GQA's kv rows
@@ -136,6 +138,28 @@ def test_body_needs_aligned_bases_and_one_dtype():
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     assert K.body(shifted, q, q) == K.body(q, q, shifted) == "simt"
     assert K.body(q, q.float(), q) == "simt"
+    f = q.float()
+    assert K.body(f, f, f) == "tf32x3"
+    shifted = torch.empty(4 * 128 * 64 + 1)[1:].view(4, 128, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    assert K.body(shifted, f, f) == K.body(f, f, shifted) == "simt"
+
+
+def test_bodies_and_c_entry():
+    """BODIES counts wgmma, simt and tf32x3 launches (none on the CPU);
+    the wrapper's ctypes declaration follows the C signature of
+    ``flash_attention_launch`` in csrc/flash_attention.cu, whose ``body``
+    takes ``kernel._BODY_CODE``'s codes."""
+    K.reset_launches()
+    q = torch.zeros((2, 128, 64))
+    K.flash_attention_kernel(q, q, q)
+    assert K.BODIES == {"wgmma": 0, "simt": 0, "tf32x3": 0}
+    assert K._BODY_CODE == {"simt": 0, "wgmma": 1, "tf32x3": 2}
+    entry = "flash_attention_launch"
+    src = K.SOURCES["flash_attention"].read_text()
+    ret, args = tc.c_entry_types(src, entry)
+    assert tc.declared(K, [entry])[entry] == (ret, args)
+    assert "int body" in src
 
 
 @pytest.mark.parametrize("hd", [64, 96, 128])

@@ -2,6 +2,7 @@
 of their wgmma body, on the CPU.
 
 Each wrapper picks ``wgmma`` (csrc/hopper_gemm.cuh: TMA-fed tiles, bf16),
+masa's ``tf32x3`` (csrc/tf32x3.cuh: three TF32 mma.sync a product, fp32),
 moe's ``stream`` (token blocks of 8 to 32 rows: a cp.async ring streaming
 the expert's W panel) or ``simt`` (fp32 FMAs on the CUDA cores) by shape,
 before the launch, in one predicate (``kernel.body``); nothing here
@@ -40,13 +41,45 @@ MASA_CASES = ([(m, k, n, d) for m, k, n in tc.MASA_SHAPES for d in DTYPES]
 @pytest.mark.parametrize("m,k,n,dtype", MASA_CASES)
 def test_masa_body_by_shape(m, k, n, dtype):
     """bf16 with K and N multiples of 8 takes wgmma (every sweep shape and
-    the jamba shapes); fp32 and K 500 / 700 in bf16 take simt."""
+    the jamba shapes); fp32 with K and N multiples of 4 takes tf32x3 (every
+    sweep shape, K 300 and 400 and the jamba shapes); K 500 / 700 in bf16
+    take simt."""
     a, b = empty((m, k), DTYPES[dtype]), empty((k, n), DTYPES[dtype])
-    want = "wgmma" if dtype == "bfloat16" and k % 8 == 0 and n % 8 == 0 \
-        else "simt"
+    if dtype == "bfloat16":
+        want = "wgmma" if k % 8 == 0 and n % 8 == 0 else "simt"
+    else:
+        want = "tf32x3" if k % 4 == 0 and n % 4 == 0 else "simt"
     assert MK.body(a, b) == want
     assert (k, dtype) not in ((500, "bfloat16"), (700, "bfloat16")) \
         or want == "simt"
+    assert dtype == "bfloat16" or want == "tf32x3"
+
+
+@pytest.mark.parametrize("case,want", [
+    ("aligned", "tf32x3"), ("K 4", "tf32x3"), ("N 4", "tf32x3"),
+    ("K 250", "simt"), ("N 126", "simt"), ("a unaligned", "simt"),
+    ("b unaligned", "simt"), ("mixed dtypes", "simt"),
+    ("bf16 K 252", "simt"), ("bf16", "wgmma")])
+def test_masa_tf32x3_takes_fp32_rows_of_whole_16_byte_units(case, want):
+    """fp32 takes tf32x3 when K and N are multiples of 4 (rows of whole
+    16-byte cp.async units) and both bases are 16-byte aligned; K 250 or N
+    126, an unaligned base or two dtypes take simt; bf16 is unchanged."""
+    f32, bf = torch.float32, torch.bfloat16
+    m, k, n, dtype = 256, 256, 256, f32
+    if case.startswith("K "):
+        k = int(case[2:])
+    elif case.startswith("N "):
+        n = int(case[2:])
+    elif case.startswith("bf16"):
+        dtype, k = bf, 252 if case.endswith("252") else k
+    a, b = empty((m, k), dtype), empty((k, n), dtype)
+    if case == "a unaligned":
+        a = tc.shifted(torch.zeros((m, k)))
+    elif case == "b unaligned":
+        b = tc.shifted(torch.zeros((k, n)))
+    elif case == "mixed dtypes":
+        b = b.to(bf)
+    assert MK.body(a, b) == want
 
 
 MOE_CASES = ([(E, C, D, F, bt, d) for E, C, D, F, bt, _ in tc.MOE_SHAPES
@@ -149,13 +182,16 @@ def test_cpu_runs_count_no_body():
     a, b = (torch.ones((128, 128), dtype=torch.bfloat16) for _ in range(2))
     MK.reset_launches()
     masa_ops.masa_gemm(a, b)
-    assert MK.BODIES == {"wgmma": 0, "simt": 0}
+    assert MK.BODIES == {"wgmma": 0, "simt": 0, "tf32x3": 0}
+    MK.reset_launches()
+    masa_ops.masa_gemm(a.float(), b.float(), order="weight_stationary")
+    assert MK.BODIES == {"wgmma": 0, "simt": 0, "tf32x3": 0}
     x, w = torch.ones((128, 64), dtype=torch.bfloat16), torch.ones(
         (1, 64, 128), dtype=torch.bfloat16)
     EK.reset_launches()
     EK.grouped_matmul_kernel(x, w, torch.zeros(1, dtype=torch.int32))
     assert EK.BODIES == {"wgmma": 0, "simt": 0, "stream": 0}
-    assert tuple(MK.BODIES) == hopper_gemm.BODIES
+    assert tuple(MK.BODIES) == (*hopper_gemm.BODIES, "tf32x3")
     assert tuple(EK.BODIES) == (*hopper_gemm.BODIES, "stream")
 
 
@@ -196,11 +232,15 @@ def test_raster_puts_the_blocks_of_one_w_tile_side_by_side(E, C, bt):
                                      (600, torch.bfloat16),
                                      (605, torch.bfloat16),
                                      (606, torch.bfloat16),
+                                     (300, torch.float32),
                                      (302, torch.float32),
-                                     (303, torch.float32)])
+                                     (303, torch.float32),
+                                     (304, torch.float32)])
 def test_ws_panel_bytes_alone_decides_the_fallback(k, dtype, monkeypatch):
     """ops consults ws_panel_bytes and nothing else: the same K falls back
-    or not as the budget says, whichever body would run."""
+    or not as the budget says, whichever body would run (fp32 K 300 and 304
+    take tf32x3, 302 and 303 simt; the tf32x3 body's own layout decides
+    nothing)."""
     seen = []
     monkeypatch.setattr(MK, "run", lambda a, b, order: seen.append(order))
     a, b = empty((128, k), dtype), empty((k, 128), dtype)

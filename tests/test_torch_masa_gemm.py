@@ -107,3 +107,15 @@ def test_checks_are_the_references():
         masa_gemm(torch.zeros((128, 128), device="meta"),
                   torch.zeros((128, 128), device="meta"))
     assert K.LAUNCHES == {"masa_gemm_os": 0, "masa_gemm_ws": 0}
+
+
+def test_c_entry_declarations_match_the_source():
+    """The wrapper's ctypes declaration follows the C signature of
+    ``masa_gemm_launch`` in csrc/masa_gemm.cu (a pointer c_void_p, an int
+    c_int; ``body`` the code of ``kernel._BODY_CODE``)."""
+    entry = "masa_gemm_launch"
+    ret, args = tc.c_entry_types(K.SOURCES["masa_gemm"].read_text(), entry)
+    assert tc.declared(K, [entry])[entry] == (ret, args)
+    assert "int body" in K.SOURCES["masa_gemm"].read_text()
+    assert K._BODY_CODE == {"simt": 0, "wgmma": 1, "tf32x3": 2}
+    assert set(K._BODY_CODE) == set(K.BODIES)

@@ -189,13 +189,14 @@ def paged_edge_inputs(shape, lens, page_id=None, seed: int = 4):
 def c_entry_types(src: str, entry: str):
     """(restype, argtypes) that ctypes needs for the C entry ``entry`` of
     the CUDA source text ``src``: a pointer is c_void_p, an int c_int, a
-    float c_float; the result int or long long."""
+    long long c_longlong, a float c_float; the result int or long long."""
     import ctypes
     import re
 
     ret, params = re.search(
         rf'extern "C" (int|long long) {entry}\(([^)]*)\)', src).groups()
-    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "long": ctypes.c_longlong}
     args = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
             for p in params.split(",")]
     return {"int": ctypes.c_int, "long long": ctypes.c_longlong}[ret], args
