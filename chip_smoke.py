@@ -151,7 +151,13 @@ on any mismatch:
                 2 layers x 3 products (up, gate, down) moe_gemm launches a
                 prefill and a decode call, each on the stream body (bt =
                 capacity 16 or 8), and no other kernel; a profile of one
-                request.
+                request. Then a long prefill on the same model: one prompt
+                of 1024 seeded tokens (capacity 120), its counts set to 0
+                just before and read just after: exactly 2 x 3 moe_gemm
+                launches, all on the tf32x3 body, and no other kernel; its
+                last-position logits within rtol = atol = 1e-3 of the same
+                model's plain route (``Layout.kernels`` off: the einsum
+                experts), which launches no kernel.
 20. train     — main path seven: training on the card, the train route
                 (no kernel: ``Model.loss`` runs ``ssd_chunked`` and the
                 einsum experts in autograd, as the reference does). Every
@@ -198,13 +204,14 @@ on any mismatch:
                 process. ``python -m repro_torch.launch.dryrun --arch
                 mamba2-780m --shape train_4k`` in a subprocess prints OK.
 22. moe_time  — the grouped GEMM at moonshot's serve shapes (64 experts x
-                capacity 16 and 8, D 2048, F 1408; the up and the down
-                product), fp32: kernel vs plain within 2e-4, then CUDA-event
-                times of the kernel (the stream body), its plain version and
+                capacity 16 and 8, and 120 of a 1024-token prefill, D 2048,
+                F 1408; the up and the down product), fp32: kernel vs plain
+                within 2e-4, then CUDA-event times of the kernel (the stream
+                body at 16 and 8, tf32x3 at 120), its plain version and
                 ``torch.bmm`` on the same capacity buffer, beside the bound;
-                the simt body (the parent's) timed in turns with the stream
-                body on the same buffers, each with its TB/s and fraction
-                of the byte bound; two stream launches bit-equal.
+                the simt body timed in turns with that body on the same
+                buffers, each with its TB/s, TFLOP/s and fraction of the
+                bound; two launches bit-equal.
 23. ssd_time  — CUDA-event times of the SSD-scan kernel and its plain
                 version at the serve shape and at L = 2048, beside the bound
                 (C B^T counted once a batch element and chunk: B and C are
@@ -228,17 +235,23 @@ on any mismatch:
                 (moonshot's four and the edges: bt 8, 16, 24, 32, ragged D,
                 F past the last 128 columns), capacity and scattered
                 designations, one launch each, and a second launch
-                bit-equal. Each wrapper raises on a non-contiguous input, a
-                wrong dtype or a refused shape, before any launch, and a
-                tf32x3 body forced on a shape it does not take (masa K 250,
-                flash bf16) raises. Every masa, moe, paged and flash case
+                bit-equal; its tf32x3 body likewise in float32 at
+                ``torch_cases.MOE_TF32X3_SHAPES`` (the sweep's bt 128 and
+                64, bt 40 and 120 with rows masked, ragged D and F, bt 192
+                and 384), on the capacity, flipped and scattered
+                designations. Each wrapper raises on a non-contiguous
+                input, a wrong dtype or a refused shape, before any launch,
+                and a tf32x3 body forced on a shape it does not take (masa
+                K 250, flash bf16, moe bf16 and bt 16) raises. Every masa, moe, paged and flash case
                 ran the body its wrapper picks by shape (``body()``: wgmma
                 for bf16 with rows of whole 16-byte units, moe's bt % 64 ==
                 0 and flash's hd 64, 96 or 128; masa's and flash's tf32x3
                 for fp32 with rows of whole 16-byte units (flash: hd 64, 96
                 or 128) and aligned bases; moe's stream for bt a multiple
-                of 8 up to 32 with F's rows whole 16-byte units; simt
-                otherwise; paged: split for G 1 to 8 and rows of 1 to 32
+                of 8 up to 32 with F's rows whole 16-byte units, and its
+                tf32x3 for fp32 at bt a multiple of 8 past 32 with D and F
+                multiples of 4; simt otherwise (the float32 sweep of moe
+                fails unless it takes tf32x3); paged: split for G 1 to 8 and rows of 1 to 32
                 whole 16-byte units, serial otherwise), counted in
                 ``BODIES``.
 25. kernel_bench — main path four: ``repro_torch.kernel_bench.run()`` on the
@@ -246,7 +259,8 @@ on any mismatch:
                 exactly one launch per call as the reference times them
                 (masa_gemm_os 2, masa_gemm_ws 1, ssd_scan 1, moe_gemm 1,
                 paged_attention 2, flash_attention 1); no DRAM-kernel
-                launch; its fp32 masa and flash launches all on tf32x3.
+                launch; its fp32 masa, moe (bt 128) and flash launches all
+                on tf32x3.
 26. kernel_time — the four kernels at jamba-v0.1-52b's full width
                 (``torch_cases.*_JAMBA``), in bfloat16 and float32 (TF32 off):
                 kernel vs plain within the tolerances above, then CUDA-event
@@ -259,11 +273,12 @@ on any mismatch:
                 products a product), both printed. masa_gemm's
                 weight-stationary order falls back there and is also timed
                 at K = 256. The flash, masa (both orders) and moe rows fail
-                unless bfloat16 ran the wgmma body and float32 tf32x3 (flash,
-                masa) or simt (moe at bt 128); each prints its body and
-                TFLOP/s. The float32 flash and masa rows fail above a max
-                abs error of 1e-4 (``TF32X3_MAX_ERR``) and time the simt
-                body in turns with tf32x3 (simt, tf32x3, tf32x3, simt).
+                unless bfloat16 ran the wgmma body and float32 tf32x3;
+                each prints its body and TFLOP/s. The float32 flash, moe
+                and masa rows fail above a max abs error of 1e-4
+                (``TF32X3_MAX_ERR``) and time the simt body in turns with
+                tf32x3 (simt, tf32x3, tf32x3, simt), beside the library
+                call and both fp32 operation bounds.
                 Flash is also timed
                 through ops.flash_attention on the 8 unexpanded kv heads
                 (one launch, held to the kernel on the expanded heads),
@@ -277,7 +292,8 @@ mix_step also give their body, µs and cycles a step, chain bound, the
 global body's time and their launches by path, the sweep, commands and
 benches phases' included;
 lane_step the sweep phase's wall times; moe_gemm its launches by path
-and by body, moonshot's serve run and its times at moonshot's shapes),
+and by body, moonshot's serve run and long prefill and its times at
+moonshot's shapes),
 and ``{"ok":
 true, "device": {...}}``.
 """
@@ -340,10 +356,16 @@ SERVE_SSD_LAUNCHES = 4 * 48
 #: fixture (tests/make_torch_serve_fixture.py).
 SERVE_ARCHS = ("smollm-135m", "moonshot-v1-16b-a3b")
 #: moonshot's grouped expert GEMMs as its serve path runs them: E experts,
-#: capacity C (16 for a 128-token prefill, 8 for a decode step), D and F;
+#: capacity C (16 for a 128-token prefill, 8 for a decode step, 120 for a
+#: 1024-token prefill), D and F;
 #: "up" (also "gate") multiplies [E*C, D] by [E, D, F], "down" [E*C, F]
 #: by [E, F, D].
-MOE_MOONSHOT = dict(E=64, D=2048, F=1408, capacities=(16, 8))
+MOE_MOONSHOT = dict(E=64, D=2048, F=1408, capacities=(16, 8, 120))
+#: The long moonshot prefill: one prompt of this many seeded tokens, whose
+#: capacity (120) sends the expert products to the tf32x3 body; its logits
+#: are held to the plain route's within rtol = atol = LONG_PREFILL_TOL.
+LONG_PREFILL_TOKENS = 1024
+LONG_PREFILL_TOL = 1e-3
 #: Cycles a second that the timing's sleep kernel counts: the H100's
 #: highest SM clock (1980 MHz) rounded up.
 SLEEP_CYCLES_PER_S = 2e9
@@ -2005,7 +2027,7 @@ def phase_serve_model(arch: str, smi: str):
     if launches != want or any(dram.values()):
         fail(f"serve {arch}: expected launches {want} and no DRAM kernel, "
              f"counted {launches}, {dram}")
-    if bodies != {"wgmma": 0, "simt": 0, "stream": want["moe_gemm"]}:
+    if bodies != {b: want["moe_gemm"] * (b == "stream") for b in bodies}:
         fail(f"serve {arch}: moe_gemm ran bodies {bodies}, expected "
              f"{want['moe_gemm']} on stream")
     log_serve(tag, res, smi)
@@ -2013,7 +2035,78 @@ def phase_serve_model(arch: str, smi: str):
                wall_with_checks_s=wall,
                logits=phase_logits(model, fixture, tag),
                profile=phase_profile(model, fixture, smi, tag))
+    if moe_layers:
+        res["long_prefill"] = long_prefill(model, moe_layers * products, smi)
     return res
+
+
+def long_prefill(model, want: int, smi: str) -> dict:
+    """Main path six at a long prompt: the served model (moonshot's 2 of 48
+    layers at full width, fp32) prefills one prompt of
+    ``LONG_PREFILL_TOKENS`` seeded tokens. Every count is 0 just before and
+    read just after: exactly ``want`` moe_gemm launches (one a MoE layer
+    and product), all on tf32x3 at bt = capacity (past the stream body's
+    32), and no other kernel. Its last-position logits are held within
+    rtol = atol = ``LONG_PREFILL_TOL`` to the same model's plain route
+    (``Layout.kernels`` off: the reference's einsum experts), which
+    launches no kernel. Then both routes are timed warm, in turns (plain,
+    kernels, kernels, plain; host clock around a synchronised call, the
+    mean of 3)."""
+    from repro_torch import kernels
+    from repro_torch.core.dram import cuda_step
+    from repro_torch.kernels.moe_gemm import kernel as EK
+    from repro_torch.models.moe import expert_capacity
+
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(KERNEL_TIME_SEED)
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_PREFILL_TOKENS),
+                         generator=gen).to(model.device)
+    cap = expert_capacity(LONG_PREFILL_TOKENS, cfg.moe)
+    # ---- the main path, counted
+    reset_all_launches()
+    logits, _ = model.prefill({"tokens": toks})
+    sync("cuda")
+    launches = {**kernels.launches(), **cuda_step.LAUNCHES}
+    bodies = dict(EK.BODIES)
+    expect = {k: want * (k == "moe_gemm") for k in launches}
+    if (launches != expect or bodies != {b: want * (b == "tf32x3")
+                                         for b in bodies}):
+        fail(f"long prefill: {LONG_PREFILL_TOKENS} tokens (capacity {cap}) "
+             f"launched {launches}, moe_gemm by body {bodies}; expected "
+             f"{want} moe_gemm launches, all on tf32x3, and no other kernel")
+    # ---- the plain route on the same model and prompt
+    plain = model.layout()
+    plain.kernels = False
+    reset_all_launches()
+    ref, _ = model.prefill({"tokens": toks}, plain)
+    no_launches("long prefill, plain route")
+    err = float((logits - ref).abs().max())
+    if not torch.allclose(logits, ref, rtol=LONG_PREFILL_TOL,
+                          atol=LONG_PREFILL_TOL):
+        fail(f"long prefill: logits differ from the plain route's by up to "
+             f"{err:.4g} (rtol = atol = {LONG_PREFILL_TOL})")
+
+    def wall_ms(layout, reps=3):
+        model.prefill({"tokens": toks}, layout)
+        sync("cuda")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model.prefill({"tokens": toks}, layout)
+        sync("cuda")
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    turns = [wall_ms(lay) for lay in (plain, None, None, plain)]
+    ms, plain_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    log(f"[long prefill] {cfg.name} ({cfg.n_layers} layers, fp32), one "
+        f"prompt of {LONG_PREFILL_TOKENS} tokens, capacity {cap}: {want} "
+        f"moe_gemm launches by body {bodies}, no other kernel; "
+        f"last-position logits within rtol = atol = {LONG_PREFILL_TOL} of "
+        f"the plain route, max abs err {err:.3e}; in turns {ms:.2f} ms "
+        f"({LONG_PREFILL_TOKENS / ms * 1e3:.1f} tok/s), plain route "
+        f"{plain_ms:.2f} ms; card {smi}")
+    return dict(tokens=LONG_PREFILL_TOKENS, capacity=cap, launches=want,
+                bodies=bodies, ms=ms, plain_ms=plain_ms, turns_ms=turns,
+                max_abs_err=err)
 
 
 def phase_moe_time(smi: str):
@@ -2021,9 +2114,10 @@ def phase_moe_time(smi: str):
     as the serve path runs it: kernel vs plain within 2e-4, then CUDA-event
     times of the kernel, its plain version and ``torch.bmm`` on the same
     capacity buffer, beside the bound. Every launch through the wrapper on
-    the stream body, two of them bit-equal; then the simt body (the
-    parent's) and the stream body in turns (simt, stream, stream, simt) on
-    the same buffers, each with its TB/s and fraction of the bound."""
+    the body its shape takes (stream at capacities 16 and 8, tf32x3 at the
+    long prefill's 120), two of them bit-equal; then the simt body and that
+    body in turns (simt, body, body, simt) on the same buffers, each with
+    its TB/s, TFLOP/s and fraction of the bound."""
     from repro_torch.kernels.moe_gemm import capacity_block_eids
     from repro_torch.kernels.moe_gemm import kernel as EK
 
@@ -2041,38 +2135,45 @@ def phase_moe_time(smi: str):
             flops = 2 * T * k_in * k_out
             nbytes = (4 * (T * k_in + E * k_in * k_out + T * k_out)
                       + 4 * eids.numel())
+            body = "stream" if C <= EK.STREAM_MAX_BT else "tf32x3"
+            if EK.body(x, w, C) != body:
+                fail(f"moe_time: {name} takes {EK.body(x, w, C)}, not {body}")
             EK.reset_launches()
-            stream = lambda: EK.grouped_matmul_kernel(x, w, eids, bt=C)
+            kernel = lambda: EK.grouped_matmul_kernel(x, w, eids, bt=C)
             row = timing_row(
-                name, stream,
+                name, kernel,
                 lambda: EK.grouped_matmul_plain(x, w, eids, bt=C),
                 lambda: torch.bmm(x.view(E, C, k_in), w), flops, nbytes,
                 "float32", reps=20)
-            if not EK.BODIES["stream"] or EK.BODIES["simt"] + EK.BODIES[
-                    "wgmma"]:
+            if EK.BODIES != {b: EK.BODIES[body] * (b == body)
+                             for b in EK.BODIES} or not EK.BODIES[body]:
                 fail(f"moe_time: {name} ran bodies {EK.BODIES}, expected "
-                     f"only stream")
-            if not torch.equal(stream(), stream()):
-                fail(f"moe_time: {name}: two stream launches differ")
+                     f"only {body}")
+            if not torch.equal(kernel(), kernel()):
+                fail(f"moe_time: {name}: two {body} launches differ")
             simt = lambda: EK._launch(x, w, eids, C, "simt")
             row["simt_max_abs_err"] = kernel_err(
                 f"{name} simt", simt(), EK.grouped_matmul_plain(
                     x, w, eids, bt=C), "float32")
-            turns = [time_ms(f, 20, 1) for f in (simt, stream, stream, simt)]
-            row.update(body="stream", tflops=flops / (row["ms"] * 1e-3) / 1e12,
-                       stream_ms=(turns[1] + turns[2]) / 2,
+            turns = [time_ms(f, 20, 1) for f in (simt, kernel, kernel, simt)]
+            row.update(body=body, tflops=flops / (row["ms"] * 1e-3) / 1e12,
                        simt_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
-            for b in ("stream", "simt"):
+            row[f"{body}_ms"] = (turns[1] + turns[2]) / 2
+            for b in (body, "simt"):
                 ms = row[f"{b}_ms"]
                 row[f"{b}_tbps"] = nbytes / (ms * 1e-3) / 1e12
+                row[f"{b}_tflops"] = flops / (ms * 1e-3) / 1e12
                 row[f"{b}_of_bound"] = row["bound_ms"] / ms
-            log(f"[timing] {name} float32: stream body {row['ms']:.4f} ms "
-                f"({row['stream_tbps']:.3f} TB/s in turns, "
-                f"{row['stream_of_bound']:.3f} of the bound); in turns "
-                f"stream {row['stream_ms']:.4f} ms, simt {row['simt_ms']:.4f}"
-                f" ms ({row['simt_tbps']:.3f} TB/s, {row['simt_of_bound']:.3f}"
-                f" of the bound); torch.bmm {row['library_ms']:.4f} ms; "
-                f"bit-equal")
+            log(f"[timing] {name} float32: {body} body {row['ms']:.4f} ms "
+                f"({row[f'{body}_tbps']:.3f} TB/s, "
+                f"{row[f'{body}_tflops']:.1f} TFLOP/s in turns, "
+                f"{row[f'{body}_of_bound']:.3f} of the bound "
+                f"({row['bound_by']})); in turns {body} "
+                f"{row[f'{body}_ms']:.4f} ms, simt {row['simt_ms']:.4f} ms "
+                f"({row['simt_tbps']:.3f} TB/s, "
+                f"{row['simt_tflops']:.1f} TFLOP/s, "
+                f"{row['simt_of_bound']:.3f} of the bound); torch.bmm "
+                f"{row['library_ms']:.4f} ms; bit-equal")
             out[f"{prod}_c{C}"] = row
             del x, w
     log(f"[timing] moe_gemm at moonshot's serve shapes, card {smi}")
@@ -2234,6 +2335,9 @@ def phase_kernels():
         for E, C, D, F, bt, bf in tc.MOE_SHAPES:
             x, w = card_inputs(tc.moe_inputs(E, C, D, F, seed=1), dtype)
             eids = capacity_block_eids(E, C, bt, device="cuda")
+            if dname == "float32" and EK.body(x, w, bt) != "tf32x3":
+                fail(f"kernels: moe_gemm {(E, C, D, F, bt)} float32 picks "
+                     f"{EK.body(x, w, bt)}, not tf32x3")
             for ids in (eids, eids.flip(0).contiguous()):
                 EK.reset_launches()
                 got = grouped_matmul(x, w, ids, bt=bt, bf=bf)
@@ -2261,6 +2365,29 @@ def phase_kernels():
                     EK.grouped_matmul_plain(x, w, ids, bt=bt), dname))
                 if not torch.equal(got, EK.grouped_matmul_kernel(
                         x, w, ids, bt=bt, bf=bf)):
+                    fail(f"kernels: moe_gemm {case}: two launches differ")
+            del x, w
+        # the tf32x3 body (fp32 token blocks past 32 rows) at its edges,
+        # bit-equal when launched twice
+        tf32x3_cases = tc.MOE_TF32X3_SHAPES if dname == "float32" else ()
+        for E, C, D, F, bt in tf32x3_cases:
+            x, w, designations = tc.moe_stream_case(E, C, D, F, bt, dtype,
+                                                    "cuda")
+            designations["flipped"] = designations["capacity"].flip(0)
+            for how, ids in designations.items():
+                case = f"tf32x3 {(E, C, D, F, bt)} {how}"
+                if EK.body(x, w, bt) != "tf32x3":
+                    fail(f"kernels: moe_gemm {case} picks "
+                         f"{EK.body(x, w, bt)}")
+                ids = ids.contiguous()
+                EK.reset_launches()
+                got = grouped_matmul(x, w, ids, bt=bt, bf=4)
+                ran("moe_gemm", EK, "tf32x3", case)
+                record("moe_gemm", dname, kernel_err(
+                    f"moe_gemm {case}", got,
+                    EK.grouped_matmul_plain(x, w, ids, bt=bt), dname))
+                if not torch.equal(got, EK.grouped_matmul_kernel(
+                        x, w, ids, bt=bt, bf=4)):
                     fail(f"kernels: moe_gemm {case}: two launches differ")
             del x, w
         paged_cases = (
@@ -2413,6 +2540,16 @@ def phase_kernels():
          lambda: MK._launch(torch.randn((128, 250), device="cuda"),
                             torch.randn((250, 128), device="cuda"),
                             "output_stationary", "tf32x3")),
+        ("moe_gemm tf32x3 forced on bfloat16", ValueError,
+         lambda: EK._launch(*(torch.randn(s, device="cuda").bfloat16()
+                              for s in ((128, 64), (2, 64, 128))),
+                            torch.zeros(2, dtype=torch.int32, device="cuda"),
+                            64, "tf32x3")),
+        ("moe_gemm tf32x3 forced at bt 16", ValueError,
+         lambda: EK._launch(torch.randn((128, 64), device="cuda"),
+                            torch.randn((2, 64, 128), device="cuda"),
+                            torch.zeros(8, dtype=torch.int32, device="cuda"),
+                            16, "tf32x3")),
         ("flash_attention tf32x3 forced on bfloat16", ValueError,
          lambda: FK._launch(f64.bfloat16(), f64.bfloat16(), f64.bfloat16(),
                             True, "tf32x3")),
@@ -2461,9 +2598,11 @@ def phase_kernel_bench():
         fail(f"kernel_bench: expected launches {BENCH_LAUNCHES} and no DRAM "
              f"kernel, counted {launches}, {dram}")
     # its fp32 launches at the JAX bench's shapes take the tf32x3 bodies
+    # (moe's at bt 128)
     for kernel, bodies, n in (
             ("masa_gemm", res["masa_bodies"],
              BENCH_LAUNCHES["masa_gemm_os"] + BENCH_LAUNCHES["masa_gemm_ws"]),
+            ("moe_gemm", res["moe_bodies"], BENCH_LAUNCHES["moe_gemm"]),
             ("flash_attention", res["flash_bodies"],
              BENCH_LAUNCHES["flash_attention"])):
         if bodies != {b: n * (b == "tf32x3") for b in bodies}:
@@ -2528,10 +2667,10 @@ def timing_row(name, kernel, plain, library, flops, nbytes, dname, reps):
     return row
 
 
-def body_ran(mod, name: str, dname: str, fp32: str = "simt") -> str:
+def body_ran(mod, name: str, dname: str, fp32: str = "tf32x3") -> str:
     """The body of ``mod``'s launches since its reset: fails unless all took
     wgmma in bfloat16 (the jamba shapes suit wgmma) and ``fp32`` in float32
-    (tf32x3 for flash and masa, simt for moe at bt 128)."""
+    (tf32x3 for flash, masa and moe at bt 128)."""
     want = "wgmma" if dname == "bfloat16" else fp32
     if not mod.BODIES[want] or any(c for b, c in mod.BODIES.items()
                                    if b != want):
@@ -2541,7 +2680,7 @@ def body_ran(mod, name: str, dname: str, fp32: str = "simt") -> str:
 
 
 def with_body(row: dict, mod, name: str, dname: str, flops: float,
-              fp32: str = "simt") -> dict:
+              fp32: str = "tf32x3") -> dict:
     """Add the body that ran and the achieved TFLOP/s to a timing row."""
     row["body"] = body_ran(mod, name, dname, fp32)
     row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
@@ -2727,6 +2866,13 @@ def phase_kernel_time(smi: str):
             reps=reps)
         out["moe_gemm"][dname] = with_body(row, EK, "moe_gemm", dname,
                                            2 * T * D * F)
+        if dname == "float32":
+            tf32x3_in_turns(
+                row, "moe_gemm",
+                lambda: EK.grouped_matmul_kernel(x, w, eids, bt=bt),
+                lambda: EK._launch(x, w, eids, bt, "simt"),
+                EK.grouped_matmul_plain(x, w, eids, bt=bt), 2 * T * D * F,
+                reps)
         if dname == "bfloat16":
             row["raster"] = moe_raster_study(x, w, eids, bt, reps)
         del x, w
@@ -2818,9 +2964,13 @@ LAYER_KERNELS = (
      "E=16 C=384 D=4096 F=14336 bt=128 (jamba-v0.1-52b MoE up-projection "
      "of 2048 tokens); bf16 on the wgmma body (128 x 256 tiles, TMA ring of "
      "4 stages, W through a rank-3 tensor map at the block's expert, tiles "
-     "rastered M fastest in groups of 12 row tiles), fp32 on the simt "
-     "body; moonshot_float32: the stream body at moonshot's capacities "
-     "(bt 16 and 8), the simt body in turns"),
+     "rastered M fastest in groups of 12 row tiles), fp32 on the tf32x3 "
+     "body (three TF32 mma.sync m16n8k8 a product, 8 warps of 64 x 32 on "
+     "128 x 128 tiles that never straddle a token block, a 4-stage "
+     "cp.async ring, the same raster); simt_ms the simt body, in turns; "
+     "moonshot_float32: the stream body at moonshot's capacities (bt 16 "
+     "and 8) and the tf32x3 body at a 1024-token prefill's (bt 120), the "
+     "simt body in turns"),
     ("masa_gemm", "src/repro_torch/kernels/masa_gemm/csrc/masa_gemm.cu",
      "src/repro/kernels/masa_gemm/kernel.py:53",
      "M=2048 K=4096 N=14336 output_stationary (weight_stationary falls back "
@@ -3700,18 +3850,20 @@ def main() -> None:
         "logits": tf, "profile": prof}]}
     record["kernels"] += layer_records(sweep, bench, ktime)
     moe = next(k for k in record["kernels"] if k["name"] == "moe_gemm")
+    moon = served[SERVE_ARCHS[1]]
     moe["launches_by_path"] = {"kernel_bench": moe["launches"],
-                               "serve_moonshot": served[SERVE_ARCHS[1]][
+                               "serve_moonshot": moon["launches"],
+                               "long_prefill": moon["long_prefill"][
                                    "launches"]}
     moe["launches"] = sum(moe["launches_by_path"].values())
     moe["launches_by_body"] = {"kernel_bench": bench["moe_bodies"],
-                               "serve_moonshot": served[SERVE_ARCHS[1]][
-                                   "bodies"]}
+                               "serve_moonshot": moon["bodies"],
+                               "long_prefill": moon["long_prefill"]["bodies"]}
     moe["moonshot_float32"] = moe_t
-    moe["serve_moonshot"] = {k: served[SERVE_ARCHS[1]][k] for k in (
+    moe["serve_moonshot"] = {k: moon[k] for k in (
         "stats", "build_s", "wall_s", "prefill_s", "decode_s",
         "prefill_tok_s", "decode_tok_s", "near_ties", "tokens_compared",
-        "logits", "profile")}
+        "logits", "profile", "long_prefill")}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

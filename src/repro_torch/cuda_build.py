@@ -9,10 +9,10 @@ under ``build/repro_torch_kernels/`` at the repository root (``.gitignore``
 lists ``build/``). A library is named by a hash of every file in its own
 ``csrc/`` directory, every header those files include by a quoted path
 (``kernels/csrc/hopper_gemm.cuh``, which masa_gemm, moe_gemm and
-flash_attention share; ``kernels/csrc/tf32x3.cuh``, which masa_gemm and
-flash_attention share; ``kernels/csrc/async_cluster.cuh``, which ssd_scan,
-paged_attention and moe_gemm share, and masa_gemm and flash_attention
-through ``tf32x3.cuh``) and the flags, so an edit to a source or a header it includes rebuilds it, and
+flash_attention share; ``kernels/csrc/tf32x3.cuh``, which masa_gemm,
+moe_gemm and flash_attention share; ``kernels/csrc/async_cluster.cuh``,
+which ssd_scan, paged_attention and moe_gemm share, and masa_gemm and
+flash_attention through ``tf32x3.cuh``) and the flags, so an edit to a source or a header it includes rebuilds it, and
 an up-to-date library is reused. :func:`load`
 opens one with ``ctypes``; the family's wrapper declares its argument
 types. Nothing is built or loaded when this module is imported.

@@ -1,6 +1,6 @@
 // 3xTF32 building blocks for Hopper (sm_90a): fp32-accurate products on the
 // TF32 tensor cores by mma.sync m16n8k8, shared by the tf32x3 bodies of
-// masa_gemm.cu and flash_attention.cu.
+// masa_gemm.cu, moe_gemm.cu and flash_attention.cu.
 //
 // The split. A float x is carried as big = tf32(x), rounded to nearest
 // with ties away from zero as cvt.rna.tf32.f32 rounds, and small = x -
@@ -45,6 +45,14 @@
 // load_tile copies a tile of a row-major fp32 tensor into padded shared
 // memory by 16-byte cp.async (async_cluster.cuh), zero-filling what lies
 // outside the tensor, so a ragged edge adds nothing to the products.
+//
+// The GEMM tile of masa's and moe's bodies: warps of 64 x 32 outputs (4 x
+// 4 mma tiles) over 128 columns, K in stages of 32 through A [rows][40]
+// and B [32][132]. The tensor cores' fp32 sums are not rounded to nearest:
+// accumulated over all of K (3 K / 8 mma.sync into one running sum) they
+// drifted by 1.9e-4 at K 4096 on an H100, past the 1e-4 that fp32 is held
+// to. So stage() sums each 32-deep stage into a fresh tile (12 mma.sync on
+// a small sum) that an fp32 add takes into the running sum.
 #pragma once
 #include "async_cluster.cuh"
 
@@ -178,6 +186,59 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch,
     else
       *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+}
+
+constexpr int kTfBK = 32;              // depth of a stage (128 bytes)
+constexpr int kTfBN = 128;             // columns of a tile
+constexpr int kTfPitchA = kTfBK + 8;   // A [rows][40]: 64-bit pairs
+constexpr int kTfPitchB = kTfBN + 4;   // B [k][132]: rows 2t, 2t + 1
+
+// acc += the products of one 32-deep stage: A [rows][40] at as, B [k][132]
+// at bs (the stage's first row), the warp's rows wm.. and columns wn..
+__device__ __forceinline__ void stage(float (&acc)[4][4][4], const float* as,
+                                      const float* bs, int wm, int wn,
+                                      int lane) {
+  float part[4][4][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk) {
+    FragA fa[4];
+    FragB fb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      fa[i] = load_a(as + (wm + 16 * i) * kTfPitchA + 8 * kk, kTfPitchA, lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      fb[j] = load_b(bs + 8 * kk * kTfPitchB + wn + 8 * j, kTfPitchB, lane);
+    mma3(part, fa, fb);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+// Store the warp's 64 x 32 sums at rows m0 + wm.., columns n0 + wn.. of c
+// [.., N], rows below M only (N % 4 == 0, so col < N puts col + 1 inside
+// too), then zero them.
+__device__ __forceinline__ void store(float (&acc)[4][4][4], float* c, int M,
+                                      int N, int m0, int n0, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 16 * i + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (row < M && col < N)
+          *reinterpret_cast<float2*>(&c[(size_t)row * N + col]) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0.f;
+      }
+    }
 }
 
 }  // namespace tf32x3

@@ -2,9 +2,9 @@
 of the bf16 bodies that the masa_gemm and moe_gemm kernels share (wgmma on
 tiles that TMA feeds through a ring of shared-memory stages) and that the
 flash_attention kernel's wgmma body is built from, and of
-``csrc/tf32x3.cuh``, which masa_gemm's and flash_attention's fp32
-``tf32x3`` bodies share (three TF32 ``mma.sync`` a product on tiles that
-``cp.async`` feeds).
+``csrc/tf32x3.cuh``, which masa_gemm's, moe_gemm's and
+flash_attention's fp32 ``tf32x3`` bodies share (three TF32 ``mma.sync`` a
+product on tiles that ``cp.async`` feeds).
 
 Each wrapper picks its body by shape, before the launch, in one predicate
 (``masa_gemm.kernel.body``, ``moe_gemm.kernel.body``,

@@ -53,7 +53,8 @@
 // MN-major, which TF32 wgmma cannot read) and split as they are loaded.
 // 8 warps a block, each 64 x 32 of C (4 x 4 mma tiles, 64 fp32 sums a
 // thread and a stage's 64 partial sums: each 32-deep stage sums into a
-// fresh tile that an fp32 add takes into the running sum, see below):
+// fresh tile that an fp32 add takes into the running sum, as tf32x3.cuh
+// explains):
 //   output-stationary  one block per 128 x 128 tile of C; K in stages of 32
 //                      through a 4-stage cp.async ring of A [128][40] and
 //                      B [32][132] (146 KB; pitches for conflict-free
@@ -368,17 +369,14 @@ int launch_wgmma(const void* a, const void* b, void* c, int M, int K, int N,
 // ----------------------------------------------------- the tf32x3 bodies
 // fp32 products on the TF32 tensor cores, three mma.sync a product
 // (tf32x3.cuh). Both orders take 8 warps of 64 x 32 outputs (4 x 4 mma
-// tiles) and split each fragment as it is loaded from shared memory. The
-// tensor cores' fp32 sums are not rounded to nearest: accumulated over all
-// of K (3 K / 8 mma.sync into one running sum) they drifted by 1.9e-4 at K
-// 4096 on an H100, past the 1e-4 that fp32 is held to. So each 32-deep
-// stage sums into a fresh tile (12 mma.sync on a small sum) that is added
-// to the running sum by an fp32 add.
+// tiles) and split each fragment as it is loaded from shared memory; each
+// 32-deep stage sums into a fresh tile (tf32x3::stage, which says why).
+using tf32x3::kTfBK;
+using tf32x3::kTfPitchA;
+using tf32x3::kTfPitchB;
+static_assert(tf32x3::kTfBN == kBN, "the tf32x3 tile's columns are C's");
 constexpr int kTfThreads = 256;
-constexpr int kTfBK = 32;                  // depth of a stage (128 bytes)
-constexpr int kTfPitchA = kTfBK + 8;       // A [rows][40]: 64-bit pairs
 constexpr int kTfStageA = 128 * kTfPitchA;   // one [128][32] A stage, floats
-constexpr int kTfPitchB = kBN + 4;         // B [k][132]: rows 2t, 2t + 1
 // Output-stationary: a 128 x 128 tile of C a block, a ring of 4 stages of
 // A [128][32] and B [32][128] (37 KB a stage).
 constexpr int kTfOsStages = 4;
@@ -387,56 +385,6 @@ constexpr int kTfOsSmem = kTfOsStages * kTfOsStage * 4;
 // Weight-stationary: the [K, 128] panel of B resident, K rounded up to a
 // stage and zero-filled; A through a ring of 3 stages of [128][32].
 constexpr int kTfWsStages = 3;
-
-// acc += the products of one 32-deep stage: A [128][40] at as, B [k][132]
-// at bs (the stage's first row), the warp's rows wm.. and columns wn..
-__device__ __forceinline__ void tf32x3_stage(float (&acc)[4][4][4],
-                                             const float* as,
-                                             const float* bs, int wm, int wn,
-                                             int lane) {
-  using namespace tf32x3;
-  float part[4][4][4] = {};
-#pragma unroll
-  for (int kk = 0; kk < kTfBK / 8; ++kk) {
-    FragA fa[4];
-    FragB fb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      fa[i] = load_a(as + (wm + 16 * i) * kTfPitchA + 8 * kk, kTfPitchA, lane);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      fb[j] = load_b(bs + 8 * kk * kTfPitchB + wn + 8 * j, kTfPitchB, lane);
-    mma3(part, fa, fb);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-}
-
-// Store the warp's 64 x 32 sums at rows m0 + wm.., columns n0 + wn.. of c
-// [M, N] (N % 4 == 0, so col < N puts col + 1 inside too), then zero them.
-__device__ __forceinline__ void tf32x3_store(float (&acc)[4][4][4], float* c,
-                                             int M, int N, int m0, int n0,
-                                             int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + 16 * i + g + 8 * h;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + 8 * j + 2 * t;
-        if (row < M && col < N)
-          *reinterpret_cast<float2*>(&c[(size_t)row * N + col]) =
-              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0.f;
-      }
-    }
-}
 
 __global__ void __launch_bounds__(kTfThreads, 1)
 masa_os_tf32x3_kernel(const float* __restrict__ a,
@@ -474,9 +422,9 @@ masa_os_tf32x3_kernel(const float* __restrict__ a,
     if (kb + kTfOsStages - 1 < nk) load_stage(kb + kTfOsStages - 1);
     async_cluster::commit_async();
     const float* as = smem + (kb % kTfOsStages) * kTfOsStage;
-    tf32x3_stage(acc, as, as + kTfStageA, wm, wn, lane);
+    tf32x3::stage(acc, as, as + kTfStageA, wm, wn, lane);
   }
-  tf32x3_store(acc, c, M, N, m0 + wm, n0 + wn, lane);
+  tf32x3::store(acc, c, M, N, m0 + wm, n0 + wn, lane);
 }
 
 // Depth of the resident panel: K rounded up to whole stages.
@@ -529,10 +477,10 @@ masa_ws_tf32x3_kernel(const float* __restrict__ a,
     if (s + kTfWsStages - 1 < total) load_stage(s + kTfWsStages - 1);
     async_cluster::commit_async();
     const int kb = s % nk;
-    tf32x3_stage(acc, ring + (s % kTfWsStages) * kTfStageA,
-                 panel + kb * kTfBK * kTfPitchB, wm, wn, lane);
+    tf32x3::stage(acc, ring + (s % kTfWsStages) * kTfStageA,
+                  panel + kb * kTfBK * kTfPitchB, wm, wn, lane);
     if (kb == nk - 1)
-      tf32x3_store(acc, c, M, N, (s / nk) * 128 + wm, n0 + wn, lane);
+      tf32x3::store(acc, c, M, N, (s / nk) * 128 + wm, n0 + wn, lane);
   }
 }
 

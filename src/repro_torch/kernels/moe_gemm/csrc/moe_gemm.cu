@@ -8,7 +8,7 @@
 // x and W both f32 or both bf16, products summed in fp32, y written once in
 // x's type. Tokens arrive sorted by expert in blocks of bt rows; each block's
 // expert id designates the weight panel it multiplies (the TPU kernel's
-// scalar-prefetched index map). Three bodies, chosen by the wrapper
+// scalar-prefetched index map). Four bodies, chosen by the wrapper
 // (kernel.py's body()) before the launch and counted there:
 //
 // wgmma body (bf16, D % 8 == 0, F % 8 == 0, bt % 64 == 0, 16-byte aligned
@@ -72,13 +72,49 @@
 //     tile, are zero-filled; x's rows are copied in the largest unit of 16,
 //     8, 4 (or, for bf16 at odd D, 2 bytes by plain loads) that their
 //     alignment allows.
-// simt body (fp32 and bf16 at every other shape, e.g. bt 128 in fp32, bt
-// 12, or F's rows not whole 16-byte units): one block of threads per tile
-// of TM token rows by 128 columns of F, D walked in steps of 16 through
-// shared memory with fp32 FMAs on the CUDA cores; TM is the largest of
-// 128, 64, 32, 16, 8 and 1 that divides bt. Edges of D and F are masked.
+// tf32x3 body (fp32, bt a multiple of 8 past 32, D and F multiples of 4,
+// 16-byte aligned bases: rows of whole 16-byte cp.async units). What
+// bounds it: operations. At jamba's shape the product is 721.6 GFLOP,
+// 10.77 ms at the CUDA cores' 67 TFLOP/s (the simt body took 25.66 and
+// torch.bmm's SGEMM 13.60 on an H100), 4.376 ms as three TF32 products a
+// product at 494.7 TFLOP/s. So it is masa's output-stationary tf32x3 tile
+// (tf32x3.cuh) with the token block's expert panel as B:
+//   * one block of 8 warps per 128 x 128 tile of y, each warp 64 x 32
+//     outputs as 4 x 4 mma.sync m16n8k8 tiles, three TF32 products a
+//     product (each fragment split as it is loaded); or 4 warps per 64 x
+//     128 tile (below). D in stages of 32 through a 4-stage cp.async ring
+//     of x [rows][40] and W [32][132] (146 KB at 128 rows, 109 KB at 64,
+//     two blocks a SM); each stage sums into a fresh tile that an fp32 add
+//     takes into the running sum (jamba's D is 4096);
+//   * a tile never straddles two token blocks: block i's rows [i bt,
+//     (i + 1) bt) are cut into ceil(bt / rows) row tiles, rows past the
+//     token block's end are zero-filled on load and masked on store, and
+//     the tile reads W from w + block_eids[i] D F. D's ragged edge past
+//     the last stage and F's past the last 128 columns are zero-filled;
+//   * tiles launch in hopper::raster's groups of group_m row tiles, M
+//     fastest within one column tile, so the token blocks of one expert
+//     (3 at jamba's capacity 384) read the same [D, 128] W tile side by
+//     side and W comes from device memory about once;
+//   * rows a tile: 64 when 64-row tiles cover the token block in fewer
+//     rows than 128-row ones (bt 40 to 64, 136 to 192, 264 to 320, ...),
+//     else 128 (bt 72 to 128, such as moonshot's capacity 120 at a
+//     1024-token prefill and jamba's 128, and 200 to 256, ...). Built with
+//     -DMOE_TF32X3_ROWS=64 or =128 every launch takes that tile instead;
+//     tests/check_torch_tf32x3.py times both. On an H100 the rule picked
+//     the faster tile at 9 of 11 shapes: 64 rows took 0.53x the time at
+//     moonshot's bt 40 and 64 and 0.76x at 192, 128 rows 0.96x at 240,
+//     256 and 384, 0.96x on the down product at 120 and 0.90x at jamba's
+//     shape; it lost 4.5% and 5.4% on moonshot's up product at 120 and
+//     128.
+// simt body (fp32 and bf16 at every other shape, e.g. bf16 at bt 40 or
+// 120, bt 12, or F's rows not whole 16-byte units): one block of threads
+// per tile of TM token rows by 128 columns of F, D walked in steps of 16
+// through shared memory with fp32 FMAs on the CUDA cores; TM is the
+// largest of 128, 64, 32, 16, 8 and 1 that divides bt. Edges of D and F
+// are masked.
 #include "../../csrc/async_cluster.cuh"
 #include "../../csrc/hopper_gemm.cuh"
+#include "../../csrc/tf32x3.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -405,6 +441,128 @@ int dispatch(const void* x, const void* w, const int* eids, void* y, int T_,
 
 }  // namespace stream_body
 
+// ---- the tf32x3 body (see the header)
+namespace tf32x3_body {
+
+namespace tx = tf32x3;
+
+#ifndef MOE_TF32X3_ROWS
+#define MOE_TF32X3_ROWS 0
+#endif
+constexpr int kForcedRows = MOE_TF32X3_ROWS;   // 0: rows by tile_rows
+constexpr int kStages = 4;                     // stages of the ring
+constexpr int kMinBt = 33;   // shorter token blocks are the stream body's
+
+// Threads of a block with a tile of BM rows (a warp a 64 x 32 block of
+// outputs) and its shared memory: kStages stages of x [BM][40] and W
+// [32][132].
+template <int BM>
+__host__ __device__ constexpr int threads() {
+  return BM / 64 * 4 * 32;
+}
+template <int BM>
+__host__ __device__ constexpr int stage_floats() {
+  return BM * tx::kTfPitchA + tx::kTfBK * tx::kTfPitchB;
+}
+template <int BM>
+__host__ __device__ constexpr int smem_bytes() {
+  return kStages * stage_floats<BM>() * 4;
+}
+
+// Row tile tm holds rows [r0, min(r0 + BM, (tb + 1) bt)) of token block tb
+// = tm / tpb, where r0 = tb bt + (tm % tpb) BM and tpb = ceil(bt / BM)
+// (kernel.py's tf32x3_tiles mirrors it).
+template <int BM>
+__global__ void __launch_bounds__(threads<BM>(), 128 / BM)
+moe_gemm_tf32x3_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const int* __restrict__ eids, float* __restrict__ y,
+                       int D, int F, int bt, int tpb, int mt, int group_m) {
+  constexpr int NT = threads<BM>();
+  constexpr int SA = BM * tx::kTfPitchA;   // floats of a stage's x tile
+  constexpr int SS = stage_floats<BM>();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int tm, tn;
+  hopper::raster(blockIdx.x, mt, (F + tx::kTfBN - 1) / tx::kTfBN, group_m,
+                 &tm, &tn);
+  const int tb = tm / tpb;
+  const int r0 = tb * bt + (tm - tb * tpb) * BM, r_end = (tb + 1) * bt;
+  const int n0 = tn * tx::kTfBN;
+  // the designation: this token block's expert selects W's panel
+  const float* we = w + (size_t)eids[tb] * D * F;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  const int nk = (D + tx::kTfBK - 1) / tx::kTfBK;
+  auto load_stage = [&](int kb) {
+    float* st = smem + (kb % kStages) * SS;
+    // rows past the token block's end read as zeros
+    tx::load_tile<BM, tx::kTfBK, NT>(st, tx::kTfPitchA, x, D, r0,
+                                     kb * tx::kTfBK, r_end, D, tid);
+    tx::load_tile<tx::kTfBK, tx::kTfBN, NT>(st + SA, tx::kTfPitchB, we, F,
+                                            kb * tx::kTfBK, n0, D, F, tid);
+  };
+
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load_stage(s);
+    async_cluster::commit_async();
+  }
+  for (int kb = 0; kb < nk; ++kb) {
+    // stage kb has landed; every warp is past stage kb - 1, whose slot the
+    // next load takes
+    async_cluster::wait_async<kStages - 2>();
+    __syncthreads();
+    if (kb + kStages - 1 < nk) load_stage(kb + kStages - 1);
+    async_cluster::commit_async();
+    const float* st = smem + (kb % kStages) * SS;
+    tx::stage(acc, st, st + SA, wm, wn, lane);
+  }
+  tx::store(acc, y, r_end, F, r0 + wm, n0 + wn, lane);
+}
+
+template <int BM>
+int launch(const float* x, const float* w, const int* eids, float* y, int T_,
+           int D, int F, int bt, int group_m, cudaStream_t stream) {
+  const int tpb = (bt + BM - 1) / BM;
+  const long long mt = (long long)(T_ / bt) * tpb;
+  const long long tiles = mt * ((F + tx::kTfBN - 1) / tx::kTfBN);
+  if (tiles > 0x7fffffffLL) return -1;
+  const int err =
+      async_cluster::allow_smem(moe_gemm_tf32x3_kernel<BM>, smem_bytes<BM>());
+  if (err) return err;
+  moe_gemm_tf32x3_kernel<BM>
+      <<<(unsigned)tiles, threads<BM>(), smem_bytes<BM>(), stream>>>(
+          x, w, eids, y, D, F, bt, tpb, (int)mt, group_m);
+  return (int)cudaGetLastError();
+}
+
+// Rows of a tile at token blocks of bt: 64 when 64-row tiles cover the
+// block in fewer rows than 128-row ones, else 128 (kernel.py's
+// tf32x3_rows mirrors it).
+int tile_rows(int bt) {
+  if (kForcedRows) return kForcedRows;
+  return (bt + 63) / 64 * 64 < (bt + 127) / 128 * 128 ? 64 : 128;
+}
+
+// The tf32x3 body's shapes (see the header).
+int dispatch(const void* x, const void* w, const int* eids, void* y, int T_,
+             int D, int F, int bt, int group_m, cudaStream_t st) {
+  if (D % 4 || F % 4 || bt % 8 || bt < kMinBt || group_m < 1 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(y)) % 16)
+    return -1;
+  const auto* x_ = static_cast<const float*>(x);
+  const auto* w_ = static_cast<const float*>(w);
+  auto* y_ = static_cast<float*>(y);
+  if (tile_rows(bt) == 64)
+    return launch<64>(x_, w_, eids, y_, T_, D, F, bt, group_m, st);
+  return launch<128>(x_, w_, eids, y_, T_, D, F, bt, group_m, st);
+}
+
+}  // namespace tf32x3_body
+
 // One wgmma launch (see the header). The tile is 128 rows when bt allows
 // it, else 64.
 int launch_wgmma(const void* x, const void* w, const int* eids, void* y,
@@ -434,9 +592,10 @@ int launch_wgmma(const void* x, const void* w, const int* eids, void* y,
 // One launch on `stream`: x [T, D], w [E, D, F], both bf16 if bf16 else
 // f32, block_eids [T / bt] int32 in [0, E) -> y [T, F] in x's type. body 1
 // takes the wgmma body (bf16 only; tiles raster in groups of group_m row
-// tiles), 2 the stream body, 0 the simt body. Returns the CUDA error of
-// the launch (0 on success), -1 for arguments the body does not take, or
-// one of hopper_gemm.cuh's tensor-map codes (100000 and up).
+// tiles), 2 the stream body, 3 the tf32x3 body (f32 only; the same
+// raster), 0 the simt body. Returns the CUDA error of the launch (0 on
+// success), -1 for arguments the body does not take, or one of
+// hopper_gemm.cuh's tensor-map codes (100000 and up).
 extern "C" int moe_gemm_launch(const void* x, const void* w, const void* eids,
                                void* y, int T_, int D, int F, int E, int bt,
                                int bf16, int body, int group_m,
@@ -454,6 +613,10 @@ extern "C" int moe_gemm_launch(const void* x, const void* w, const void* eids,
       return stream_body::dispatch<__nv_bfloat16>(x, w, ids, y, T_, D, F, bt,
                                                   st);
     return stream_body::dispatch<float>(x, w, ids, y, T_, D, F, bt, st);
+  }
+  if (body == 3) {
+    if (bf16) return -1;
+    return tf32x3_body::dispatch(x, w, ids, y, T_, D, F, bt, group_m, st);
   }
   if (body != 0) return -1;
   if (bf16)

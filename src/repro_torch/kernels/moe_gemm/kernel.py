@@ -8,12 +8,14 @@ The counterpart of ``repro.kernels.moe_gemm.kernel``
 ``csrc/moe_gemm.cu`` runs one block per (tile of token rows, columns of
 F); the block reads its token block's expert id and multiplies by that
 expert's panel (the designation), summing in fp32 and writing ``y`` in x's
-dtype. It has three bodies: wgmma on TMA-fed tiles for bf16
+dtype. It has four bodies: wgmma on TMA-fed tiles for bf16
 (``csrc/hopper_gemm.cuh``, tiles launched in the raster of
 ``hopper_gemm.raster``), ``stream`` for token blocks too short for the
 tensor cores (bt <= 32: each block streams its expert's W panel through a
-``cp.async`` ring at the memory's rate) and fp32 FMAs on the CUDA cores
-(``simt``) for the rest.
+``cp.async`` ring at the memory's rate), ``tf32x3`` for fp32 token blocks
+past 32 rows (three TF32 ``mma.sync`` a product, ``csrc/tf32x3.cuh``, on
+row tiles that :func:`tf32x3_tiles` lays out, in the same raster) and fp32
+FMAs on the CUDA cores (``simt``) for the rest.
 
 * :func:`grouped_matmul_kernel` is the wrapper: on a CUDA tensor it
   launches the kernel (or raises), on a CPU tensor it runs
@@ -25,7 +27,9 @@ tensor cores (bt <= 32: each block streams its expert's W panel through a
   for bf16 with D and F multiples of 8, ``bt % 64 == 0`` and 16-byte
   aligned bases; ``stream`` for fp32 or bf16 with ``bt`` a multiple of 8
   up to :data:`STREAM_MAX_BT`, rows of F whole 16-byte units and 16-byte
-  aligned bases; else ``simt``.
+  aligned bases; ``tf32x3`` for fp32 with ``bt`` a multiple of 8 past
+  :data:`STREAM_MAX_BT`, D and F multiples of 4 and 16-byte aligned bases;
+  else ``simt``.
 * :func:`grouped_matmul_plain` is the plain PyTorch version, on any device.
 * ``LAUNCHES["moe_gemm"]`` counts kernel launches; ``BODIES`` counts the
   same launches by body.
@@ -49,9 +53,10 @@ SOURCES = {"moe_gemm": CSRC / "moe_gemm.cu"}
 #: Kernel launches (set to 0 with :func:`reset_launches`).
 LAUNCHES: dict[str, int] = {"moe_gemm": 0}
 #: The same launches by body (set to 0 with :func:`reset_launches`).
-BODIES: dict[str, int] = dict.fromkeys((*hopper_gemm.BODIES, "stream"), 0)
+BODIES: dict[str, int] = dict.fromkeys(
+    (*hopper_gemm.BODIES, "stream", "tf32x3"), 0)
 #: The C entry's code of each body.
-_BODY_CODE = {"simt": 0, "wgmma": 1, "stream": 2}
+_BODY_CODE = {"simt": 0, "wgmma": 1, "stream": 2, "tf32x3": 3}
 #: The largest token block the stream body takes: it keeps 4 fp32 sums a
 #: row for each of bt rows in a thread's registers, 128 at bt 32.
 STREAM_MAX_BT = 32
@@ -103,7 +108,11 @@ def body(x: torch.Tensor, w: torch.Tensor, bt: int) -> str:
     bases; ``stream`` for fp32 or bf16 with ``bt`` a multiple of 8 up to
     :data:`STREAM_MAX_BT` (moonshot's capacities 8 and 16), F's rows whole
     16-byte units (its ring copies W in 16-byte pieces) and 16-byte aligned
-    bases (D may be ragged); else ``simt``."""
+    bases (D may be ragged); ``tf32x3`` for fp32 with ``bt`` a multiple of
+    8 past :data:`STREAM_MAX_BT` (jamba's 128, moonshot's capacities past
+    a prefill of about 273 tokens), D and F multiples of 4 (rows of whole
+    16-byte ``cp.async`` units; D may be ragged past its last 32) and
+    16-byte aligned bases; else ``simt``."""
     d, f = x.shape[1], w.shape[2]
     if (hopper_gemm.tma_ready(x, w) and d % 8 == 0 and f % 8 == 0
             and bt % 64 == 0):
@@ -113,7 +122,34 @@ def body(x: torch.Tensor, w: torch.Tensor, bt: int) -> str:
             and (f * x.element_size()) % 16 == 0
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
         return "stream"
+    if (hopper_gemm.tf32x3_ready(x, w) and bt % 8 == 0
+            and bt > STREAM_MAX_BT and d % 4 == 0 and f % 4 == 0):
+        return "tf32x3"
     return "simt"
+
+
+def tf32x3_rows(bt: int) -> int:
+    """Rows of the tf32x3 body's tiles at token blocks of ``bt``, as the
+    kernel's ``tile_rows`` picks them: 64 when 64-row tiles cover a token
+    block in fewer rows than 128-row ones (bt 40 to 64, 136 to 192, ...),
+    else 128."""
+    return 64 if -(-bt // 64) * 64 < -(-bt // 128) * 128 else 128
+
+
+def tf32x3_tiles(n_blocks: int, bt: int) -> list[tuple[int, int]]:
+    """The tf32x3 body's row tiles, in order, for ``n_blocks`` token blocks
+    of ``bt`` rows, as its kernel lays them out: row tile ``tm`` of token
+    block ``tm // tpb`` (``tpb = ceil(bt / rows)``) holds rows ``[r0,
+    min(r0 + rows, end))`` of it, ``end`` the token block's end; the rows
+    past it are zero-filled on load and masked on store."""
+    rows = tf32x3_rows(bt)
+    tpb = -(-bt // rows)
+    out = []
+    for tm in range(n_blocks * tpb):
+        tb = tm // tpb
+        r0 = tb * bt + (tm - tb * tpb) * rows
+        out.append((r0, min(r0 + rows, (tb + 1) * bt)))
+    return out
 
 
 def grouped_matmul_kernel(x_sorted: torch.Tensor, w: torch.Tensor,
@@ -130,7 +166,8 @@ def grouped_matmul_kernel(x_sorted: torch.Tensor, w: torch.Tensor,
 def _launch(x, w, block_eids, bt: int, which: str | None = None):
     """One launch of the kernel on PyTorch's current stream, on the body
     :func:`body` picks or, for a timing beside it, on ``which`` (``simt``
-    takes every shape; a body that does not take the shape raises)."""
+    takes every shape; a body that does not take the shape raises, and
+    never hands over to another)."""
     if x.dtype not in _DTYPES or x.dtype != w.dtype:
         raise TypeError(f"moe_gemm kernel takes x_sorted and w both float32 "
                         f"or both bfloat16; got {x.dtype} and {w.dtype}")

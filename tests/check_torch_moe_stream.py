@@ -1,6 +1,6 @@
 """The moe_gemm stream body beside the simt body and ``torch.bmm`` where
 ``chip_smoke.py`` does not time it: bfloat16 at moonshot-v1-16b-a3b's
-serve shapes, and the crossover to the simt body in float32.
+serve shapes, and the crossover to the tf32x3 body in float32.
 
     python3 tests/check_torch_moe_stream.py
 
@@ -9,7 +9,8 @@ it). Builds the port's kernels as ``chip_smoke.py`` does and prints
 ptxas's registers and spills of every stream kernel. Then, in bfloat16 at
 the four shapes of ``torch_cases.MOE_STREAM_MOONSHOT``, and in float32 at
 C 32 (bt 32, the stream body's largest token block) and C 64 (bt 64, past
-it: the simt body alone), it holds each body to the plain version within
+it: the tf32x3 body), it holds the body ``kernel.body`` picks and the simt
+body to the plain version within
 ``torch_cases.TOLS`` and times, with ``chip_smoke.time_ms``, the bodies and
 ``torch.bmm`` in turns (that order, then reversed; the mean of the two),
 each beside the byte bound. It prints the card's name and power limit and
@@ -63,7 +64,7 @@ def shape_row(E, C, D, F, bt, dtype) -> dict:
     eids = designations["capacity"]
     dname = str(dtype).split(".")[-1]
     want = EK.grouped_matmul_plain(x, w, eids, bt=bt)
-    bodies = ["stream", "simt"] if EK.body(x, w, bt) == "stream" else ["simt"]
+    bodies = list(dict.fromkeys((EK.body(x, w, bt), "simt")))
     fns = {b: (lambda b=b: EK._launch(x, w, eids, bt, b)) for b in bodies}
     fns["torch.bmm"] = lambda: torch.bmm(x.view(E, C, D), w)
     errs = {b: cs.kernel_err(f"{b} {(E, C, D, F, bt)}", fns[b](), want, dname)

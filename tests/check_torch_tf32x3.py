@@ -1,27 +1,36 @@
-"""The tf32x3 bodies of masa_gemm and flash_attention beside their simt
-bodies and the one PyTorch call for each, at jamba-v0.1-52b's widths.
+"""The tf32x3 bodies of masa_gemm, moe_gemm and flash_attention beside
+their simt bodies and the one PyTorch call for each, at jamba-v0.1-52b's
+widths, and moe's tile rows.
 
     python3 tests/check_torch_tf32x3.py [--sass]
 
 Needs an NVIDIA H100 (sm_90a) and nvcc; not a test (pytest does not collect
-it). Builds the two libraries as ``chip_smoke.py`` does and prints ptxas's
-registers and spills of every tf32x3 kernel; with ``--sass``, the ten most
-frequent SASS opcodes of each (``cuobjdump -sass``), which show what the
-split and the products compile to. Then, in float32 at
-``torch_cases.MASA_JAMBA`` (output-stationary), ``MASA_WS_JAMBA``
-(weight-stationary) and ``FLASH_JAMBA`` (causal, on the GQA-expanded
-heads), it holds each body to the plain version (max abs error printed;
-the run fails at its end above ``chip_smoke.TF32X3_MAX_ERR`` for tf32x3,
-at once outside ``torch_cases.TOLS`` for simt) and times, with ``chip_smoke.time_ms``, the
+it). Builds the three libraries as ``chip_smoke.py`` does, and moe_gemm's
+twice more into ``build/tf32x3_rows/`` with ``-DMOE_TF32X3_ROWS=64`` and
+``=128`` (every tf32x3 launch on that tile), and prints ptxas's registers
+and spills of every tf32x3 kernel; with ``--sass``, the ten most frequent
+SASS opcodes of each (``cuobjdump -sass``), which show what the split and
+the products compile to. Then, in float32 at ``torch_cases.MASA_JAMBA``
+(output-stationary), ``MASA_WS_JAMBA`` (weight-stationary), ``MOE_JAMBA``
+(the capacity layout, bt 128; ``torch.bmm`` on [E, C, D]) and
+``FLASH_JAMBA`` (causal, on the GQA-expanded heads), it holds each body to
+the plain version (max abs error printed; the run fails at its end above
+``chip_smoke.TF32X3_MAX_ERR`` for tf32x3, at once outside
+``torch_cases.TOLS`` for simt) and times, with ``chip_smoke.time_ms``, the
 tf32x3 body, the simt body and the library call in turns (that order, then
 reversed; the mean of the two), each with its TFLOP/s beside both fp32
-operation bounds. It prints the card's name and power limit and one JSON
-line of the rows.
+operation bounds. Last, moe's tile study: at moonshot-v1-16b-a3b's up
+product (64 experts, D 2048, F 1408) with bt = capacity 40 to 384
+(prefills of about 270 to 3280 tokens), its down product at 120 and
+jamba's shape, the two forced builds in turns, each held to the plain
+version, beside the row tile ``kernel.tf32x3_rows`` picks. It prints the card's name and power limit and one JSON line of the
+rows.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import json
 import re
 import shutil
@@ -35,16 +44,87 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tests")]
 import chip_smoke as cs  # noqa: E402
 import torch_cases as tc  # noqa: E402
-from repro_torch import cuda_build  # noqa: E402
+from repro_torch import compat, cuda_build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.masa_gemm import kernel as MK  # noqa: E402
+from repro_torch.kernels.moe_gemm import capacity_block_eids  # noqa: E402
+from repro_torch.kernels.moe_gemm import kernel as EK  # noqa: E402
 
-KERNELS = {"masa_gemm": MK, "flash_attention": FK}
+KERNELS = {"masa_gemm": MK, "moe_gemm": EK, "flash_attention": FK}
 #: The rows whose tf32x3 error exceeds the gate: the run goes on to time
 #: them all, then fails.
 FAILED: list[str] = []
 REPS = {"masa output_stationary": 3, "masa weight_stationary": 20,
-        "flash_attention": 10}
+        "moe": 3, "flash_attention": 10}
+#: Where the forced-tile builds of moe_gemm go, and the tile study's
+#: shapes (E, C, D, F, bt): moonshot-v1-16b-a3b's up product at bt =
+#: capacity of prefills of about 270 to 3280 tokens (40 to 384), its down
+#: product at 120, and jamba's.
+ROWS_DIR = ROOT / "build" / "tf32x3_rows"
+STUDY = tuple((64, bt, 2048, 1408, bt)
+              for bt in (40, 64, 120, 128, 192, 240, 256, 384)) + (
+    (64, 120, 1408, 2048, 120),
+    tuple(tc.MOE_JAMBA[k] for k in ("E", "C", "D", "F", "bt")))
+
+
+def build_rows() -> dict[int, subprocess.Popen]:
+    """Start moe_gemm's builds with every tf32x3 tile forced to 64 and to
+    128 rows."""
+    ROWS_DIR.mkdir(parents=True, exist_ok=True)
+    return {rows: subprocess.Popen(
+        [compat.nvcc_path(), *cuda_build.NVCC_FLAGS,
+         f"-DMOE_TF32X3_ROWS={rows}", "-o", str(ROWS_DIR / f"moe_{rows}.so"),
+         str(EK.SOURCES["moe_gemm"])], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rows in (64, 128)}
+
+
+def forced_launch(lib, x, w, eids, bt: int):
+    """One tf32x3 launch through a forced-tile build's C entry."""
+    y = torch.empty((x.shape[0], w.shape[2]), device="cuda")
+    err = lib.moe_gemm_launch(
+        x.data_ptr(), w.data_ptr(), eids.data_ptr(), y.data_ptr(),
+        x.shape[0], x.shape[1], w.shape[2], w.shape[0], bt, 0,
+        EK._BODY_CODE["tf32x3"], EK.GROUP_M, torch.cuda.current_stream(
+            ).cuda_stream)
+    if err:
+        sys.exit(f"check_torch_tf32x3: forced-tile launch returned {err}")
+    return y
+
+
+def tile_study(builds: dict[int, subprocess.Popen], gen) -> list[dict]:
+    """The forced 64- and 128-row builds in turns at each shape of STUDY,
+    beside the tile the default build picks."""
+    libs = {}
+    for rows, proc in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            sys.exit(f"nvcc failed on MOE_TF32X3_ROWS={rows}:\n{log}")
+        libs[rows] = EK.declare(ctypes.CDLL(str(ROWS_DIR / f"moe_{rows}.so")))
+    out = []
+    for E, C, D, F, bt in STUDY:
+        x = torch.randn((E * C, D), generator=gen, device="cuda")
+        w = torch.randn((E, D, F), generator=gen, device="cuda") * D ** -0.5
+        eids = capacity_block_eids(E, C, bt, device="cuda")
+        want = EK.grouped_matmul_plain(x, w, eids, bt=bt)
+        fns = {}
+        for rows, lib in libs.items():
+            fn = (lambda lib=lib: forced_launch(lib, x, w, eids, bt))
+            err = float((fn() - want).abs().max())
+            if not err <= cs.TF32X3_MAX_ERR:
+                FAILED.append(f"moe bt {bt} rows {rows} max abs err "
+                              f"{err:.3e}")
+            fns[f"rows_{rows}"] = fn
+        ms = in_turns(fns, 10)
+        flops = 2 * E * C * D * F
+        r = dict(shape=(E, C, D, F, bt), picked=EK.tf32x3_rows(bt), ms=ms,
+                 tflops={k: flops / (v * 1e-3) / 1e12 for k, v in ms.items()})
+        print(f"[tf32x3] moe tile study {r['shape']} (picked {r['picked']} "
+              f"rows): "
+              + "; ".join(f"{k} {v:.4f} ms ({r['tflops'][k]:.1f} TFLOP/s)"
+                          for k, v in ms.items()), flush=True)
+        out.append(r)
+        del x, w, want
+    return out
 
 
 def print_registers(sass: bool) -> None:
@@ -125,6 +205,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
+    builds = build_rows()
     print_registers(args.sass)
     gen = torch.Generator(device="cuda").manual_seed(cs.KERNEL_TIME_SEED)
     rows = []
@@ -140,6 +221,18 @@ def main() -> None:
             for b_ in ("tf32x3", "simt")}, lambda: torch.matmul(a, b),
             lambda: MK.masa_gemm_plain(a, b), 2 * M * K * N))
         del a, b
+    s = tc.MOE_JAMBA
+    E, C, D, F, bt = s["E"], s["C"], s["D"], s["F"], s["bt"]
+    x = torch.randn((E * C, D), generator=gen, device="cuda")
+    w = torch.randn((E, D, F), generator=gen, device="cuda") * D ** -0.5
+    eids = capacity_block_eids(E, C, bt, device="cuda")
+    rows.append(row("moe", {
+        b_: (lambda b_=b_: EK._launch(x, w, eids, bt, b_))
+        for b_ in ("tf32x3", "simt")}, lambda: torch.bmm(x.view(E, C, D), w),
+        lambda: EK.grouped_matmul_plain(x, w, eids, bt=bt),
+        2 * E * C * D * F))
+    del x, w
+    torch.cuda.empty_cache()
     s = tc.FLASH_JAMBA
     B, S, H, Hkv, hd = s["B"], s["S"], s["H"], s["Hkv"], s["hd"]
     q = torch.randn((B, H, S, hd), generator=gen, device="cuda")
@@ -156,8 +249,11 @@ def main() -> None:
         4 * hd * B * H * S * (S + 1) // 2))
     sdpa = sdpa_kernels(q, ke, ve)
     print(f"[tf32x3] SDPA fp32 kernels: {sdpa}")
+    del q, k, v, ke, ve, qf, kf, vf
+    study = tile_study(builds, gen)
     print(smi)
-    print(json.dumps({"card": smi, "rows": rows, "sdpa_kernels": sdpa}))
+    print(json.dumps({"card": smi, "rows": rows, "sdpa_kernels": sdpa,
+                      "moe_tile_study": study}))
     if FAILED:
         sys.exit("check_torch_tf32x3: " + "; ".join(FAILED))
 

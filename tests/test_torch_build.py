@@ -76,7 +76,8 @@ def test_shared_header_edit_renames_the_gemm_libraries(tmp_path):
     header = (copy / "csrc" / "hopper_gemm.cuh").resolve()
     cluster = (copy / "csrc" / "async_cluster.cuh").resolve()
     tf32 = (copy / "csrc" / "tf32x3.cuh").resolve()
-    for n, extra in (("masa_gemm", [tf32, cluster]), ("moe_gemm", [cluster]),
+    for n, extra in (("masa_gemm", [tf32, cluster]),
+                     ("moe_gemm", [tf32, cluster]),
                      ("flash_attention", [tf32, cluster])):
         assert sorted(cuda_build.sources_of(copy / n / "csrc")) == sorted([
             (copy / n / "csrc" / f"{n}.cu").resolve(), header, *extra])
@@ -115,9 +116,10 @@ def test_async_cluster_header_edit_renames_ssd_and_paged(tmp_path):
 
 
 def test_tf32x3_header_edit_renames_masa_and_flash(tmp_path):
-    """tf32x3.cuh (the 3xTF32 split, mma.sync and fragment loads) lies
-    outside masa_gemm's and flash_attention's csrc/ and is hashed into
-    their names through their quoted includes, and no other kernel's."""
+    """tf32x3.cuh (the 3xTF32 split, mma.sync, fragment loads and the GEMM
+    tile's stage and store) lies outside masa_gemm's, moe_gemm's and
+    flash_attention's csrc/ and is hashed into their names through their
+    quoted includes, and no other kernel's."""
     copy = tmp_path / "kernels"
     shutil.copytree(Path(kernels.__file__).parent, copy,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -130,11 +132,11 @@ def test_tf32x3_header_edit_renames_masa_and_flash(tmp_path):
     header = (copy / "csrc" / "tf32x3.cuh").resolve()
     for n in kernels.SOURCES:
         assert (header in cuda_build.sources_of(copy / n / "csrc")) == (
-            n in ("masa_gemm", "flash_attention"))
+            n in ("masa_gemm", "moe_gemm", "flash_attention"))
     header.write_text(header.read_text() + "\n// edited\n")
     after = names()
     assert {n for n in before if after[n] != before[n]} == {
-        "masa_gemm", "flash_attention"}
+        "masa_gemm", "moe_gemm", "flash_attention"}
 
 
 def test_build_without_nvcc_raises():

@@ -549,7 +549,8 @@ def test_moe_kernel_equals_plain(card, E, C, D, F, bt, bf, dtype):
     torch.cuda.synchronize()
     assert K.LAUNCHES["moe_gemm"] == 1
     body = ("wgmma" if dtype == "bfloat16" and bt % 64 == 0
-            else "stream" if bt == 24 else "simt")
+            else "stream" if bt == 24
+            else "tf32x3" if dtype == "float32" and bt % 64 == 0 else "simt")
     assert K.body(x, w, bt) == body and K.BODIES[body] == 1
     assert_kernel_close(got, K.grouped_matmul_plain(x, w, eids, bt=bt), dtype)
 
@@ -571,7 +572,7 @@ def test_moe_stream_body_equals_plain(card, E, C, D, F, bt, dtype):
         got = K.grouped_matmul_kernel(x, w, ids, bt=bt, bf=8)
         torch.cuda.synchronize()
         assert K.LAUNCHES["moe_gemm"] == 1
-        assert K.BODIES == {"wgmma": 0, "simt": 0, "stream": 1}
+        assert K.BODIES == {"wgmma": 0, "simt": 0, "stream": 1, "tf32x3": 0}
         assert_kernel_close(got, K.grouped_matmul_plain(x, w, ids, bt=bt),
                             dtype)
         assert torch.equal(got, K.grouped_matmul_kernel(x, w, ids, bt=bt,
@@ -598,6 +599,57 @@ def test_moe_stream_body_refuses_what_it_does_not_take(card):
         K._launch(x12, w[..., :128].contiguous(), ids12, 12, "stream")
 
 
+@pytest.mark.parametrize("E,C,D,F,bt", tc.MOE_TF32X3_SHAPES)
+def test_moe_tf32x3_equals_plain(card, E, C, D, F, bt):
+    """The tf32x3 body in fp32 at the sweep's token blocks and its edges
+    (rows masked at bt 40 and 120, D ragged past its last stage, F past its
+    last 128 columns, several row tiles a token block), on the capacity
+    designation, the same flipped and a scattered one: one launch each on
+    tf32x3, within 2e-4 of the plain version, a second launch bit-equal."""
+    from repro_torch.kernels.moe_gemm import kernel as K
+
+    x, w, designations = tc.moe_stream_case(E, C, D, F, bt, torch.float32,
+                                            card)
+    designations["flipped"] = designations["capacity"].flip(0).contiguous()
+    assert K.body(x, w, bt) == "tf32x3"
+    for ids in designations.values():
+        K.reset_launches()
+        got = K.grouped_matmul_kernel(x, w, ids, bt=bt, bf=4)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["moe_gemm"] == 1
+        assert K.BODIES == {"wgmma": 0, "simt": 0, "stream": 0, "tf32x3": 1}
+        assert_kernel_close(got, K.grouped_matmul_plain(x, w, ids, bt=bt),
+                            "float32")
+        assert torch.equal(got, K.grouped_matmul_kernel(x, w, ids, bt=bt,
+                                                        bf=4))
+
+
+def test_moe_tf32x3_refuses_what_it_does_not_take(card):
+    """Forced on what it does not take (bf16, F % 4 != 0, an unaligned
+    base, bt 16) the tf32x3 body raises and counts no launch; simt takes
+    each of them."""
+    from repro_torch.kernels.moe_gemm import kernel as K
+
+    ids = torch.zeros(2, dtype=torch.int32, device=card)
+    x, w = torch.randn((128, 64), device=card), torch.randn((2, 64, 128),
+                                                            device=card)
+    cases = {"bf16": (x.bfloat16(), w.bfloat16(), ids, 64),
+             "F % 4": (x, torch.randn((2, 64, 130), device=card), ids, 64),
+             "x unaligned": (tc.shifted(x), w, ids, 64),
+             "w unaligned": (x, tc.shifted(w), ids, 64),
+             "bt 16": (x, w, torch.zeros(8, dtype=torch.int32, device=card),
+                       16)}
+    for case, (xx, ww, ii, bt) in cases.items():
+        K.reset_launches()
+        with pytest.raises(ValueError, match="refused"):
+            K._launch(xx, ww, ii, bt, "tf32x3")
+        assert not any(K.BODIES.values()), case
+        dtype = "bfloat16" if case == "bf16" else "float32"
+        assert_kernel_close(K._launch(xx, ww, ii, bt, "simt"),
+                            K.grouped_matmul_plain(xx, ww, ii, bt=bt), dtype)
+        assert K.BODIES["simt"] == 1, case
+
+
 #: wgmma-body MoE shapes (E, C, D, F, bt) with ragged edges: bt 64 (one
 #: consumer warpgroup, 64-row tiles) with D and F no multiples of the
 #: stage (64) or the column tile (256); bt 128 likewise.
@@ -619,7 +671,7 @@ def test_moe_wgmma_ragged_edges(card, E, C, D, F, bt, flip):
     K.reset_launches()
     got = K.grouped_matmul_kernel(x, w, eids, bt=bt, bf=8)
     torch.cuda.synchronize()
-    assert K.BODIES == {"wgmma": 1, "simt": 0, "stream": 0}
+    assert K.BODIES == {"wgmma": 1, "simt": 0, "stream": 0, "tf32x3": 0}
     assert_kernel_close(got, K.grouped_matmul_plain(x, w, eids, bt=bt),
                         "bfloat16")
 

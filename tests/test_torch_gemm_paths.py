@@ -2,14 +2,15 @@
 of their wgmma body, on the CPU.
 
 Each wrapper picks ``wgmma`` (csrc/hopper_gemm.cuh: TMA-fed tiles, bf16),
-masa's ``tf32x3`` (csrc/tf32x3.cuh: three TF32 mma.sync a product, fp32),
-moe's ``stream`` (token blocks of 8 to 32 rows: a cp.async ring streaming
-the expert's W panel) or ``simt`` (fp32 FMAs on the CUDA cores) by shape,
-before the launch, in one predicate (``kernel.body``); nothing here
-launches, since a CPU tensor runs
+``tf32x3`` (csrc/tf32x3.cuh: three TF32 mma.sync a product, fp32; moe's
+for token blocks past 32 rows), moe's ``stream`` (token blocks of 8 to 32
+rows: a cp.async ring streaming the expert's W panel) or ``simt`` (fp32
+FMAs on the CUDA cores) by shape, before the launch, in one predicate
+(``kernel.body``); nothing here launches, since a CPU tensor runs
 the plain version. The shapes are ``torch_cases``' sweeps, the card tests'
 odd token blocks and the jamba-v0.1-52b timing shapes. ``hopper_gemm.raster``
-mirrors the header's launch order; the card holds the kernels themselves
+mirrors the header's launch order and moe's ``tf32x3_tiles`` its tf32x3
+body's row tiles; the card holds the kernels themselves
 (``tests/test_torch_cuda.py``).
 """
 import pytest
@@ -94,14 +95,17 @@ MOE_CASES = ([(E, C, D, F, bt, d) for E, C, D, F, bt, _ in tc.MOE_SHAPES
 def test_moe_body_by_shape(E, C, D, F, bt, dtype):
     """bf16 with D and F multiples of 8 and bt % 64 == 0 takes wgmma (the
     sweep's bt 128 and 64, jamba's 128); the card test's bt 24 takes stream
-    in both dtypes; fp32 at bt 128 and 64 and the card test's bt 3 take
-    simt."""
+    in both dtypes; fp32 at bt 128 and 64 (the sweep's, jamba's) takes
+    tf32x3; the card test's bt 3 takes simt."""
     x, w = empty((E * C, D), DTYPES[dtype]), empty((E, D, F), DTYPES[dtype])
     want = ("wgmma" if dtype == "bfloat16" and D % 8 == 0 and F % 8 == 0
             and bt % 64 == 0 else "stream" if bt % 8 == 0 and bt <= 32
-            else "simt")
+            else "tf32x3" if dtype == "float32" and bt % 8 == 0
+            and D % 4 == 0 and F % 4 == 0 else "simt")
     assert EK.body(x, w, bt) == want
     assert {24: "stream", 3: "simt"}.get(bt, want) == want
+    assert bt not in (64, 128) or want == (
+        "tf32x3" if dtype == "float32" else "wgmma")
 
 
 #: moonshot-v1-16b-a3b's expert products (up and gate D 2048 by F 1408,
@@ -123,14 +127,14 @@ def test_moe_stream_takes_short_token_blocks(dtype, bt, D, F):
 
 
 @pytest.mark.parametrize("dtype,bt,want", [
-    ("float32", 64, "simt"), ("float32", 128, "simt"),
+    ("float32", 64, "tf32x3"), ("float32", 128, "tf32x3"),
     ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
     ("float32", 12, "simt"), ("bfloat16", 12, "simt"),
-    ("float32", 40, "simt"), ("bfloat16", 4, "simt")])
+    ("float32", 40, "tf32x3"), ("bfloat16", 4, "simt")])
 def test_moe_stream_crossover(dtype, bt, want):
-    """Past 32 rows a token block leaves stream as before: fp32 at bt 64 and
-    128 takes simt, bf16 at bt 64 and 128 wgmma; bt 12 and 4 (no multiple
-    of 8) and bt 40 (past 32) take simt."""
+    """Past 32 rows a token block leaves stream: fp32 at bt 40, 64 and 128
+    takes tf32x3, bf16 at bt 64 and 128 wgmma; bt 12 and 4 (no multiple of
+    8) take simt."""
     x, w = empty((128 * 15, 2048), DTYPES[dtype]), empty((64, 2048, 1408),
                                                          DTYPES[dtype])
     assert EK.body(x, w, bt) == want
@@ -157,6 +161,64 @@ def test_moe_stream_needs_aligned_bases_and_whole_rows(case):
     assert EK.body(x, w, 16) == "simt"
     assert EK.body(torch.zeros((64, 96)), torch.zeros((2, 96, 1408)),
                    16) == "stream"
+
+
+#: (case, bt, want) for moe's tf32x3 predicate at moonshot's up product
+#: (D 2048, F 1408) unless the case says otherwise.
+MOE_TF32X3_CASES = (
+    [(f"fp32 bt {bt}", bt, "tf32x3") for bt in (40, 48, 120, 128, 384)]
+    + [("fp32 D 100 F 264", 40, "tf32x3"), ("F % 4", 128, "simt"),
+       ("D % 4", 128, "simt"), ("x unaligned", 128, "simt"),
+       ("w unaligned", 128, "simt"), ("fp32 bt 12", 12, "simt"),
+       ("bf16 bt 40", 40, "simt"), ("bf16 bt 120", 120, "simt")]
+    + [(f"fp32 bt {bt}", bt, "stream") for bt in (8, 16, 24, 32)])
+
+
+@pytest.mark.parametrize("case,bt,want", MOE_TF32X3_CASES)
+def test_moe_tf32x3_takes_fp32_token_blocks_past_32_rows(case, bt, want):
+    """fp32 with bt a multiple of 8 past 32, D and F multiples of 4 and
+    aligned bases takes tf32x3 (D may be ragged past its last stage of 32,
+    F past its last 128 columns); F or D not a multiple of 4, an unaligned
+    base, bt 12 and bf16 at bt 40 or 120 take simt; bt up to 32 stays on
+    stream."""
+    dtype = torch.bfloat16 if case.startswith("bf16") else torch.float32
+    d, f = (100, 264) if "D 100" in case else (2048, 1408)
+    if case == "F % 4":
+        f = 1406
+    elif case == "D % 4":
+        d = 2046
+    x, w = empty((4 * bt, d), dtype), empty((64, d, f), dtype)
+    if case == "x unaligned":
+        x = tc.shifted(torch.zeros((4 * bt, 64)))
+        w = torch.zeros((2, 64, 128))
+    elif case == "w unaligned":
+        x, w = torch.zeros((4 * bt, 64)), tc.shifted(torch.zeros((2, 64, 128)))
+    assert EK.body(x, w, bt) == want
+
+
+TF32X3_BT = (40, 64, 120, 128, 384)
+
+
+@pytest.mark.parametrize("bt", TF32X3_BT)
+def test_moe_tf32x3_tiles_cover_each_token_block_once(bt):
+    """The tf32x3 body's row tiles (``tf32x3_tiles``, the kernel's map)
+    cover every row of every token block once and none crosses a token
+    block's end; with the raster over F's column tiles, every (row tile,
+    column tile) launches once. bt 40 and 64 take 64-row tiles, 120, 128
+    and 384 128-row ones (8 rows of moonshot's 120 masked)."""
+    n_blocks = 7
+    tiles = EK.tf32x3_tiles(n_blocks, bt)
+    rows = EK.tf32x3_rows(bt)
+    assert rows == (64 if bt <= 64 else 128)
+    covered = [r for r0, r1 in tiles for r in range(r0, r1)]
+    assert covered == list(range(n_blocks * bt))
+    for r0, r1 in tiles:
+        assert 0 < r1 - r0 <= rows and r0 // bt == (r1 - 1) // bt
+    assert len(tiles) == n_blocks * -(-bt // rows)
+    mt, nt = len(tiles), 11
+    grid = [hopper_gemm.raster(t, mt, nt, EK.GROUP_M)
+            for t in range(mt * nt)]
+    assert sorted(grid) == [(m, n) for m in range(mt) for n in range(nt)]
 
 
 def test_bodies_need_rows_of_whole_16_byte_units_and_aligned_bases():
@@ -190,9 +252,12 @@ def test_cpu_runs_count_no_body():
         (1, 64, 128), dtype=torch.bfloat16)
     EK.reset_launches()
     EK.grouped_matmul_kernel(x, w, torch.zeros(1, dtype=torch.int32))
-    assert EK.BODIES == {"wgmma": 0, "simt": 0, "stream": 0}
+    assert EK.BODIES == {"wgmma": 0, "simt": 0, "stream": 0, "tf32x3": 0}
+    EK.grouped_matmul_kernel(x.float(), w.float(),
+                             torch.zeros(1, dtype=torch.int32))
+    assert not any(EK.BODIES.values())
     assert tuple(MK.BODIES) == (*hopper_gemm.BODIES, "tf32x3")
-    assert tuple(EK.BODIES) == (*hopper_gemm.BODIES, "stream")
+    assert tuple(EK.BODIES) == (*hopper_gemm.BODIES, "stream", "tf32x3")
 
 
 RASTERS = [(1, 1, 12), (5, 3, 12), (13, 7, 4), (48, 56, EK.GROUP_M),

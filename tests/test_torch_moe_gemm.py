@@ -140,6 +140,37 @@ def test_matches_moe_layer_grouped_path():
     close(y.reshape(ref.shape), ref, 2e-4)
 
 
+def test_moe_ffn_past_32_rows_matches_moe_layer(monkeypatch):
+    """The port's MoE FFN at a capacity past 32 rows (64 tokens, 4 experts
+    top-2: capacity 40, the token block of all three expert products)
+    against the JAX layer's ``moe_ffn``, on the layer's own weights; on
+    the card each product would take the tf32x3 body."""
+    from repro.configs.base import MoEConfig
+    from repro.models import moe as r_moe
+    from repro_torch.configs import MoEConfig as PMoEConfig
+    from repro_torch.models import moe as p_moe
+    kw = dict(n_experts=4, top_k=2, d_ff_expert=64)
+    d, cfg, p_cfg = 32, MoEConfig(**kw), PMoEConfig(**kw)
+    pj = r_moe.init_moe(jax.random.key(3), d, cfg, glu=True)
+    pt = {k: torch.from_numpy(np.array(v)) for k, v in pj.items()}
+    x = np.random.default_rng(9).standard_normal((2, 32, d)).astype(
+        np.float32)
+    cap = p_moe.expert_capacity(64, p_cfg)
+    assert cap == r_moe.expert_capacity(64, cfg) == 40
+    seen, real = [], p_moe.grouped_matmul
+
+    def spy(xs, w, eids, *, bt, bf):
+        seen.append((bt, K.body(xs, w, bt)))
+        return real(xs, w, eids, bt=bt, bf=bf)
+
+    monkeypatch.setattr(p_moe, "grouped_matmul", spy)
+    y_p, aux_p = p_moe.moe_ffn(pt, torch.from_numpy(x), p_cfg)
+    y_r, aux_r = r_moe.moe_ffn(pj, jnp.asarray(x), cfg)
+    assert seen == [(cap, "tf32x3")] * 3
+    close(y_p, y_r, 2e-4)
+    close(aux_p, aux_r, 2e-4)
+
+
 def test_the_jamba_capacity_is_the_layers():
     """torch_cases.MOE_JAMBA's capacity is the JAX layer's expert_capacity
     of 2048 tokens for jamba's MoE, rounded up to the token block."""

@@ -90,6 +90,16 @@ MOE_STREAM_MOONSHOT = ((64, 16, 2048, 1408, 16), (64, 16, 1408, 2048, 16),
 MOE_STREAM_SHAPES = MOE_STREAM_MOONSHOT + (
     (4, 24, 97, 264, 24), (3, 64, 40, 136, 32), (5, 16, 5, 128, 8),
     (2, 16, 130, 1416, 16), (2, 32, 64, 8, 32))
+#: The moe_gemm tf32x3 body's cases (E, C, D, F, bt): the fp32 sweep of
+#: MOE_SHAPES (bt 128 and 64), then the edges: bt 40 (64-row tiles, 24
+#: rows masked) at a D ragged past its last stage of 32 (100) and F 8
+#: columns past its last 128 (264); bt 120 (moonshot's capacity at a
+#: 1024-token prefill: 128-row tiles, 8 rows masked) at D 36; bt 192 (three
+#: 64-row tiles a token block) and 384 (three of 128); moonshot's up
+#: product at bt 120 on 4 experts.
+MOE_TF32X3_SHAPES = tuple(s[:5] for s in MOE_SHAPES) + (
+    (4, 80, 100, 264, 40), (3, 240, 36, 136, 120), (2, 192, 96, 132, 192),
+    (2, 384, 64, 128, 384), (4, 120, 2048, 1408, 120))
 #: tests/test_kernels.py's paged_attention sweep: (B, KVH, G, hd, P, page,
 #: n_pages).
 PAGED_SHAPES = ((2, 1, 4, 64, 8, 16, 4), (3, 2, 4, 64, 16, 32, 4),
