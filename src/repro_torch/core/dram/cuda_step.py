@@ -44,7 +44,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch import cuda_build
+from repro_torch import cuda_build, obs
 from repro_torch.core.dram import controller as _controller
 from repro_torch.core.dram import engine as _engine
 from repro_torch.core.dram import state_layout as L
@@ -163,13 +163,17 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def timing_array(t: DramTiming, device) -> torch.Tensor:
-    """The kernel's ``[19]`` int32 timing array."""
+    """The kernel's ``[19]`` int32 timing array; on a card, one
+    ``engine.h2d_copies`` while tracing."""
     names = tuple(f.name for f in dataclasses.fields(DramTiming))
     if names != TIMING_FIELDS:
         raise RuntimeError(f"DramTiming fields {names} no longer match the "
                            f"kernel's timing layout {TIMING_FIELDS}")
-    return torch.tensor([int(getattr(t, n)) for n in names],
-                        dtype=torch.int32, device=device)
+    out = torch.tensor([int(getattr(t, n)) for n in names],
+                       dtype=torch.int32, device=device)
+    if out.is_cuda:
+        obs.count("engine.h2d_copies")
+    return out
 
 
 def _check_geometry(nb: int, ns: int, t: DramTiming,
@@ -221,6 +225,7 @@ def simulate_lanes(policy: int, n_banks: int, n_subarrays: int,
     return _engine.result_from_state(xs.shape[1], sc, vis), maxc
 
 
+@obs.spanned("kernel.lane_step")
 def _launch(policy, n_banks, n_subarrays, t, refresh_mode, xs, mlp,
             closed_row, *, _body=None):
     """One launch of the lane kernel on PyTorch's current stream, in the
@@ -316,6 +321,7 @@ def simulate_cores(policy: int, scheduler: int, n_banks: int,
     return _engine.result_from_state(C * N, sc, vis.amax(dim=1)), maxc
 
 
+@obs.spanned("kernel.mix_step")
 def _launch_cores(policy, scheduler, n_banks, n_subarrays, t, refresh_mode,
                   reqs, mlp, rank, closed_row, *, _body=None):
     """One launch of the mix kernel on PyTorch's current stream, in the

@@ -44,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.compat import resolve_device
 from repro_torch.core.dram import registry
 from repro_torch.core.dram import state_layout as L
@@ -465,6 +466,7 @@ _EMIT_ERROR = (
     "(simulate() would silently drop the log)")
 
 
+@obs.spanned("engine.pack")
 def lane_inputs(stacked: dict, policy: Policy, config: SimConfig, device):
     """Everything the lane executor takes, on ``device``.
 
@@ -483,10 +485,16 @@ def lane_inputs(stacked: dict, policy: Policy, config: SimConfig, device):
 
 
 def _dev_i32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
-                           device=device).to(I32)
+    """``x`` as an int32 tensor on ``device``; a copy from the host to a
+    card counts as one ``engine.h2d_copies`` while tracing."""
+    out = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                          device=device).to(I32)
+    if out.is_cuda and not (torch.is_tensor(x) and x.is_cuda):
+        obs.count("engine.h2d_copies")
+    return out
 
 
+@obs.spanned("engine.pack")
 def mix_inputs(stacked_mixes: dict, ranks, policy: Policy, config: SimConfig,
                device):
     """Everything the mix executor takes, on ``device``: the multicore
@@ -528,10 +536,12 @@ def _pack(stacked: dict, policy: Policy, config: SimConfig, nb: int, ns: int,
                         _dev_i32(stacked["is_write"], device),
                         _dev_i32(stacked["gap"], device),
                         _dev_i32(stacked["dep"], device)], dim=-1).contiguous()
-    bad = ((bank < 0) | (bank >= nb) | (subarray < 0) | (subarray >= ns)).any()
-    if bool(bad):
-        raise ValueError(f"bank/subarray indices outside the {nb} x {ns} "
-                         f"geometry of policy {Policy(policy).name}")
+    with obs.span("engine.range_check"):
+        bad = ((bank < 0) | (bank >= nb) | (subarray < 0)
+               | (subarray >= ns)).any()
+        if bool(bad):
+            raise ValueError(f"bank/subarray indices outside the {nb} x {ns} "
+                             f"geometry of policy {Policy(policy).name}")
     return reqs
 
 

@@ -24,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.compat import resolve_device
 from repro_torch.core.dram import cuda_step
 from repro_torch.core.dram.engine import (SimConfig, SimResult, mix_inputs,
@@ -87,7 +88,9 @@ def alone_baseline_cycles(mixes: list[list[Trace]],
     flat = [t for m in mixes for t in m]
     # simulate_batch validates the windows (controller.validate_mlp_window)
     res = simulate_batch(flat, Policy.BASELINE, cfg, device=device)
-    return res.total_cycles.cpu().numpy().astype(np.float64)
+    obs.wait(res.total_cycles)
+    with obs.span("sweep.readback"):
+        return res.total_cycles.cpu().numpy().astype(np.float64)
 
 
 def simulate_multicore_batch(mixes: list[list[Trace]], policy: Policy,
@@ -107,10 +110,11 @@ def simulate_multicore_batch(mixes: list[list[Trace]], policy: Policy,
     config = _scheduler_for(config, use_ranking)
     cuda_step.check_no_emit(config)
     dev = resolve_device(device)
-    prepped = [_prep_mix(m) for m in mixes]
-    stacked = {k: np.stack([st[k] for st, _ in prepped])
-               for k in prepped[0][0] if k != "addr"}
-    ranks = np.stack([r for _, r in prepped])
+    with obs.span("sweep.stack"):
+        prepped = [_prep_mix(m) for m in mixes]
+        stacked = {k: np.stack([st[k] for st, _ in prepped])
+                   for k in prepped[0][0] if k != "addr"}
+        ranks = np.stack([r for _, r in prepped])
     # mix_inputs validates the windows (controller.validate_mlp_window)
     eff, sched, nb, ns, reqs, mlp, rank = mix_inputs(stacked, ranks, policy,
                                                      config, dev)
@@ -120,14 +124,17 @@ def simulate_multicore_batch(mixes: list[list[Trace]], policy: Policy,
 
     alone_all = (alone_cycles if alone_cycles is not None
                  else alone_baseline_cycles(mixes, config, device=dev))
-    core_host = core_cycles.cpu().numpy().astype(np.float64)
-    out, pos = [], 0
-    for i, m in enumerate(mixes):
-        out.append(MulticoreResult(
-            shared=shared.lane(i), core_cycles=core_host[i],
-            alone_cycles=np.asarray(alone_all[pos:pos + len(m)], np.float64),
-            profiles=[t.profile for t in m]))
-        pos += len(m)
+    obs.wait(core_cycles)
+    with obs.span("sweep.readback"):
+        core_host = core_cycles.cpu().numpy().astype(np.float64)
+        out, pos = [], 0
+        for i, m in enumerate(mixes):
+            out.append(MulticoreResult(
+                shared=shared.lane(i), core_cycles=core_host[i],
+                alone_cycles=np.asarray(alone_all[pos:pos + len(m)],
+                                        np.float64),
+                profiles=[t.profile for t in m]))
+            pos += len(m)
     return out
 
 

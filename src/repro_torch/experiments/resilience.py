@@ -45,6 +45,7 @@ from typing import Any, Callable, Iterable, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.fault.watchdog import StepWatchdog
 
 
@@ -321,9 +322,10 @@ def execute_buckets(
             n += 1
             t0 = time.perf_counter()
             try:
-                if fault_plan is not None:
-                    fault_plan.before(bucket, idxs)
-                out = simulate_fn(list(idxs))
+                with obs.span("sweep.bucket"):
+                    if fault_plan is not None:
+                        fault_plan.before(bucket, idxs)
+                    out = simulate_fn(list(idxs))
                 elapsed = time.perf_counter() - t0
                 if watchdog.observe_step(report.n_batches, elapsed):
                     report.stragglers.append(

@@ -51,6 +51,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.dram import engine
 from repro_torch.core.dram.engine import SimConfig, SimResult
 from repro_torch.core.dram.metrics import (avg_read_latency,
@@ -99,11 +100,12 @@ def trace_for(workload: WorkloadProfile, n_requests: int, config: SimConfig,
            row_space_offset, config.mapping, footprint_rows)
     tr = _TRACE_CACHE.get(key)
     if tr is None:
-        tr = generate_trace(workload, n_requests, n_banks=config.n_banks,
-                            n_subarrays=config.n_subarrays, seed=seed,
-                            row_space_offset=row_space_offset,
-                            mapping=config.mapping,
-                            footprint_rows=footprint_rows)
+        with obs.span("frontend.generate_trace"):
+            tr = generate_trace(workload, n_requests, n_banks=config.n_banks,
+                                n_subarrays=config.n_subarrays, seed=seed,
+                                row_space_offset=row_space_offset,
+                                mapping=config.mapping,
+                                footprint_rows=footprint_rows)
         _TRACE_CACHE[key] = tr
     return tr
 
@@ -257,11 +259,12 @@ def _resolve_plan(shards: "ShardPlan | int | None",
     return ShardPlan(1, devices) if fragment_dir is not None else None
 
 
-def _host_counters(counters: list[torch.Tensor]) -> np.ndarray:
-    """Stack 0-d or [B] counter tensors and copy them to the host at once."""
-    return torch.stack(counters).cpu().numpy()
+def _host_counters(counters: torch.Tensor) -> np.ndarray:
+    """Copy the stacked counters to the host at once."""
+    return counters.cpu().numpy()
 
 
+@obs.spanned("sweep.run")
 def run_sweep(grid: SweepGrid, cache: ResultCache | None = None, *,
               resilience: ResiliencePolicy | None = None,
               fault_plan: FaultPlan | None = None,
@@ -299,7 +302,9 @@ def run_sweep(grid: SweepGrid, cache: ResultCache | None = None, *,
     traces = [trace_for(c.workload, grid.n_requests, c.config, grid.seed,
                         footprint_rows=grid.footprint_rows)
               for c in cells]
-    keys = [cell_key(tr, c.policy, c.config) for tr, c in zip(traces, cells)]
+    with obs.span("sweep.cell_key"):
+        keys = [cell_key(tr, c.policy, c.config)
+                for tr, c in zip(traces, cells)]
 
     # Partition: cached / to-simulate (deduping repeated keys within the sweep).
     counters_by_key: dict[str, dict[str, int]] = {}
@@ -320,12 +325,19 @@ def run_sweep(grid: SweepGrid, cache: ResultCache | None = None, *,
     # One batched simulator call per static-shape (sub-)bucket, fault-isolated.
     def simulate_bucket(idxs: list[int],
                         device: torch.device) -> dict[int, dict[str, int]]:
-        stacked = stack_traces([traces[i] for i in idxs])
+        with obs.span("sweep.stack"):
+            stacked = stack_traces([traces[i] for i in idxs])
         res = _SIMULATE(stacked, cells[idxs[0]].policy, cells[idxs[0]].config,
                         device=device)
-        host = _host_counters([getattr(res, f) for f in _COUNTER_FIELDS])
-        return {i: {f: int(host[k, b]) for k, f in enumerate(_COUNTER_FIELDS)}
-                for b, i in enumerate(idxs)}
+        # stacked before the wait, so the stack is queued behind the kernel
+        # as it is with tracing off
+        on_device = torch.stack([getattr(res, f) for f in _COUNTER_FIELDS])
+        obs.wait(on_device)
+        with obs.span("sweep.readback"):
+            host = _host_counters(on_device)
+            return {i: {f: int(host[k, b])
+                        for k, f in enumerate(_COUNTER_FIELDS)}
+                    for b, i in enumerate(idxs)}
 
     def commit_bucket(out: dict[int, dict[str, int]]) -> None:
         for i, counters in out.items():
@@ -510,6 +522,7 @@ class MixSweepResult:
         }
 
 
+@obs.spanned("sweep.run")
 def run_mix_sweep(grid: MixGrid, *,
                   resilience: ResiliencePolicy | None = None,
                   fault_plan: FaultPlan | None = None,
@@ -555,8 +568,9 @@ def run_mix_sweep(grid: MixGrid, *,
         ref_cfg = dataclasses.replace(cell.config, scheduler=Scheduler.FCFS)
         key = (dataclasses.astuple(ref_cfg), cell.mix_index)
         if key not in alone_memo:
-            alone_memo[key] = alone_baseline_cycles([traces], ref_cfg,
-                                                    device=device)
+            with obs.span("sweep.alone"):
+                alone_memo[key] = alone_baseline_cycles([traces], ref_cfg,
+                                                        device=device)
         return alone_memo[key]
 
     buckets: dict[tuple, list[int]] = {}
@@ -572,19 +586,22 @@ def run_mix_sweep(grid: MixGrid, *,
         mc = simulate_multicore_batch(traces, bucket_cells[0].policy,
                                       bucket_cells[0].config,
                                       alone_cycles=alone, device=device)
-        host = _host_counters([getattr(res.shared, f) for res in mc
-                               for f in _COUNTER_FIELDS])
-        host = host.reshape(len(mc), len(_COUNTER_FIELDS))
-        out: dict[int, MixCellResult] = {}
-        for b, (i, res) in enumerate(zip(idxs, mc)):
-            counters = {f: int(host[b, k])
-                        for k, f in enumerate(_COUNTER_FIELDS)}
-            out[i] = MixCellResult(
-                cell=cells[i], counters=counters,
-                weighted_speedup=res.weighted_speedup,
-                core_cycles=[int(x) for x in res.core_cycles],
-                alone_cycles=[float(x) for x in res.alone_cycles])
-        return out
+        on_device = torch.stack([getattr(res.shared, f) for res in mc
+                                 for f in _COUNTER_FIELDS])
+        obs.wait(on_device)
+        with obs.span("sweep.readback"):
+            host = _host_counters(on_device).reshape(len(mc),
+                                                     len(_COUNTER_FIELDS))
+            out: dict[int, MixCellResult] = {}
+            for b, (i, res) in enumerate(zip(idxs, mc)):
+                counters = {f: int(host[b, k])
+                            for k, f in enumerate(_COUNTER_FIELDS)}
+                out[i] = MixCellResult(
+                    cell=cells[i], counters=counters,
+                    weighted_speedup=res.weighted_speedup,
+                    core_cycles=[int(x) for x in res.core_cycles],
+                    alone_cycles=[float(x) for x in res.alone_cycles])
+            return out
 
     results: dict[int, MixCellResult] = {}
 
