@@ -84,13 +84,23 @@ def alone_baseline_cycles(mixes: list[list[Trace]],
     :func:`simulate_multicore_batch`. The scheduler is normalized to FCFS:
     with a single stream it is inert.
     """
+    total = launch_alone_baseline(mixes, config, device)
+    obs.wait(total)
+    with obs.span("sweep.readback"):
+        return total.cpu().numpy().astype(np.float64)
+
+
+def launch_alone_baseline(mixes: list[list[Trace]],
+                          config: SimConfig = SimConfig(),
+                          device=None):
+    """The launch of :func:`alone_baseline_cycles`, on the current stream:
+    each trace's run-alone BASELINE total cycles, an int32 tensor left on
+    ``device`` and not waited for."""
     cfg = dataclasses.replace(config, scheduler=Scheduler.FCFS)
     flat = [t for m in mixes for t in m]
     # simulate_batch validates the windows (controller.validate_mlp_window)
-    res = simulate_batch(flat, Policy.BASELINE, cfg, device=device)
-    obs.wait(res.total_cycles)
-    with obs.span("sweep.readback"):
-        return res.total_cycles.cpu().numpy().astype(np.float64)
+    return simulate_batch(flat, Policy.BASELINE, cfg,
+                          device=device).total_cycles
 
 
 def simulate_multicore_batch(mixes: list[list[Trace]], policy: Policy,
@@ -107,6 +117,24 @@ def simulate_multicore_batch(mixes: list[list[Trace]], policy: Policy,
     comparison. ``use_ranking=True`` is a deprecated alias for
     ``config.scheduler = Scheduler.TCM``.
     """
+    shared, core_cycles = launch_multicore_batch(mixes, policy, config,
+                                                 use_ranking, device)
+    alone_all = (alone_cycles if alone_cycles is not None
+                 else alone_baseline_cycles(mixes, config,
+                                            device=core_cycles.device))
+    obs.wait(core_cycles)
+    with obs.span("sweep.readback"):
+        return multicore_results(mixes, shared,
+                                 core_cycles.cpu().numpy(), alone_all)
+
+
+def launch_multicore_batch(mixes: list[list[Trace]], policy: Policy,
+                           config: SimConfig = SimConfig(),
+                           use_ranking: bool = False, device=None):
+    """The launch of :func:`simulate_multicore_batch`, on the current
+    stream: stack, pack and launch. Returns ``(shared, core_cycles)``, the
+    SimResult of ``[M]`` int32 counters and the ``[M, C]`` int32 per-core
+    cycles, left on ``device`` and not waited for."""
     config = _scheduler_for(config, use_ranking)
     cuda_step.check_no_emit(config)
     dev = resolve_device(device)
@@ -118,23 +146,25 @@ def simulate_multicore_batch(mixes: list[list[Trace]], policy: Policy,
     # mix_inputs validates the windows (controller.validate_mlp_window)
     eff, sched, nb, ns, reqs, mlp, rank = mix_inputs(stacked, ranks, policy,
                                                      config, dev)
-    shared, core_cycles = cuda_step.simulate_cores(
+    return cuda_step.simulate_cores(
         eff, sched, nb, ns, config.timing, config.refresh_mode, reqs, mlp,
         rank, closed_row=config.row_policy == "closed")
 
-    alone_all = (alone_cycles if alone_cycles is not None
-                 else alone_baseline_cycles(mixes, config, device=dev))
-    obs.wait(core_cycles)
-    with obs.span("sweep.readback"):
-        core_host = core_cycles.cpu().numpy().astype(np.float64)
-        out, pos = [], 0
-        for i, m in enumerate(mixes):
-            out.append(MulticoreResult(
-                shared=shared.lane(i), core_cycles=core_host[i],
-                alone_cycles=np.asarray(alone_all[pos:pos + len(m)],
-                                        np.float64),
-                profiles=[t.profile for t in m]))
-            pos += len(m)
+
+def multicore_results(mixes: list[list[Trace]], shared: SimResult,
+                      core_cycles: np.ndarray,
+                      alone_all: np.ndarray) -> list[MulticoreResult]:
+    """One :class:`MulticoreResult` a mix, from a launch's ``[M]`` shared
+    counters, its ``[M, C]`` per-core cycles on the host, and the mixes'
+    flat run-alone cycles."""
+    core_host = np.asarray(core_cycles).astype(np.float64)
+    out, pos = [], 0
+    for i, m in enumerate(mixes):
+        out.append(MulticoreResult(
+            shared=shared.lane(i), core_cycles=core_host[i],
+            alone_cycles=np.asarray(alone_all[pos:pos + len(m)], np.float64),
+            profiles=[t.profile for t in m]))
+        pos += len(m)
     return out
 
 

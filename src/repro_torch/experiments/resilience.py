@@ -30,6 +30,17 @@ the simulator":
 sees lists of opaque cell indices plus two callbacks, so both sweep flavours
 get identical semantics.
 
+* **Issue ahead, collect in order** — on a card the runners hand it a
+  window of 8 (:mod:`repro_torch.experiments.streams`): each bucket is
+  *issued* (launched on a stream of its own, not waited for) up to 8 ahead
+  of the oldest one *collected* (its event waited for, its results read),
+  so independent buckets run side by side on the device. Commits still
+  happen in bucket order, and a failure first collects and commits every
+  bucket issued before it, then retries / bisects / quarantines the failed
+  one an attempt at a time. On the CPU the window is 1: each bucket is
+  collected as soon as it is issued. The sharded path
+  (:func:`repro_torch.experiments.sharding.execute_sharded`) stays serial.
+
 One difference from the reference: a CUDA error is not survivable. It
 leaves the device's context unusable (every later launch fails too), so a
 retry cannot help and quarantining would turn a kernel fault into a sweep
@@ -39,6 +50,7 @@ committed. Nothing here re-runs a bucket on another device.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any, Callable, Iterable, Sequence
@@ -276,7 +288,7 @@ def device_fault(exc: BaseException) -> bool:
 
 def execute_buckets(
     buckets: Iterable[Sequence[int]],
-    simulate_fn: Callable[[list[int]], dict[int, Any]],
+    simulate_fn: Callable[[list[int]], Any],
     commit_fn: Callable[[dict[int, Any]], None],
     *,
     policy: ResiliencePolicy | None = None,
@@ -284,15 +296,29 @@ def execute_buckets(
     watchdog: StepWatchdog | None = None,
     bucket_ids: Sequence[int] | None = None,
     on_quarantine: Callable[[QuarantinedCell], None] | None = None,
+    window: int = 1,
 ) -> ResilienceReport:
     """Run every bucket through retry → bisect → quarantine isolation.
 
     ``simulate_fn(indices)`` simulates one (sub-)bucket and returns
-    ``{index: result}``; ``commit_fn(mapping)`` persists a successful
-    (sub-)bucket's results *immediately* (crash consistency: a later
-    failure can never lose earlier buckets). Results are opaque to this
-    layer except for the ``corrupt`` fault, which assumes ``{str: int}``
-    counter dicts.
+    ``{index: result}``, or *issues* it and returns a function of no
+    arguments that *collects* it: waits for its results and returns that
+    mapping. ``commit_fn(mapping)`` persists a successful (sub-)bucket's
+    results *immediately* (crash consistency: a later failure can never
+    lose earlier buckets). Results are opaque to this layer except for the
+    ``corrupt`` fault, which assumes ``{str: int}`` counter dicts.
+
+    ``window`` is how many buckets may be issued and not yet collected. At
+    1 each bucket is collected right after it is issued. Above 1, the
+    oldest bucket is collected before one more is issued, so the device
+    runs up to ``window`` buckets side by side; results are still
+    collected and committed in bucket order. ``FaultPlan.before`` fires at
+    issue, ``after`` at collect, and the watchdog sees a bucket's own issue
+    time plus its own collect time. When an issue or a collect fails, every
+    bucket issued before it is collected and committed first; the failed
+    bucket then goes through retry → bisect → quarantine one attempt at a
+    time, as at a window of 1, its first attempt counting as the one that
+    failed.
 
     ``bucket_ids`` overrides the bucket index reported for each submission
     (default: enumeration order). The sharded scheduler
@@ -314,40 +340,54 @@ def execute_buckets(
     watchdog = watchdog or StepWatchdog(threshold=policy.straggler_threshold)
     report = ResilienceReport()
 
-    def attempt(bucket: int, idxs: list[int]) -> tuple[dict[int, Any] | None,
-                                                       Exception | None, int]:
+    def issue(bucket: int, idxs: list[int]) -> Callable[[], dict[int, Any]]:
+        if fault_plan is not None:
+            fault_plan.before(bucket, idxs)
+        out = simulate_fn(list(idxs))
+        return out if callable(out) else lambda: out
+
+    def finish(bucket: int, idxs: list[int], out: dict[int, Any],
+               elapsed: float) -> dict[int, Any]:
+        if watchdog.observe_step(report.n_batches, elapsed):
+            report.stragglers.append(
+                {"bucket": bucket, "n_cells": len(idxs),
+                 "elapsed_s": round(elapsed, 6),
+                 "ewma_s": round(watchdog.events[-1].ewma, 6)})
+        report.n_batches += 1
+        if fault_plan is not None:
+            out = fault_plan.after(bucket, idxs, out)
+        return out
+
+    def attempt(bucket: int, idxs: list[int],
+                failed: Exception | None = None
+                ) -> tuple[dict[int, Any] | None, Exception | None, int]:
+        # ``failed``: the error of a first attempt made in flight
         last: Exception | None = None
         n = 0
         for try_no in range(policy.max_retries + 1):
             n += 1
-            t0 = time.perf_counter()
-            try:
-                with obs.span("sweep.bucket"):
-                    if fault_plan is not None:
-                        fault_plan.before(bucket, idxs)
-                    out = simulate_fn(list(idxs))
-                elapsed = time.perf_counter() - t0
-                if watchdog.observe_step(report.n_batches, elapsed):
-                    report.stragglers.append(
-                        {"bucket": bucket, "n_cells": len(idxs),
-                         "elapsed_s": round(elapsed, 6),
-                         "ewma_s": round(watchdog.events[-1].ewma, 6)})
-                report.n_batches += 1
-                if fault_plan is not None:
-                    out = fault_plan.after(bucket, idxs, out)
-                return out, None, n
-            except Exception as e:  # noqa: BLE001 — isolation boundary
-                if device_fault(e):
-                    raise
-                last = e
-                if try_no < policy.max_retries:
-                    report.retries += 1
-                    policy.sleep(policy.backoff_base_s
-                                 * policy.backoff_factor ** try_no)
+            if try_no == 0 and failed is not None:
+                last = failed
+            else:
+                t0 = time.perf_counter()
+                try:
+                    with obs.span("sweep.bucket"):
+                        out = issue(bucket, idxs)()
+                    return (finish(bucket, idxs, out,
+                                   time.perf_counter() - t0), None, n)
+                except Exception as e:  # noqa: BLE001 — isolation boundary
+                    if device_fault(e):
+                        raise
+                    last = e
+            if try_no < policy.max_retries:
+                report.retries += 1
+                policy.sleep(policy.backoff_base_s
+                             * policy.backoff_factor ** try_no)
         return None, last, n
 
-    def run_isolated(bucket: int, idxs: list[int]) -> None:
-        out, err, n = attempt(bucket, idxs)
+    def run_isolated(bucket: int, idxs: list[int],
+                     failed: Exception | None = None) -> None:
+        out, err, n = attempt(bucket, idxs, failed)
         if err is None:
             commit_fn(out)  # type: ignore[arg-type]
             return
@@ -365,9 +405,45 @@ def execute_buckets(
             if on_quarantine is not None:
                 on_quarantine(q)
 
+    # (bucket, cell indices, collect, seconds spent issuing it), oldest first
+    in_flight: collections.deque = collections.deque()
+
+    def collect_oldest() -> None:
+        bucket, idxs, collect, issue_s = in_flight.popleft()
+        t0 = time.perf_counter()
+        try:
+            with obs.span("sweep.bucket"):
+                out = collect()
+        except Exception as e:  # noqa: BLE001 — isolation boundary
+            if device_fault(e):
+                raise
+            run_isolated(bucket, idxs, failed=e)
+            return
+        commit_fn(finish(bucket, idxs, out,
+                         issue_s + time.perf_counter() - t0))
+
     for submission, idxs in enumerate(buckets):
         bucket = bucket_ids[submission] if bucket_ids is not None else submission
-        run_isolated(bucket, list(idxs))
+        idxs = list(idxs)
+        if window <= 1:
+            run_isolated(bucket, idxs)
+            continue
+        if len(in_flight) >= window:
+            collect_oldest()
+        t0 = time.perf_counter()
+        try:
+            with obs.span("sweep.bucket"):
+                collect = issue(bucket, idxs)
+        except BaseException as e:
+            while in_flight:
+                collect_oldest()
+            if not isinstance(e, Exception) or device_fault(e):
+                raise
+            run_isolated(bucket, idxs, failed=e)
+            continue
+        in_flight.append((bucket, idxs, collect, time.perf_counter() - t0))
+    while in_flight:
+        collect_oldest()
 
     report.ewma_s = watchdog.ewma
     return report

@@ -25,7 +25,12 @@ mix-kernel launch a bucket, plus one lane-kernel launch a memoised run-alone
 baseline.
 
 Both runners execute their buckets through the resilience layer
-(:mod:`repro_torch.experiments.resilience`): a bucket that raises is retried
+(:mod:`repro_torch.experiments.resilience`). On a card each bucket is
+issued on a stream of its own (:mod:`repro_torch.experiments.streams`), up
+to 8 ahead of the oldest bucket collected, so the one-warp chains of
+independent buckets run side by side; buckets are collected and committed
+in order. On the CPU each is collected as soon as it is issued, and a
+sharded run stays serial. A bucket that raises is retried
 with bounded backoff, then bisected so only truly-poisoned cells are
 stranded in the sweep's ``quarantined`` record (a CUDA error is never
 retried: it propagates); per-bucket wall time feeds an EWMA straggler
@@ -39,8 +44,8 @@ Devices: both runners take ``device=None``, which means ``"cuda"``;
 ``device="cpu"`` runs the kernels' plain PyTorch versions, and with no card
 and no explicit CPU they raise. A sharded run places each shard on its
 plan's device. Each bucket's counters come to the host in ONE copy (the 11
-counters stacked), so a kernel fault raises inside the bucket that caused
-it.
+counters stacked) once the bucket is collected, so a kernel fault raises
+inside the bucket that caused it or an earlier one.
 """
 from __future__ import annotations
 
@@ -65,6 +70,7 @@ from repro_torch.core.dram.trace import (ROW_SPACE_STRIDE, Trace,
 from repro_torch.experiments.cache import ResultCache, cell_key
 from repro_torch.experiments.grid import (Cell, MixCell, MixGrid, SweepGrid,
                                           _json_safe)
+from repro_torch.experiments import streams
 from repro_torch.experiments.resilience import (FaultPlan, ResiliencePolicy,
                                                 execute_buckets)
 from repro_torch.experiments.sharding import (ShardPlan, StreamingAggregator,
@@ -260,8 +266,9 @@ def _resolve_plan(shards: "ShardPlan | int | None",
 
 
 def _host_counters(counters: torch.Tensor) -> np.ndarray:
-    """Copy the stacked counters to the host at once."""
-    return counters.cpu().numpy()
+    """Copy the stacked counters of a collected launch to the host at
+    once."""
+    return streams.to_host(counters)
 
 
 @obs.spanned("sweep.run")
@@ -278,8 +285,9 @@ def run_sweep(grid: SweepGrid, cache: ResultCache | None = None, *,
     see :mod:`repro_torch.experiments.resilience`): a failing bucket strands
     only its truly-poisoned cells in ``SweepResult.quarantined`` instead of
     aborting the sweep, and each completed (sub-)bucket is committed to
-    ``cache`` — journal included, for a persistent cache — before the next
-    one runs, so a crash or kill never loses finished cells.
+    ``cache`` — journal included, for a persistent cache — in bucket order,
+    before any later bucket is committed, so a crash or kill never loses
+    finished cells. On a card up to 8 buckets are in flight at once.
 
     ``shards`` (a :class:`~repro_torch.experiments.sharding.ShardPlan` or an
     int) partitions every bucket's cell axis across devices and streams each
@@ -322,22 +330,27 @@ def run_sweep(grid: SweepGrid, cache: ResultCache | None = None, *,
             pending.setdefault(_bucket_key(c, grid.n_requests), []).append(i)
             seen_pending.add(k)
 
-    # One batched simulator call per static-shape (sub-)bucket, fault-isolated.
-    def simulate_bucket(idxs: list[int],
-                        device: torch.device) -> dict[int, dict[str, int]]:
+    # One batched simulator call per static-shape (sub-)bucket, fault-isolated:
+    # issued on a stream of its own, collected in bucket order.
+    issuer = streams.Issuer()
+
+    def issue_bucket(idxs: list[int], device: torch.device):
         with obs.span("sweep.stack"):
             stacked = stack_traces([traces[i] for i in idxs])
-        res = _SIMULATE(stacked, cells[idxs[0]].policy, cells[idxs[0]].config,
-                        device=device)
-        # stacked before the wait, so the stack is queued behind the kernel
-        # as it is with tracing off
-        on_device = torch.stack([getattr(res, f) for f in _COUNTER_FIELDS])
-        obs.wait(on_device)
-        with obs.span("sweep.readback"):
-            host = _host_counters(on_device)
-            return {i: {f: int(host[k, b])
-                        for k, f in enumerate(_COUNTER_FIELDS)}
-                    for b, i in enumerate(idxs)}
+        with issuer.launch(device) as launch:
+            res = _SIMULATE(stacked, cells[idxs[0]].policy,
+                            cells[idxs[0]].config, device=device)
+            on_device = torch.stack([getattr(res, f)
+                                     for f in _COUNTER_FIELDS])
+
+        def collect() -> dict[int, dict[str, int]]:
+            launch.wait()
+            with obs.span("sweep.readback"):
+                counters = _host_counters(on_device)
+                return {i: {f: int(counters[k, b])
+                            for k, f in enumerate(_COUNTER_FIELDS)}
+                        for b, i in enumerate(idxs)}
+        return collect
 
     def commit_bucket(out: dict[int, dict[str, int]]) -> None:
         for i, counters in out.items():
@@ -356,9 +369,10 @@ def run_sweep(grid: SweepGrid, cache: ResultCache | None = None, *,
     agg = None
     if plan is None:
         report = execute_buckets(
-            pending.values(), lambda idxs: simulate_bucket(idxs, dev),
+            pending.values(), lambda idxs: issue_bucket(idxs, dev),
             commit_bucket, policy=resilience, fault_plan=fault_plan,
-            watchdog=StepWatchdog(threshold=resilience.straggler_threshold))
+            watchdog=StepWatchdog(threshold=resilience.straggler_threshold),
+            window=streams.window(dev))
     else:
         # Streaming-fragment path: every cell resolves exactly once — cache
         # hits (and their duplicate-key cells) up front via the prologue,
@@ -386,7 +400,7 @@ def run_sweep(grid: SweepGrid, cache: ResultCache | None = None, *,
                               for j in indices_by_key[keys[i]]])
 
         report, _ = execute_sharded(
-            pending.values(), simulate_bucket, commit_shard,
+            pending.values(), issue_bucket, commit_shard,
             plan=plan, aggregator=agg, quarantine_record=q_record,
             policy=resilience, fault_plan=fault_plan,
             watchdog=StepWatchdog(threshold=resilience.straggler_threshold))
@@ -543,8 +557,7 @@ def run_mix_sweep(grid: MixGrid, *,
     single-core runner (mix sweeps have no cache, so no prologue fragment).
     ``device`` as in :func:`run_sweep`.
     """
-    from repro_torch.core.dram.multicore import (alone_baseline_cycles,
-                                                 simulate_multicore_batch)
+    from repro_torch.core.dram import multicore
     from repro_torch.core.dram.schedulers import Scheduler
 
     resilience = resilience or ResiliencePolicy()
@@ -559,49 +572,68 @@ def run_mix_sweep(grid: MixGrid, *,
                           footprint_rows=grid.footprint_rows)
                 for i, p in enumerate(cell.profiles)]
 
+    issuer = streams.Issuer()
     # Run-alone references: scheduler-independent (a single stream has a
     # single head request), so memoize on the config minus its scheduler.
-    alone_memo: dict[tuple, np.ndarray] = {}
+    # Each is issued like a bucket's launch, and read when the first bucket
+    # that needs it is collected: the memo holds its launch and its cycles
+    # on the device, then on the host.
+    alone_memo: dict[tuple, tuple[streams.Launch, torch.Tensor]] = {}
+    alone_host: dict[tuple, np.ndarray] = {}
 
-    def alone_for(cell: MixCell, traces: list[Trace],
-                  device: torch.device) -> np.ndarray:
+    def issue_alone(cell: MixCell, traces: list[Trace],
+                    device: torch.device) -> tuple:
+        """The memo's key of ``cell``'s run-alone launch, issued if new."""
         ref_cfg = dataclasses.replace(cell.config, scheduler=Scheduler.FCFS)
         key = (dataclasses.astuple(ref_cfg), cell.mix_index)
         if key not in alone_memo:
-            with obs.span("sweep.alone"):
-                alone_memo[key] = alone_baseline_cycles([traces], ref_cfg,
-                                                        device=device)
-        return alone_memo[key]
+            with obs.span("sweep.alone"), issuer.launch(device) as launch:
+                alone_memo[key] = launch, multicore.launch_alone_baseline(
+                    [traces], ref_cfg, device=device)
+        return key
+
+    def alone_cycles(key: tuple) -> np.ndarray:
+        if key not in alone_host:
+            launch, total = alone_memo[key]
+            launch.wait()
+            with obs.span("sweep.readback"):
+                alone_host[key] = streams.to_host(total)
+        return alone_host[key]
 
     buckets: dict[tuple, list[int]] = {}
     for i, c in enumerate(cells):
         buckets.setdefault(_bucket_key(c, grid.n_requests), []).append(i)
 
-    def simulate_bucket(idxs: list[int],
-                        device: torch.device) -> dict[int, MixCellResult]:
+    def issue_bucket(idxs: list[int], device: torch.device):
         bucket_cells = [cells[i] for i in idxs]
         traces = [mix_traces(c) for c in bucket_cells]
-        alone = np.concatenate([alone_for(c, tr, device)
-                                for c, tr in zip(bucket_cells, traces)])
-        mc = simulate_multicore_batch(traces, bucket_cells[0].policy,
-                                      bucket_cells[0].config,
-                                      alone_cycles=alone, device=device)
-        on_device = torch.stack([getattr(res.shared, f) for res in mc
-                                 for f in _COUNTER_FIELDS])
-        obs.wait(on_device)
-        with obs.span("sweep.readback"):
-            host = _host_counters(on_device).reshape(len(mc),
-                                                     len(_COUNTER_FIELDS))
-            out: dict[int, MixCellResult] = {}
-            for b, (i, res) in enumerate(zip(idxs, mc)):
-                counters = {f: int(host[b, k])
-                            for k, f in enumerate(_COUNTER_FIELDS)}
-                out[i] = MixCellResult(
-                    cell=cells[i], counters=counters,
-                    weighted_speedup=res.weighted_speedup,
-                    core_cycles=[int(x) for x in res.core_cycles],
-                    alone_cycles=[float(x) for x in res.alone_cycles])
-            return out
+        alone = [issue_alone(c, tr, device)
+                 for c, tr in zip(bucket_cells, traces)]
+        with issuer.launch(device) as launch:
+            shared, core_cycles = multicore.launch_multicore_batch(
+                traces, bucket_cells[0].policy, bucket_cells[0].config,
+                device=device)
+            on_device = torch.stack([getattr(shared, f)
+                                     for f in _COUNTER_FIELDS])
+
+        def collect() -> dict[int, MixCellResult]:
+            alone_all = np.concatenate([alone_cycles(k) for k in alone])
+            launch.wait()
+            with obs.span("sweep.readback"):
+                mc = multicore.multicore_results(
+                    traces, shared, streams.to_host(core_cycles), alone_all)
+                counters_host = _host_counters(on_device)
+                out: dict[int, MixCellResult] = {}
+                for b, (i, res) in enumerate(zip(idxs, mc)):
+                    counters = {f: int(counters_host[k, b])
+                                for k, f in enumerate(_COUNTER_FIELDS)}
+                    out[i] = MixCellResult(
+                        cell=cells[i], counters=counters,
+                        weighted_speedup=res.weighted_speedup,
+                        core_cycles=[int(x) for x in res.core_cycles],
+                        alone_cycles=[float(x) for x in res.alone_cycles])
+                return out
+        return collect
 
     results: dict[int, MixCellResult] = {}
 
@@ -615,9 +647,10 @@ def run_mix_sweep(grid: MixGrid, *,
     agg = None
     if plan is None:
         report = execute_buckets(
-            buckets.values(), lambda idxs: simulate_bucket(idxs, dev),
+            buckets.values(), lambda idxs: issue_bucket(idxs, dev),
             results.update, policy=resilience, fault_plan=fault_plan,
-            watchdog=StepWatchdog(threshold=resilience.straggler_threshold))
+            watchdog=StepWatchdog(threshold=resilience.straggler_threshold),
+            window=streams.window(dev))
     else:
         agg = StreamingAggregator(grid.describe(), len(cells),
                                   kind="mix_sweep",
@@ -629,7 +662,7 @@ def run_mix_sweep(grid: MixGrid, *,
                               for i in out])
 
         report, _ = execute_sharded(
-            buckets.values(), simulate_bucket, commit_shard,
+            buckets.values(), issue_bucket, commit_shard,
             plan=plan, aggregator=agg, quarantine_record=q_record,
             policy=resilience, fault_plan=fault_plan,
             watchdog=StepWatchdog(threshold=resilience.straggler_threshold))

@@ -322,7 +322,7 @@ class StreamingAggregator:
 
 def execute_sharded(
     buckets: Iterable[Sequence[int]],
-    simulate_fn: Callable[[list[int], torch.device], dict[int, Any]],
+    simulate_fn: Callable[[list[int], torch.device], Any],
     commit_fn: Callable[[dict[int, Any]], None],
     *,
     plan: ShardPlan,
@@ -335,9 +335,14 @@ def execute_sharded(
     """Partition buckets into shard submissions and run them through the
     retry → bisect → quarantine layer, each on its plan-assigned device.
 
+    Serial: each shard is collected before the next is issued (a window of
+    1), where the single-device path keeps up to 8 buckets in flight on a
+    card; overlapping shards is not done here.
+
     ``commit_fn`` keeps the :func:`execute_buckets` contract;
-    ``simulate_fn(indices, device)`` also takes the device of the shard the
-    indices belong to, ``plan.device_for(s)``.
+    ``simulate_fn(indices, device)`` keeps it too (it returns the results or
+    a function that collects them), and also takes the device of the shard
+    the indices belong to, ``plan.device_for(s)``.
     ``bucket_ids`` preserve the logical bucket index for every shard, so
     ``FaultPlan`` ``bN`` targets and quarantine ``bucket`` provenance match
     the unsharded run exactly. Bisected sub-buckets stay inside one shard
@@ -352,7 +357,7 @@ def execute_sharded(
         if aggregator is not None:
             aggregator.register_shard(sh)
 
-    def simulate_on_device(idxs: list[int]) -> dict[int, Any]:
+    def simulate_on_device(idxs: list[int]) -> Any:
         _, s = shard_key_of[idxs[0]]
         return simulate_fn(idxs, plan.device_for(s))
 

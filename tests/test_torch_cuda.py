@@ -291,6 +291,94 @@ def test_streams_not_a_multiple_of_the_chunk(card, n):
     smem_ran("mix_step", 1)
 
 
+# ------------------------------------------- the sweep layer's stream pool
+#: The benchmark's two cells at a reduced size: a Fig. 4 job a workload
+#: (five one-lane buckets), and the scheduler grid as one mix sweep (ten
+#: mix buckets and four run-alone launches)
+SWEEP_CELLS = {
+    "fig4-1core": dict(workloads=["gamess", "gups"], instructions=2_000_000),
+    "sched-4core": dict(n_requests=4096),
+}
+#: kernel launches a call of each cell: one a bucket, one a run-alone mix
+CALL_LAUNCHES = {"fig4-1core": {"lane_step": 5, "mix_step": 0},
+                 "sched-4core": {"lane_step": 4, "mix_step": 10}}
+
+
+@pytest.fixture(scope="module")
+def cell_grids(card):
+    """Each cell's calls, as ``(grid, kind)``, built by the benchmark's
+    adapter from its configuration and traffic files."""
+    from chipbench.harness import generator, main, program
+    out = {}
+    for cell, small in SWEEP_CELLS.items():
+        _, _, config, traffic = main.load_cell(cell)
+        prog = program.Program(config, "cuda")
+        jobs = generator.make_pass(config, dict(traffic, **small),
+                                   seed=2 ** 31 + 33)
+        out[cell] = [(prog.grid(j), j["kind"]) for j in jobs]
+    return out
+
+
+def sweep_call(grid, kind):
+    from repro_torch import experiments as PE
+    if kind == "sweep":
+        return PE.run_sweep(grid, PE.ResultCache(), device="cuda")
+    return PE.run_mix_sweep(grid, device="cuda")
+
+
+def sweep_answers(result, kind):
+    doc = result.to_json()
+    if kind == "sweep":
+        gains = [result.ipc_gain_pct(pol).tolist()
+                 for pol in sorted({c.policy for c in result.cells})]
+        return doc["cells"], doc["quarantined"], gains
+    return doc["cells"], doc["quarantined"]
+
+
+@pytest.mark.parametrize("cell", list(SWEEP_CELLS))
+def test_sweep_window_equals_one_bucket_at_a_time(card, cell_grids, cell,
+                                                  monkeypatch):
+    from repro_torch.experiments import streams
+
+    def calls(window):
+        monkeypatch.setattr(streams, "window", lambda device: window)
+        out = []
+        for grid, kind in cell_grids[cell]:
+            cuda_step.reset_launches()
+            answers = sweep_answers(sweep_call(grid, kind), kind)
+            out.append((answers, dict(cuda_step.LAUNCHES)))
+        return out
+
+    assert streams.window(card) == 8
+    calls(8)                                                # warm
+    got, want = calls(8), calls(1)
+    assert got == want
+    assert all(launches == CALL_LAUNCHES[cell] for _, launches in got)
+    assert all(not answers[1] for answers, _ in got)        # none quarantined
+
+
+@pytest.mark.parametrize("cell", list(SWEEP_CELLS))
+def test_buckets_of_one_call_run_side_by_side(card, cell_grids, cell):
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    kernel = "mix_step" if cell == "sched-4core" else "lane_step"
+    grid, kind = cell_grids[cell][-1]
+    sweep_call(grid, kind)                                   # warm
+    obs.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sweep_call(grid, kind)
+    spans = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns())
+                   for ev in prof.profiler.kineto_results.events()
+                   if "CUDA" in str(ev.device_type())
+                   and f"{kernel}_" in ev.name())
+    assert len(spans) == CALL_LAUNCHES[cell][kernel]
+    assert any(b[0] < a[1] for a, b in zip(spans, spans[1:])), spans
+    launches = sum(CALL_LAUNCHES[cell].values())
+    assert obs.COUNTS["sweep.overlapped_launches"] == launches - 1
+    obs.reset()
+
+
 # ---------------------------------------------------------------- SSD scan
 def ssd_equals_plain(args, shape, dtype):
     """One launch on ``args`` equals the plain version within the dtype's

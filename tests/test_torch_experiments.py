@@ -94,19 +94,19 @@ def jax_sched():
 @pytest.fixture(scope="module")
 def port_sched():
     """The sched grid through the port, and the mixes of each run-alone
-    baseline call it made."""
+    baseline launch it made."""
     calls = []
-    orig = P.multicore.alone_baseline_cycles
+    orig = P.multicore.launch_alone_baseline
 
     def counting(mixes, config, device=None):
         calls.append(len(mixes))
         return orig(mixes, config, device=device)
 
-    P.multicore.alone_baseline_cycles = counting
+    P.multicore.launch_alone_baseline = counting
     try:
         got = PE.run_mix_sweep(P_sched.make_grid(SCHED_N), device="cpu")
     finally:
-        P.multicore.alone_baseline_cycles = orig
+        P.multicore.launch_alone_baseline = orig
     return got, calls
 
 

@@ -85,22 +85,23 @@ def test_sweep_spans_and_counts():
         "sweep.bucket": buckets, "sweep.stack": buckets,
         "engine.pack": buckets, "engine.range_check": buckets,
         "sweep.wait": buckets, "sweep.readback": buckets}
-    assert obs.COUNTS == {}      # no copy to a card on the CPU
+    assert obs.COUNTS == {}      # no copy to a card, no overlap on the CPU
 
 
 def test_mix_sweep_spans_and_counts():
     traced(lambda: PE.run_mix_sweep(mix_grid(), device="cpu"))
     mixes, buckets = 2, len(POLICIES)
-    # each bucket stacks its mixes once and reads back twice (the cores'
-    # cycles, then the shared counters); the run-alone baselines are
-    # computed once a mix, each one lane launch read back once
+    # each bucket stacks its mixes once and reads back once (the cores'
+    # cycles and the shared counters); the run-alone baselines are computed
+    # once a mix, each one lane launch read back once; each launch is
+    # waited for once
     assert {k: v[0] for k, v in obs.SPANS.items()} == {
         "sweep.run": 1, "frontend.generate_trace": 2 * len(WORKLOADS),
         "sweep.bucket": buckets, "sweep.alone": mixes,
         "sweep.stack": buckets,
         "engine.pack": buckets + mixes, "engine.range_check": buckets + mixes,
-        "sweep.wait": 2 * buckets + mixes,
-        "sweep.readback": 2 * buckets + mixes}
+        "sweep.wait": buckets + mixes,
+        "sweep.readback": buckets + mixes}
 
 
 def test_a_cached_sweep_opens_no_bucket():
@@ -191,8 +192,11 @@ def test_launch_spans_and_copies_on_the_card():
     assert obs.SPANS["kernel.lane_step"][0] == lanes
     assert obs.SPANS["kernel.mix_step"][0] == mixes
     # six request fields, the window and the timing array a lane launch;
-    # the ranks besides a mix launch
-    assert obs.COUNTS == {"engine.h2d_copies": 8 * lanes + 9 * mixes}
+    # the ranks besides a mix launch. Every launch of a call but its first
+    # is issued before the one before it is collected: 2 of the sweep's
+    # buckets, and of the mix sweep's 2 run-alone and 2 mix launches
+    assert obs.COUNTS == {"engine.h2d_copies": 8 * lanes + 9 * mixes,
+                          "sweep.overlapped_launches": 1 + 3}
     # a span is no device work: on the device's timeline it is at most an
     # annotation
     for ev in prof.profiler.kineto_results.events():
