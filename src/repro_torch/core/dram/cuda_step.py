@@ -27,7 +27,9 @@ before the launch: ``smem`` whenever :func:`chain_bytes` fits a block.
   ``chip_smoke.py`` holds the kernels against them on the card.
 * ``LAUNCHES`` counts kernel launches, so a run can show that its path went
   through the kernels; ``BODIES`` counts the same launches by kernel and
-  body.
+  body. While tracing (:mod:`repro_torch.obs`), the counter
+  ``kernel.refresh_launches`` counts the launches of either kernel whose
+  refresh mode is on.
 
 Build: at first use :mod:`repro_torch.cuda_build` compiles each ``.cu``
 source for ``sm_90a`` into its own plain-C shared library (one ``nvcc`` per
@@ -259,6 +261,8 @@ def _launch(policy, n_banks, n_subarrays, t, refresh_mode, xs, mlp,
             raise RuntimeError(f"lane_step launch failed: CUDA error {err}")
         LAUNCHES["lane_step"] += 1
         BODIES["lane_step"][BODY_NAMES[which]] += 1
+        if refresh_mode:
+            obs.count("kernel.refresh_launches")
     # timing and scratch may be freed now: the caching allocator reuses
     # their memory only for later work on this same stream
     return sc, vis, maxc
@@ -355,6 +359,8 @@ def _launch_cores(policy, scheduler, n_banks, n_subarrays, t, refresh_mode,
             raise RuntimeError(f"mix_step launch failed: CUDA error {err}")
         LAUNCHES["mix_step"] += 1
         BODIES["mix_step"][BODY_NAMES[which]] += 1
+        if refresh_mode:
+            obs.count("kernel.refresh_launches")
     return sc, vis, maxc
 
 

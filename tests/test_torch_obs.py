@@ -10,7 +10,9 @@
 
 Everything runs on ``device="cpu"`` at a tiny size (the kernels' plain
 versions; the launch spans and the host-to-device counter exist only on a
-card, and the test marked ``cuda`` holds them there).
+card, and the test marked ``cuda`` holds them there). The counter of
+launches with refresh on is held on the launch wrappers themselves, with a
+stand-in for the kernels' library that launches nothing.
 """
 import pytest
 import torch
@@ -169,6 +171,83 @@ def test_count_and_reset():
     assert outer[2] == outer[1] - inner[1] and inner[2] == inner[1]
     obs.reset()
     assert obs.SPANS == {} and obs.COUNTS == {}
+
+
+# ---- kernel.refresh_launches: the launch wrappers on a stand-in library ----
+
+class _FakeLibrary:
+    """The C entries of both kernels, returning success and launching
+    nothing, so the launch wrappers run their host side on CPU tensors."""
+
+    def lane_step_launch(self, *args):
+        return 0
+
+    def mix_step_launch(self, *args):
+        return 0
+
+
+def _launch(kernel, refresh_mode):
+    from repro_torch.core.dram import cuda_step
+    t = P.DramTiming()
+    if kernel == "lane_step":
+        xs = torch.zeros((2, 4, 6), dtype=torch.int32)
+        mlp = torch.ones((2,), dtype=torch.int32)
+        cuda_step._launch(int(P.Policy.MASA), 8, 8, t, refresh_mode, xs,
+                          mlp, False)
+    else:
+        reqs = torch.zeros((1, 2, 4, 6), dtype=torch.int32)
+        ones = torch.ones((1, 2), dtype=torch.int32)
+        cuda_step._launch_cores(int(P.Policy.MASA), 0, 8, 8, t,
+                                refresh_mode, reqs, ones, ones, False)
+
+
+@pytest.fixture
+def stand_in_library(monkeypatch):
+    import contextlib
+    import types
+    from repro_torch.core.dram import cuda_step
+    monkeypatch.setattr(cuda_step, "_library", lambda name: _FakeLibrary())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(cuda_step, "LAUNCHES", dict.fromkeys(
+        cuda_step.LAUNCHES, 0))
+    monkeypatch.setattr(cuda_step, "BODIES", {
+        k: dict.fromkeys(cuda_step.BODY_NAMES, 0) for k in cuda_step.BODIES})
+    return cuda_step
+
+
+@pytest.mark.parametrize("kernel", ["lane_step", "mix_step"])
+def test_refresh_launches_one_count_a_launch_with_refresh_on(
+        stand_in_library, kernel):
+    # all_bank, dsarp, per_bank, darp, sarp
+    modes = [1, 2, 3, 4, 5]
+    with profile(activities=[ProfilerActivity.CPU]):
+        for mode in modes:
+            _launch(kernel, mode)
+    assert stand_in_library.LAUNCHES[kernel] == len(modes)
+    assert obs.COUNTS == {"kernel.refresh_launches": len(modes)}
+
+
+@pytest.mark.parametrize("kernel", ["lane_step", "mix_step"])
+def test_refresh_launches_none_with_refresh_off(stand_in_library, kernel):
+    with profile(activities=[ProfilerActivity.CPU]):
+        _launch(kernel, 0)
+        _launch(kernel, 0)
+        _launch(kernel, 4)
+    assert stand_in_library.LAUNCHES[kernel] == 3
+    assert obs.COUNTS == {"kernel.refresh_launches": 1}
+
+
+@pytest.mark.parametrize("kernel", ["lane_step", "mix_step"])
+def test_refresh_launches_nothing_while_no_profiler_records(
+        stand_in_library, kernel):
+    assert not torch.autograd.profiler._is_profiler_enabled
+    _launch(kernel, 1)
+    _launch(kernel, 0)
+    assert stand_in_library.LAUNCHES[kernel] == 2
+    assert obs.COUNTS == {} and obs.SPANS == {}
 
 
 @pytest.mark.cuda
