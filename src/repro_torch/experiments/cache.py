@@ -21,6 +21,12 @@ Keys equal the reference's: :func:`cell_key` hashes the config as
 :func:`reference_fields` renders it, with the reference's ``backend`` field
 at its default, so a journal written by the JAX package replays here as
 hits, and one written here replays there.
+
+A key is :func:`trace_digest` (the trace's arrays) finished by
+:func:`finish_key` (the window, policy and config). ``run_sweep`` digests
+each distinct trace object once a call and finishes every cell's key from
+a copy of that state; no digest outlives the call, since trace arrays are
+mutable.
 """
 from __future__ import annotations
 
@@ -54,18 +60,33 @@ def reference_fields(config: SimConfig) -> dict[str, Any]:
     return out
 
 
-def cell_key(trace: Trace, policy: Policy, config: SimConfig) -> str:
-    """Content hash of one (trace, policy, config) simulation point."""
+def trace_digest(trace: Trace) -> Any:
+    """The ``hashlib.sha256`` state after ``trace``'s six arrays: the part of a
+    :func:`cell_key` that every cell of one trace shares."""
     h = hashlib.sha256()
     for arr in (trace.bank, trace.subarray, trace.row,
                 trace.is_write, trace.gap, trace.dep):
         a = np.ascontiguousarray(arr)
         h.update(str(a.dtype).encode())
-        h.update(a.tobytes())
+        h.update(a)
+    return h
+
+
+def finish_key(digest: Any, trace: Trace, policy: Policy,
+               config: SimConfig) -> str:
+    """The :func:`cell_key` of (``trace``, ``policy``, ``config``), finished
+    from a copy of ``digest``, which is ``trace_digest(trace)`` and is left
+    as it was."""
+    h = digest.copy()
     fields = tuple(dataclasses.astuple(v) if dataclasses.is_dataclass(v)
                    else v for v in reference_fields(config).values())
     h.update(repr((int(trace.mlp_window), int(policy), fields)).encode())
     return h.hexdigest()[:24]
+
+
+def cell_key(trace: Trace, policy: Policy, config: SimConfig) -> str:
+    """Content hash of one (trace, policy, config) simulation point."""
+    return finish_key(trace_digest(trace), trace, policy, config)
 
 
 class ResultCache:

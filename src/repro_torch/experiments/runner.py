@@ -7,8 +7,9 @@ results via three mechanisms:
    n_banks, n_subarrays, seed); cells that differ only in policy / refresh /
    row-policy share one generated trace.
 2. **Content-hashed result cache** — every cell is keyed by
-   :func:`repro_torch.experiments.cache.cell_key` (the reference's keys); a
-   hit skips simulation entirely.
+   :func:`repro_torch.experiments.cache.cell_key` (the reference's keys),
+   the arrays of each distinct trace hashed once a call; a hit skips
+   simulation entirely.
    The baseline is therefore simulated once per (workload, geometry) cell, not
    once per mechanism policy compared against it.
 3. **Shape bucketing** — uncached cells are grouped by their static
@@ -67,7 +68,8 @@ from repro_torch.core.dram.policies import Policy
 from repro_torch.core.dram.trace import (ROW_SPACE_STRIDE, Trace,
                                          WorkloadProfile, generate_trace,
                                          stack_traces)
-from repro_torch.experiments.cache import ResultCache, cell_key
+from repro_torch.experiments.cache import (ResultCache, finish_key,
+                                          trace_digest)
 from repro_torch.experiments.grid import (Cell, MixCell, MixGrid, SweepGrid,
                                           _json_safe)
 from repro_torch.experiments import streams
@@ -311,8 +313,16 @@ def run_sweep(grid: SweepGrid, cache: ResultCache | None = None, *,
                         footprint_rows=grid.footprint_rows)
               for c in cells]
     with obs.span("sweep.cell_key"):
-        keys = [cell_key(tr, c.policy, c.config)
-                for tr, c in zip(traces, cells)]
+        # cells of one trace share its digest; ``traces`` holds every trace
+        # to the end of the call, so no id is reused within it
+        digests: dict[int, Any] = {}
+        keys = []
+        for tr, c in zip(traces, cells):
+            digest = digests.get(id(tr))
+            if digest is None:
+                digest = digests[id(tr)] = trace_digest(tr)
+                obs.count("sweep.trace_digests")
+            keys.append(finish_key(digest, tr, c.policy, c.config))
 
     # Partition: cached / to-simulate (deduping repeated keys within the sweep).
     counters_by_key: dict[str, dict[str, int]] = {}

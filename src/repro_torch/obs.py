@@ -19,7 +19,8 @@ spans are not stored here; they live on the profiler's timeline
 nest on one stack: the sweep path runs on one thread.
 
 The names the sweep path uses are listed in docs/experiments.md
-("Tracing").
+("Tracing"); besides them, ``run_sweep`` counts ``sweep.trace_digests``,
+one a distinct trace object whose arrays it hashes for its cells' keys.
 """
 from __future__ import annotations
 

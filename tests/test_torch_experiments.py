@@ -168,23 +168,79 @@ OVERRIDES = [
 ]
 
 
+def config_of(mod, ov):
+    """``mod``'s ``SimConfig`` with the overrides ``ov``, the scheduler
+    given by name."""
+    kw = dict(ov)
+    if "scheduler" in kw:
+        kw["scheduler"] = mod.Scheduler[kw["scheduler"]]
+    return mod.SimConfig(**kw)
+
+
 @pytest.mark.parametrize("ov", OVERRIDES, ids=lambda ov: "-".join(
     f"{k}={v}" for k, v in ov.items()) or "default")
 def test_cell_key_equals_reference(ov):
-    def cfg(mod):
-        kw = dict(ov)
-        if "scheduler" in kw:
-            kw["scheduler"] = mod.Scheduler[kw["scheduler"]]
-        return mod.SimConfig(**kw)
-
     for w, pol in (("mcf", "MASA"), ("gups", "BASELINE")):
-        rc, pc = cfg(R), cfg(P)
+        rc, pc = config_of(R, ov), config_of(P, ov)
         rt = RE.trace_for(R.workload(w), 64, rc, seed=3)
         pt = PE.trace_for(P.workload(w), 64, pc, seed=3)
         assert (PE.cell_key(pt, P.Policy[pol], pc)
                 == RE.cell_key(rt, R.Policy[pol], rc))
         assert list(P_cache.reference_fields(pc)) == [
             f.name for f in dataclasses.fields(rc)]
+
+
+#: overrides that leave a cell's trace as it is: one trace serves them all
+SHARED_TRACE_CONFIGS = (
+    {}, {"refresh": True}, {"refresh_policy": "darp"},
+    {"scheduler": "FRFCFS_SALP"}, {"row_policy": "closed"},
+    {"refresh": True, "dsarp": True})
+
+
+def test_one_digest_finishes_every_policy_and_config():
+    pt = PE.trace_for(P.workload("lbm"), 64, P.SimConfig(), seed=5)
+    rt = RE.trace_for(R.workload("lbm"), 64, R.SimConfig(), seed=5)
+    digest = P_cache.trace_digest(pt)
+    before = digest.hexdigest()
+    keys = set()
+    for ov in SHARED_TRACE_CONFIGS:
+        pc, rc = config_of(P, ov), config_of(R, ov)
+        assert PE.trace_for(P.workload("lbm"), 64, pc, seed=5) is pt
+        for pol in P.Policy:
+            got = P_cache.finish_key(digest, pt, pol, pc)
+            assert got == PE.cell_key(pt, pol, pc)
+            assert got == RE.cell_key(rt, R.Policy(int(pol)), rc)
+            keys.add(got)
+    assert digest.hexdigest() == before          # finishing copies the state
+    assert len(keys) == len(SHARED_TRACE_CONFIGS) * len(P.Policy)
+
+
+def shared_trace_grid():
+    """2 workloads x 3 policies x 2 configs that share each workload's
+    trace."""
+    return small_grid(workloads=wls(P, ("mcf", "lbm")),
+                      config_axes={"refresh": (False, True)})
+
+
+def test_sweep_keys_equal_cell_key_and_replay_from_a_journal(
+        tmp_path, monkeypatch):
+    grid = shared_trace_grid()
+    got = sweep(grid)
+    assert len(got.cells) == 2 * 3 * 2 == got.stats["n_unique"]
+    for c in got.cells:
+        tr = PE.trace_for(c.workload, N, c.config, grid.seed)
+        assert c.key == P_cache.cell_key(tr, c.policy, c.config)
+    journal = tmp_path / "journal.jsonl"
+    written = PE.PersistentResultCache(journal)
+    for c in got.cells:
+        written.put(c.key, c.counters)
+    written.flush()
+    monkeypatch.setattr(runner_mod, "_SIMULATE", None)     # must not run
+    replay = sweep(grid, PE.PersistentResultCache(journal))
+    assert replay.stats["cache_hits"] == replay.stats["n_cells"] == 12
+    assert replay.stats["simulated_cells"] == 0 == replay.stats["sim_batches"]
+    assert ([(c.key, c.counters) for c in replay.cells]
+            == [(c.key, c.counters) for c in got.cells])
 
 
 class TestBucketingAndCache:

@@ -6,7 +6,9 @@
   the path opens it, self time is at most the total, the spans nest as the
   code does in the profiler's own events, and each name's total in the
   table equals the profiler's;
-* the sweep results are bit for bit the same with tracing on and off.
+* the sweep results are bit for bit the same with tracing on and off;
+* a sweep digests each trace its cells share once, and counts that only
+  while tracing; a mix sweep digests none.
 
 Everything runs on ``device="cpu"`` at a tiny size (the kernels' plain
 versions; the launch spans and the host-to-device counter exist only on a
@@ -87,7 +89,35 @@ def test_sweep_spans_and_counts():
         "sweep.bucket": buckets, "sweep.stack": buckets,
         "engine.pack": buckets, "engine.range_check": buckets,
         "sweep.wait": buckets, "sweep.readback": buckets}
-    assert obs.COUNTS == {}      # no copy to a card, no overlap on the CPU
+    # one digest a workload's trace; no copy to a card, no overlap on the CPU
+    assert obs.COUNTS == {"sweep.trace_digests": len(WORKLOADS)}
+
+
+def shared_trace_grid():
+    """2 workloads x 3 policies x 2 configs: the 6 cells of a workload
+    share its trace."""
+    return PE.SweepGrid(name="obs-digests", workloads=WORKLOADS,
+                        policies=(P.Policy.BASELINE, P.Policy.SALP1,
+                                  P.Policy.MASA),
+                        n_requests=N, config_axes={"refresh": (False, True)})
+
+
+def test_one_trace_digest_a_workload_while_tracing():
+    got, _ = traced(lambda: PE.run_sweep(shared_trace_grid(),
+                                         PE.ResultCache(), device="cpu"))
+    assert len(got.cells) == 12
+    assert obs.COUNTS["sweep.trace_digests"] == len(WORKLOADS) == 2
+
+
+def test_no_trace_digest_counted_without_a_profiler():
+    assert not torch.autograd.profiler._is_profiler_enabled
+    PE.run_sweep(shared_trace_grid(), PE.ResultCache(), device="cpu")
+    assert obs.COUNTS.get("sweep.trace_digests", 0) == 0
+
+
+def test_a_mix_sweep_digests_no_trace():
+    traced(lambda: PE.run_mix_sweep(mix_grid(), device="cpu"))
+    assert obs.COUNTS.get("sweep.trace_digests", 0) == 0
 
 
 def test_mix_sweep_spans_and_counts():
@@ -275,7 +305,8 @@ def test_launch_spans_and_copies_on_the_card():
     # is issued before the one before it is collected: 2 of the sweep's
     # buckets, and of the mix sweep's 2 run-alone and 2 mix launches
     assert obs.COUNTS == {"engine.h2d_copies": 8 * lanes + 9 * mixes,
-                          "sweep.overlapped_launches": 1 + 3}
+                          "sweep.overlapped_launches": 1 + 3,
+                          "sweep.trace_digests": len(WORKLOADS)}
     # a span is no device work: on the device's timeline it is at most an
     # annotation
     for ev in prof.profiler.kineto_results.events():
